@@ -1,0 +1,145 @@
+"""The port's serving body and convert_video against the JAX package on
+the CPU.
+
+The JAX body runs with its Pallas kernels in interpret mode on the
+``conv_impl="xla"`` net; the port runs the plain PyTorch versions of its
+kernels (CPU tensors). Bounds over an 8-frame fp32 rollout on fast_demo:
+packed bytes mean |d| <= 0.26 LSB (1e-3 * 255) and max <= 2.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vidmat_torch.config import ModelConfig, PipelineConfig, RefineConfig
+from vidmat_torch.io.fixtures import synthetic_clip, synthetic_frames_only
+from vidmat_torch.models.weights import build_network, default_variables
+from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+H, W = 128, 192
+CFG = ModelConfig(space_to_depth=2)
+
+
+def _bodies(bg=None, alpha_only=False):
+    from vidmat.config import ModelConfig as JModelConfig
+    from vidmat.config import RefineConfig as JRefineConfig
+    from vidmat.models.matting_net import MattingNetwork as JNet
+    from vidmat.pipeline.stepfactory import build_serving_body as j_build
+
+    jcfg = JModelConfig(space_to_depth=2)
+    jbody, jplan = j_build(
+        JNet(jcfg), jcfg, JRefineConfig("guided"), H, W, 0.25,
+        cdtype=jnp.float32, use_pallas=True, pallas_interpret=True,
+        bg=None if bg is None else jnp.asarray(bg, jnp.float32),
+        alpha_only=alpha_only)
+    variables = default_variables(CFG)
+    net = build_network(CFG, variables)
+    body, plan = build_serving_body(net, CFG, RefineConfig("guided"), H, W,
+                                    0.25, cdtype=torch.float32, bg=bg,
+                                    alpha_only=alpha_only)
+    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+    return (jax.jit(jbody), jplan, jvars), (body, plan)
+
+
+@pytest.mark.parametrize("bg", [None, (0.0, 1.0, 0.0)])
+def test_serving_body_matches_jax(bg):
+    (jstep, jplan, jvars), (body, plan) = _bodies(bg)
+    assert (plan.pool, plan.net_h, plan.net_w, plan.state_h,
+            plan.state_w) == (jplan.pool, jplan.net_h, jplan.net_w,
+                              jplan.state_h, jplan.state_w)
+    assert jplan.packed and jplan.chunk_body is None
+    js, ts = jplan.make_state(1), plan.make_state(1)
+    diffs = []
+    for f, _ in synthetic_clip(H, W, 8, seed=3):
+        jo, js = jstep(jvars, jnp.asarray(f[None]), js)
+        to, ts = body(torch.from_numpy(f[None]), ts)
+        assert to.dtype == torch.uint32 and to.shape == (1, H, W)
+        a = np.asarray(jo).view(np.uint8).astype(int)
+        b = to.numpy().view(np.uint8).astype(int)
+        diffs.append(np.abs(a - b))
+    d = np.stack(diffs)
+    assert d.mean() <= 0.26 and d.max() <= 2, (d.mean(), d.max())
+
+
+def test_alpha_only_body_matches_jax():
+    (jstep, jplan, jvars), (body, plan) = _bodies(alpha_only=True)
+    assert plan.alpha_only and jplan.alpha_only
+    js, ts = jplan.make_state(1), plan.make_state(1)
+    diffs = []
+    for f, _ in synthetic_clip(H, W, 4, seed=5):
+        jo, js = jstep(jvars, jnp.asarray(f[None]), js)
+        to, ts = body(torch.from_numpy(f[None]), ts)
+        assert to.dtype == torch.uint8 and to.shape == (1, H, W)
+        diffs.append(np.abs(np.asarray(jo).astype(int)
+                            - to.numpy().astype(int)))
+    d = np.stack(diffs)
+    assert d.mean() <= 0.26 and d.max() <= 2, (d.mean(), d.max())
+
+
+def test_unported_branches_raise():
+    net = build_network(CFG, default_variables(CFG))
+    guided = RefineConfig("guided")
+    cases = [
+        (dict(ratio=1.0), "A.4"),
+        (dict(ratio=0.3), "A.4"),
+        (dict(refine=RefineConfig("errormap")), "A.11"),
+        (dict(refine=RefineConfig("none")), "A.4"),
+        (dict(need_fgr=True), "A.6"),
+        (dict(tile_size=64), "A.8"),
+        (dict(bg=torch.zeros(H, W, 3)), "A.9"),
+    ]
+    for kw, item in cases:
+        args = dict(refine=guided, ratio=0.25)
+        args.update(kw)
+        refine, ratio = args.pop("refine"), args.pop("ratio")
+        with pytest.raises(NotImplementedError, match=item):
+            build_serving_body(net, CFG, refine, H, W, ratio, **args)
+
+
+def test_convert_video_cpu_smoke():
+    from vidmat_torch import convert_video
+
+    frames = list(synthetic_frames_only(120, 180, 6, seed=1))
+    alphas = []
+    comps = []
+    pipe = PipelineConfig(downsample_ratio=0.25, chunk_size=4,
+                          dtype="float32")
+    m = convert_video(frames, output_alpha=alphas.append, pipe_cfg=pipe,
+                      device="cpu")
+    assert m["frames"] == 6 and len(alphas) == 6
+    for k in ("fps", "p50_ms", "p99_ms", "wall_s", "latency_granularity",
+              "device"):
+        assert k in m, k
+    assert alphas[0].shape == (120, 180) and alphas[0].dtype == np.uint8
+    m = convert_video(frames, output_composition=comps.append,
+                      pipe_cfg=pipe, device="cpu", max_frames=3)
+    assert m["frames"] == 3 and comps[0].shape == (120, 180, 4)
+    # The composite's alpha channel is the alpha-only output.
+    np.testing.assert_array_equal(comps[0][..., 3], alphas[0])
+    m = convert_video(frames, device="cpu")  # benchmark mode, bf16 preset
+    assert m["frames"] == 6 and m["fps"] > 0
+
+
+def test_convert_video_file_round_trip(tmp_path):
+    """Video-file input and output through cv2 (where installed)."""
+    cv2 = pytest.importorskip("cv2")
+    from vidmat_torch import convert_video
+    from vidmat_torch.io.writer import VideoWriter
+
+    src = str(tmp_path / "in.mp4")
+    w = VideoWriter(src)
+    for f in synthetic_frames_only(64, 128, 5, seed=2):
+        w.write(f)
+    w.close()
+    out = str(tmp_path / "alpha.mp4")
+    pipe = PipelineConfig(downsample_ratio=0.25, dtype="float32")
+    m = convert_video(src, output_alpha=out, pipe_cfg=pipe, device="cpu")
+    assert m["frames"] == 5
+    cap = cv2.VideoCapture(out)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 5

@@ -1,0 +1,129 @@
+"""The port's weight bridge and its shipped checkpoint.
+
+``vidmat_torch/checkpoints/fast_demo.npz`` is the JAX package's
+``checkpoints/fast_demo`` flattened to one npz entry per leaf, so the port
+loads it with numpy alone. Running this file as a script rewrites it:
+
+    python tests/test_torch_weights.py
+"""
+
+import ast
+import os
+import sys
+
+if __name__ == "__main__":
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NPZ = os.path.join(ROOT, "vidmat_torch", "checkpoints", "fast_demo.npz")
+
+
+def _restore_fast_demo():
+    from vidmat.config import ModelConfig as JModelConfig
+    from vidmat.models.weights import default_variables
+
+    variables = default_variables(JModelConfig(space_to_depth=2))
+    return jax.tree_util.tree_map(np.asarray, variables)
+
+
+def export() -> None:
+    from vidmat_torch.models.weights import save_npz
+
+    save_npz(NPZ, _restore_fast_demo())
+
+
+def test_committed_npz_equals_checkpoint():
+    from vidmat_torch.models.weights import flatten_variables, load_npz
+
+    want = flatten_variables(_restore_fast_demo())
+    got = flatten_variables(load_npz(NPZ))
+    assert sorted(got) == sorted(want)
+    assert len(got) == 76
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_state_dict_mapping_layouts():
+    """kernel (H, W, I, O) -> weight (O, I, H, W); BN scale/bias ->
+    weight/bias; batch_stats mean/var -> running_mean/var; seg_head kept."""
+    from vidmat_torch.models.weights import state_dict_from_jax
+
+    rng = np.random.RandomState(0)
+    k = rng.rand(3, 3, 5, 7).astype(np.float32)
+    variables = {
+        "params": {"d0": {"conv": {"kernel": k},
+                          "bn": {"scale": np.ones(7, np.float32),
+                                 "bias": np.full(7, 2.0, np.float32)}},
+                   "seg_head": {"kernel": k, "bias": np.zeros(7, np.float32)}},
+        "batch_stats": {"d0": {"bn": {"mean": np.full(7, 3.0, np.float32),
+                                      "var": np.full(7, 4.0, np.float32)}}},
+    }
+    sd = state_dict_from_jax(variables)
+    np.testing.assert_array_equal(sd["d0.conv.weight"].numpy(),
+                                  k.transpose(3, 2, 0, 1))
+    assert float(sd["d0.bn.bias"][0]) == 2.0
+    assert float(sd["d0.bn.running_mean"][0]) == 3.0
+    assert float(sd["d0.bn.running_var"][0]) == 4.0
+    assert "seg_head.weight" in sd and "seg_head.bias" in sd
+
+
+def test_fast_demo_loads_into_network():
+    from vidmat_torch.config import ModelConfig
+    from vidmat_torch.models.weights import build_network, default_variables
+
+    net = build_network(ModelConfig(space_to_depth=2),
+                        default_variables(ModelConfig(space_to_depth=2)))
+    n_params = sum(p.numel() for p in net.parameters())
+    n_stats = sum(b.numel() for b in net.buffers())
+    assert n_params + n_stats == 239788
+    assert all(not p.requires_grad for p in net.parameters())
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _port_files():
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "vidmat_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_imports_neither_jax_nor_vidmat():
+    bad = []
+    for path in _port_files():
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "orbax", "vidmat"):
+                bad.append(f"{os.path.relpath(path, ROOT)}: {mod}")
+    assert not bad, bad
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from vidmat_torch import convert_video
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert_video([np.zeros((64, 64, 3), np.uint8)])
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    export()
+    print(f"wrote {NPZ}")

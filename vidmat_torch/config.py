@@ -1,0 +1,86 @@
+"""Typed configuration for the PyTorch port (counterpart of vidmat/config.py).
+
+The dataclasses keep the field names and defaults of the JAX package so a
+configuration reads the same in both; fields no ported code reads yet are
+left out. The port carries its own copy: it imports nothing from
+``vidmat``.
+
+``preset_video_1080p`` is the port's serving preset. It differs from the
+JAX preset in one field: ``conv_impl="xla"``. The JAX package runs that
+configuration as plain convolutions outside any Pallas kernel; the port
+runs it as ``F.conv2d``. The planar conv kernels (``conv_impl="planar"``)
+are not ported yet (ROADMAP queue B, slice 2), so the port refuses
+``"planar"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters for the recurrent matting network."""
+
+    # Encoder channels at strides 2/4/8/16.
+    enc_channels: Tuple[int, int, int, int] = (16, 24, 40, 64)
+    # Decoder channels at strides 8/4/2/1.
+    dec_channels: Tuple[int, int, int, int] = (48, 32, 24, 16)
+    # Trimap variant: extra input channel carrying {0, 0.5, 1}.
+    use_trimap: bool = False
+    # Clean-plate variant: three extra input channels (plate RGB).
+    use_bg_plate: bool = False
+    # Split-half ConvGRU recurrence in each decoder stage.
+    recurrent: bool = True
+    bn_eps: float = 1e-5
+    # Space-to-depth input packing factor (1 = off, 2 = 2x2 pixels into
+    # channels, channel order [dy, dx, c]).
+    space_to_depth: int = 1
+    # "xla": plain convolutions (F.conv2d in the port). "planar" names the
+    # JAX package's planar Pallas forward, which the port does not have.
+    conv_impl: str = "xla"
+
+    @property
+    def in_channels(self) -> int:
+        # RGB, then the trimap byte, then the plate RGB.
+        return 3 + (1 if self.use_trimap else 0) + (
+            3 if self.use_bg_plate else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RefineConfig:
+    """Alpha refinement options."""
+
+    mode: str = "guided"  # "none" | "guided" | "errormap"
+    guided_radius: int = 4
+    guided_eps: float = 1e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Video pipeline configuration."""
+
+    # Coarse-pass scale; None = auto from resolution.
+    downsample_ratio: Optional[float] = None
+    # Frames per dispatch group (the port loops the per-frame body).
+    chunk_size: int = 1
+    # Compute dtype of the conv path.
+    dtype: str = "bfloat16"
+    refine: RefineConfig = dataclasses.field(default_factory=RefineConfig)
+    # Not ported yet (ROADMAP A.8, A.6): serving raises when set.
+    tile_size: Optional[int] = None
+    static_skip_eps: Optional[float] = None
+
+
+def preset_video_1080p() -> tuple[ModelConfig, PipelineConfig]:
+    """1080p recurrent serving with guided-filter refinement.
+
+    The s2d=2 model (shipped ``fast_demo`` weights) at downsample ratio
+    0.25 (pool 4 on a 1088x1920 bucket), guided refinement, chunk 4. The
+    net runs as plain convolutions (``conv_impl="xla"``); the ingest,
+    guided-filter and refine/composite stages run as hand-written CUDA
+    kernels on the card."""
+    return ModelConfig(space_to_depth=2, conv_impl="xla"), PipelineConfig(
+        downsample_ratio=0.25, chunk_size=4,
+        refine=RefineConfig(mode="guided"))

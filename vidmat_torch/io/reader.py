@@ -1,0 +1,87 @@
+"""Threaded prefetching frame source (counterpart of vidmat/io/reader.py).
+
+Decoding a video file needs ``cv2``; where it is not installed, pass an
+iterable of (H, W, 3) uint8 RGB frames."""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator, Optional, Union
+
+import numpy as np
+
+
+class VideoReader:
+    """Iterates (H, W, 3) uint8 RGB frames of a video file (needs cv2)."""
+
+    def __init__(self, path: str):
+        import cv2
+
+        self._cv2 = cv2
+        self.cap = cv2.VideoCapture(path)
+        if not self.cap.isOpened():
+            raise FileNotFoundError(path)
+        self.fps = self.cap.get(cv2.CAP_PROP_FPS) or 30.0
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            ok, frame = self.cap.read()
+            if not ok:
+                break
+            yield self._cv2.cvtColor(frame, self._cv2.COLOR_BGR2RGB)
+        self.cap.release()
+
+
+class FrameSource:
+    """One producer thread fills a bounded queue; iteration drains it.
+
+    ``start``/``count`` trim the stream: the first ``start`` frames are
+    decoded but not delivered, and delivery stops after ``count``."""
+
+    _END = object()
+
+    def __init__(self, frames: Union[str, Iterable[np.ndarray]],
+                 prefetch: int = 8, start: int = 0,
+                 count: Optional[int] = None):
+        if isinstance(frames, str):
+            reader = VideoReader(frames)
+            self.fps = reader.fps
+            self.frames: Iterable[np.ndarray] = reader
+        else:
+            self.fps = 30.0
+            self.frames = frames
+        if start < 0 or (count is not None and count < 0):
+            raise ValueError("start/count must be non-negative")
+        self.q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self._start = start
+        self._count = count
+        self._thread = threading.Thread(target=self._produce, daemon=True)
+        self._thread.start()
+
+    def _produce(self) -> None:
+        delivered = 0
+        try:
+            for i, frame in enumerate(self.frames):
+                if i < self._start:
+                    continue
+                if self._count is not None and delivered >= self._count:
+                    break
+                self.q.put(frame)
+                delivered += 1
+        finally:
+            self.q.put(self._END)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            item = self.q.get()
+            if item is self._END:
+                break
+            yield item
+
+
+def pad_frame(frame: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Edge-pad an (H, W, C) frame at the bottom and right to
+    (1, out_h, out_w, C), as vidmat/io/native.py pad_stack does."""
+    ph, pw = out_h - frame.shape[0], out_w - frame.shape[1]
+    return np.pad(frame, ((0, ph), (0, pw), (0, 0)), mode="edge")[None]

@@ -1,0 +1,55 @@
+"""Guided-filter statistics in plain PyTorch (counterpart of
+vidmat/ops/guided_filter.py: ``gray_guide`` and the edge-truncated box
+mean).
+
+The box mean sums the (2r+1)^2 window with zero padding, rows first, then
+columns, each pass adding the 2r+1 shifted terms in ascending order, and
+multiplies by 1 / (number of in-image pixels in the window). The CUDA
+kernel ``csrc/gf_coeffs.cu`` adds in the same order, so the two agree to
+the last bit wherever the compiler keeps each operation rounded.
+
+All arrays NHWC float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def gray_guide(rgb: torch.Tensor) -> torch.Tensor:
+    """Luma projection used as the guide. NHWC (..., 3) -> (..., 1)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype,
+                     device=rgb.device)
+    return (rgb * w).sum(dim=-1, keepdim=True)
+
+
+def box_sum(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Zero-padded (2r+1)^2 window sum of an NHWC tensor, rows then
+    columns."""
+    _, h, w, _ = x.shape
+    xp = F.pad(x, (0, 0, 0, 0, r, r))
+    s = xp[:, 0:h]
+    for d in range(1, 2 * r + 1):
+        s = s + xp[:, d:d + h]
+    sp = F.pad(s, (0, 0, r, r))
+    t = sp[:, :, 0:w]
+    for d in range(1, 2 * r + 1):
+        t = t + sp[:, :, d:d + w]
+    return t
+
+
+def inv_window_count(h: int, w: int, r: int, device="cpu") -> torch.Tensor:
+    """1 / (in-image pixels of each window), (1, H, W, 1) float32: the
+    separable count (min(i+r, H-1) - max(i-r, 0) + 1) * (same for j)."""
+    def counts(n):
+        i = torch.arange(n, device=device)
+        return torch.clamp(i + r, max=n - 1) - torch.clamp(i - r, min=0) + 1
+    cnt = (counts(h)[:, None] * counts(w)[None, :]).to(torch.float32)
+    return (1.0 / cnt)[None, :, :, None]
+
+
+def box_mean(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Edge-truncated (2r+1)^2 box mean of an NHWC tensor."""
+    _, h, w, _ = x.shape
+    return box_sum(x, r) * inv_window_count(h, w, r, x.device)

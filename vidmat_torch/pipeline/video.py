@@ -1,0 +1,235 @@
+"""Video pipeline (counterpart of vidmat/pipeline/video.py).
+
+  - a host thread decodes into a bounded prefetch queue (FrameSource)
+  - each frame is edge-padded to the /16 bucket on the host, copied to
+    the device from pinned memory, and run through the serving body;
+    the recurrent state never leaves the device
+  - a one-frame software pipeline: the device-to-host copy of frame t is
+    enqueued behind its compute and only waited for after frame t+1 has
+    been enqueued, so the host writes frame t while the device computes
+    frame t+1
+  - chunk_size K groups K frames per dispatch; the port runs the per-frame
+    body K times in a loop (the JAX package scans it) and records one
+    latency observation per group.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Iterable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from vidmat_torch._device import resolve_device
+from vidmat_torch.config import (ModelConfig, PipelineConfig,
+                                 preset_video_1080p)
+from vidmat_torch.io.reader import FrameSource, pad_frame
+from vidmat_torch.io.writer import open_sink
+from vidmat_torch.models.weights import build_network, default_variables
+from vidmat_torch.ops.composite import unpack_rgba_host
+from vidmat_torch.pipeline.stepfactory import build_serving_body
+from vidmat_torch.utils.metrics import RunMetrics
+
+Target = Union[str, Callable[[np.ndarray], None]]
+
+
+def auto_downsample_ratio(h: int, w: int) -> float:
+    """Coarse-pass ratio heuristic: aim the network at ~512 px on the
+    short side."""
+    short = min(h, w)
+    if short <= 512:
+        return 1.0
+    return max(0.125, 512.0 / short)
+
+
+class _Transfers:
+    """Host<->device copies for one device. On CUDA they go through pinned
+    memory and are asynchronous on the current stream; a device-to-host
+    copy returns a handle that ``wait`` turns into a numpy array."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+
+    def to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if not self.cuda:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def to_host(self, t: torch.Tensor):
+        if not self.cuda:
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    @staticmethod
+    def wait(handle) -> np.ndarray:
+        host, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        return host.numpy()
+
+
+class VideoPipeline:
+    """End-to-end video matting on the ``video_1080p`` configuration.
+
+    model_cfg / pipe_cfg default to ``preset_video_1080p()``. variables:
+    the network's weights as a nested dict of numpy arrays in the JAX
+    package's layout; None loads the shipped ``fast_demo`` weights.
+    device: "cuda" (default; raises without a CUDA device) or "cpu" (the
+    plain PyTorch versions of the kernels)."""
+
+    def __init__(self, model_cfg: Optional[ModelConfig] = None,
+                 pipe_cfg: Optional[PipelineConfig] = None,
+                 variables=None, downsample_ratio: Optional[float] = None,
+                 bg_color: Optional[Tuple[float, float, float]] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        preset_model, preset_pipe = preset_video_1080p()
+        self.model_cfg = model_cfg or preset_model
+        self.pipe_cfg = pipe_cfg or preset_pipe
+        self.device = resolve_device(device)
+        if variables is None:
+            variables = default_variables(self.model_cfg)
+        self.cdtype = (torch.bfloat16 if self.pipe_cfg.dtype == "bfloat16"
+                       else torch.float32)
+        self.net = build_network(
+            self.model_cfg, variables,
+            dtype=torch.bfloat16 if self.cdtype == torch.bfloat16 else None,
+            device=self.device)
+        self.downsample_ratio = downsample_ratio
+        self.bg_color = bg_color
+        self._step_cache = {}
+
+    def _build_step(self, h: int, w: int, ratio: float,
+                    need_fgr: bool = False, alpha_only: bool = False):
+        """The serving body for a (h, w) bucket at a coarse ratio, cached
+        per (h, w, ratio, need_fgr, alpha_only)."""
+        key = (h, w, ratio, need_fgr, alpha_only)
+        if key not in self._step_cache:
+            cfg = self.pipe_cfg
+            self._step_cache[key] = build_serving_body(
+                self.net, self.model_cfg, cfg.refine, h, w, ratio,
+                cdtype=self.cdtype, bg=self.bg_color, need_fgr=need_fgr,
+                alpha_only=alpha_only, tile_size=cfg.tile_size,
+                static_skip_eps=cfg.static_skip_eps)
+        return self._step_cache[key]
+
+    def run(self, input_source: Union[str, Iterable[np.ndarray]],
+            output_alpha: Optional[Target] = None,
+            output_foreground: Optional[Target] = None,
+            output_composition: Optional[Target] = None,
+            progress: bool = False,
+            start_frame: int = 0,
+            max_frames: Optional[int] = None) -> dict:
+        """Matte a frame stream. Each output target is a video path or a
+        callable that receives every (H, W[, C]) uint8 frame. Without
+        outputs the frames are processed and only metrics are returned
+        (benchmark mode). Returns the metrics dict."""
+        source = FrameSource(input_source, start=start_frame,
+                             count=max_frames)
+        xfer = _Transfers(self.device)
+        metrics = RunMetrics()
+        writers = {}
+        body = plan = state = None
+        crop = pad = None
+        pending = None  # device-to-host handle of the previous frame
+
+        def flush(handle):
+            out = xfer.wait(handle)
+            fh, fw = crop  # drop the bucket padding before encode
+            if plan.alpha_only:
+                writers["alpha"].write(out[0, :fh, :fw])
+                return
+            rgba = unpack_rgba_host(out)[0, :fh, :fw]
+            if "alpha" in writers:
+                writers["alpha"].write(rgba[..., 3])
+            if "fgr" in writers:
+                writers["fgr"].write(rgba[..., :3])
+            if "comp" in writers:
+                writers["comp"].write(rgba)
+
+        def step(host_frame):
+            nonlocal state
+            out, state = body(xfer.to_device(host_frame), state)
+            return xfer.to_host(out)
+
+        k = self.pipe_cfg.chunk_size
+        chunk_buf = []
+        n = 0
+        t_prev = time.perf_counter()
+        for frame in source:
+            if body is None:
+                fh, fw = frame.shape[:2]
+                # Ratio: explicit argument > PipelineConfig > heuristic.
+                ratio = self.downsample_ratio
+                if ratio is None:
+                    ratio = self.pipe_cfg.downsample_ratio
+                if ratio is None:
+                    ratio = auto_downsample_ratio(fh, fw)
+                ph, pw = fh + ((-fh) % 16), fw + ((-fw) % 16)
+                body, plan = self._build_step(
+                    ph, pw, ratio, need_fgr=bool(output_foreground),
+                    alpha_only=bool(output_alpha)
+                    and not output_foreground and not output_composition)
+                state = plan.make_state(1)
+                for name, target in (("alpha", output_alpha),
+                                     ("fgr", output_foreground),
+                                     ("comp", output_composition)):
+                    if target:
+                        writers[name] = open_sink(target, source.fps)
+                crop = (fh, fw)
+                pad = (ph, pw)
+            host_frame = (pad_frame(frame, *pad)
+                          if frame.shape[:2] != pad else frame[None])
+            if k > 1:
+                chunk_buf.append(host_frame)
+                if len(chunk_buf) < k:
+                    continue
+                handles = [step(f) for f in chunk_buf]
+                chunk_buf = []
+                if pending is not None:
+                    flush(pending)
+                for hd in handles[:-1]:
+                    flush(hd)
+                pending = handles[-1]  # overlap the last frame's copy
+                n += k
+                t_now = time.perf_counter()
+                metrics.record_chunk(t_now - t_prev, k)
+                t_prev = t_now
+                continue
+            handle = step(host_frame)
+            if pending is not None:
+                flush(pending)  # host writes frame t-1 while t computes
+            pending = handle
+            n += 1
+            t_now = time.perf_counter()
+            metrics.record_frame(t_now - t_prev)
+            t_prev = t_now
+            if progress and n % 50 == 0:
+                print(f"frame {n}", flush=True)
+
+        # Drain a partial last chunk per frame; each drained frame records
+        # its time so the fps denominator includes the tail.
+        for host_frame in chunk_buf:
+            handle = step(host_frame)
+            if pending is not None:
+                flush(pending)
+            pending = handle
+            n += 1
+            t_now = time.perf_counter()
+            metrics.record_frame(t_now - t_prev)
+            t_prev = t_now
+        if pending is not None:
+            flush(pending)
+        for wtr in writers.values():
+            wtr.close()
+        out = metrics.summary()
+        out["frames"] = n
+        out["device"] = (torch.cuda.get_device_name(self.device)
+                         if self.device.type == "cuda" else "cpu")
+        return out
