@@ -13,6 +13,9 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # The plain versions' float32 convolutions run in full float32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -60,3 +63,140 @@ def test_refine_kernel_within_one_lsb(dev, bg):
     k = fused_refine_composite(fr, a, b, bg, 4).view(torch.uint8).int()
     q = fused_refine_composite_plain(fr, a, b, bg, 4).view(torch.uint8).int()
     assert int((k - q).abs().max()) <= 1
+
+
+# ---- planar conv kernels (slice 2) ----
+
+
+def _close(got, want, ulps):
+    """Kernel vs plain on the card. Both sum the same float32 products in
+    another order, so after the cast to the plane dtype they differ by at
+    most ``ulps`` units in the last place of bfloat16 (2^-7 relative),
+    plus, where an intermediate was rounded (the fused kernels' mid, the
+    GRU's r * h) or a sum cancels to near zero, an absolute 2^-10 of the
+    tensor's largest value (a quarter of a bfloat16 unit at that value).
+    float32 planes: 1e-5 relative plus 1e-6 of the largest value."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    if want.dtype == torch.bfloat16:
+        tol = ulps * 2.0 ** -7 * w.abs() + 2.0 ** -10 * top
+    else:
+        tol = 1e-5 * w.abs() + 1e-6 * top
+    d = (g - w).abs()
+    worst = float((d / tol).max())
+    assert torch.isfinite(g).all() and worst <= 1.0, (
+        f"max |d| {float(d.max()):.3g}, max |want| {top:.3g}, "
+        f"{int((d > tol).sum())} of {d.numel()} beyond, worst {worst:.3g}")
+
+
+def _rand(g, shape, dev, dtype, scale=1.0):
+    return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+
+
+def _conv_args(g, cins, cout, k, dev, dtype):
+    fan = sum(cins) * k * k
+    w = _rand(g, (cout, sum(cins), k, k), dev, dtype, fan ** -0.5)
+    scale = (torch.rand(cout, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(cout, generator=g) * 0.1).to(dev)
+    return w, scale, bias
+
+
+def _gru_args(g, c, dev, dtype):
+    wg = _rand(g, (2 * c, 2 * c, 3, 3), dev, dtype, (18 * c) ** -0.5)
+    wc = _rand(g, (c, 2 * c, 3, 3), dev, dtype, (18 * c) ** -0.5)
+    bg = (torch.randn(2 * c, generator=g) * 0.1).to(dev)
+    bc = (torch.randn(c, generator=g) * 0.1).to(dev)
+    return wg, bg, wc, bc
+
+
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 4])
+def test_planar_conv_matches_plain(dev, dtype, n):
+    from vidmat_torch.ops.planar import planar_conv, planar_conv_plain
+
+    g = torch.Generator().manual_seed(3)
+    cases = [((5, 3, 4), 7, 3, 1, 20, 30), ((12,), 16, 3, 2, 36, 60),
+             ((64,), 64, 1, 1, 9, 15), ((6,), 9, 3, 2, 13, 21)]
+    for cins, cout, k, stride, h, w in cases:
+        xs = [_rand(g, (n, c, h, w), dev, dtype) for c in cins]
+        wt, sc, bi = _conv_args(g, cins, cout, k, dev, dtype)
+        for act in ("relu", "none"):
+            before = planar_conv.launches
+            got = planar_conv(xs, wt, sc, bi, stride, act)
+            assert planar_conv.launches == before + 1
+            want = planar_conv_plain(xs, wt, sc, bi, stride, act)
+            assert got.shape == want.shape and got.dtype == dtype
+            _close(got, want, 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 4])
+def test_planar_conv2_matches_plain(dev, dtype, n):
+    from vidmat_torch.ops.planar import planar_conv2, planar_conv2_plain
+
+    g = torch.Generator().manual_seed(4)
+    cases = [((16,), 24, 24, 2, "relu", 36, 60),
+             ((12, 12, 12), 16, 16, 1, "none", 20, 30),
+             ((5, 3), 6, 4, 2, "relu", 13, 21),
+             ((5,), 6, 4, 1, "none", 13, 21)]
+    for cins, cmid, cout, stride, act2, h, w in cases:
+        xs = [_rand(g, (n, c, h, w), dev, dtype) for c in cins]
+        w1, s1, b1 = _conv_args(g, cins, cmid, 3, dev, dtype)
+        w2, s2, b2 = _conv_args(g, (cmid,), cout, 3, dev, dtype)
+        got = planar_conv2(xs, w1, s1, b1, w2, s2, b2, stride, "relu", act2)
+        want = planar_conv2_plain(xs, w1, s1, b1, w2, s2, b2, stride,
+                                  "relu", act2)
+        assert got.shape == want.shape
+        _close(got, want, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 4])
+def test_planar_conv_gru_matches_plain(dev, dtype, n):
+    from vidmat_torch.ops.planar import (planar_conv_gru,
+                                         planar_conv_gru_plain)
+
+    g = torch.Generator().manual_seed(5)
+    for cins, c, h, w in (((64, 40), 24, 18, 30), ((16, 16, 16), 12, 72, 120),
+                          ((5, 7), 4, 13, 21)):
+        xs = [_rand(g, (n, ci, h, w), dev, dtype) for ci in cins]
+        wt, sc, bi = _conv_args(g, cins, 2 * c, 3, dev, dtype)
+        hp = _rand(g, (n, c, h, w), dev, dtype, 0.5)
+        gw = _gru_args(g, c, dev, dtype)
+        before = planar_conv_gru.launches
+        a, hn = planar_conv_gru(xs, wt, sc, bi, hp, *gw)
+        assert planar_conv_gru.launches == before + 1
+        wa, wh = planar_conv_gru_plain(xs, wt, sc, bi, hp, *gw)
+        _close(a, wa, 1)
+        _close(hn, wh, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 4])
+def test_planar_gru_matches_plain(dev, dtype, n):
+    from vidmat_torch.ops.planar import planar_gru, planar_gru_plain
+
+    g = torch.Generator().manual_seed(6)
+    for c, h, w in ((12, 20, 30), (24, 18, 30), (5, 13, 21)):
+        x = _rand(g, (n, c, h, w), dev, dtype)
+        hp = _rand(g, (n, c, h, w), dev, dtype, 0.5)
+        gw = _gru_args(g, c, dev, dtype)
+        before = planar_gru.launches
+        got = planar_gru(x, hp, *gw)
+        assert planar_gru.launches == before + 1
+        _close(got, planar_gru_plain(x, hp, *gw), 1)
+
+
+def test_planar_wrappers_raise_on_bad_input(dev):
+    from vidmat_torch.ops.planar import planar_conv
+
+    x = torch.zeros((1, 4, 8, 8), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((4, 4, 3, 3), device=dev, dtype=torch.float32)
+    s = torch.ones(4, device=dev)
+    with pytest.raises(ValueError):
+        planar_conv([x], w, s, s)  # weights not in the plane dtype
+    with pytest.raises(ValueError):
+        planar_conv([x.transpose(2, 3)], w.bfloat16(), s, s)

@@ -113,8 +113,15 @@ def test_space_to_depth_matches_jax():
 def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="A.10"):
         MattingNetwork(ModelConfig(use_trimap=True))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        MattingNetwork(ModelConfig(conv_impl="planar"))
+    # conv_impl="planar" builds the planar-kernel network.
+    from vidmat_torch.models.planar import PlanarNetwork
+
+    cfg = ModelConfig(space_to_depth=2, conv_impl="planar")
+    net = build_network(cfg, default_variables(cfg), dtype=torch.bfloat16)
+    assert isinstance(net, PlanarNetwork) and net.dtype == torch.bfloat16
+    assert net.d1_gru_wg.shape == (24, 24, 3, 3)
+    with pytest.raises(NotImplementedError, match="A.10"):
+        PlanarNetwork(ModelConfig(use_trimap=True, conv_impl="planar"), {})
     st = init_state(ModelConfig(space_to_depth=2), 1, 64, 96)
     assert isinstance(st, RecurrentState)
     assert st.h3.shape == (1, 4, 6, 24) and st.h1.shape == (1, 16, 24, 12)

@@ -5,12 +5,10 @@ configuration reads the same in both; fields no ported code reads yet are
 left out. The port carries its own copy: it imports nothing from
 ``vidmat``.
 
-``preset_video_1080p`` is the port's serving preset. It differs from the
-JAX preset in one field: ``conv_impl="xla"``. The JAX package runs that
-configuration as plain convolutions outside any Pallas kernel; the port
-runs it as ``F.conv2d``. The planar conv kernels (``conv_impl="planar"``)
-are not ported yet (ROADMAP queue B, slice 2), so the port refuses
-``"planar"``.
+``preset_video_1080p`` is the port's serving preset, as the JAX package
+ships it: ``conv_impl="planar"``, the net through the four planar conv
+kernels (``vidmat_torch/models/planar.py``). ``conv_impl="xla"`` runs the
+same variables as ``F.conv2d`` (``vidmat_torch/models/matting_net.py``).
 """
 
 from __future__ import annotations
@@ -37,8 +35,8 @@ class ModelConfig:
     # Space-to-depth input packing factor (1 = off, 2 = 2x2 pixels into
     # channels, channel order [dy, dx, c]).
     space_to_depth: int = 1
-    # "xla": plain convolutions (F.conv2d in the port). "planar" names the
-    # JAX package's planar Pallas forward, which the port does not have.
+    # "xla": plain convolutions (F.conv2d in the port). "planar": the net
+    # through the planar conv kernels (PlanarNetwork), BatchNorm folded.
     conv_impl: str = "xla"
 
     @property
@@ -63,7 +61,8 @@ class PipelineConfig:
 
     # Coarse-pass scale; None = auto from resolution.
     downsample_ratio: Optional[float] = None
-    # Frames per dispatch group (the port loops the per-frame body).
+    # Frames per dispatch group: one chunk-batched call on the planar net
+    # (ServingPlan.chunk_body), else a loop over the per-frame body.
     chunk_size: int = 1
     # Compute dtype of the conv path.
     dtype: str = "bfloat16"
@@ -77,10 +76,12 @@ def preset_video_1080p() -> tuple[ModelConfig, PipelineConfig]:
     """1080p recurrent serving with guided-filter refinement.
 
     The s2d=2 model (shipped ``fast_demo`` weights) at downsample ratio
-    0.25 (pool 4 on a 1088x1920 bucket), guided refinement, chunk 4. The
-    net runs as plain convolutions (``conv_impl="xla"``); the ingest,
-    guided-filter and refine/composite stages run as hand-written CUDA
-    kernels on the card."""
-    return ModelConfig(space_to_depth=2, conv_impl="xla"), PipelineConfig(
+    0.25 (pool 4 on a 1088x1920 bucket), guided refinement, chunk 4
+    (chunk-batched: ingest, encoder, guided-filter coefficients and the
+    fused tail once per chunk, the recurrent decoder per frame). The net
+    runs through the planar conv kernels (``conv_impl="planar"``, as in
+    vidmat/config.py); ingest, guided-filter and refine/composite run as
+    hand-written CUDA kernels too."""
+    return ModelConfig(space_to_depth=2, conv_impl="planar"), PipelineConfig(
         downsample_ratio=0.25, chunk_size=4,
         refine=RefineConfig(mode="guided"))

@@ -132,8 +132,13 @@ class MattingNetwork(nn.Module):
       alpha: (N, H, W, 1) float32 in [0, 1]
       fgr:   (N, H, W, 3) float32 in [0, 1]
 
-    The trimap pin and the segmentation pass of the JAX network are not
-    ported yet (ROADMAP A.10): trimap-conditioned configurations raise.
+    This is the network as plain convolutions (``conv_impl="xla"``). The
+    same variables run through the planar conv kernels as
+    ``vidmat_torch.models.planar.PlanarNetwork``, which ``build_network``
+    returns for ``conv_impl="planar"``; this module computes the same
+    function whatever ``conv_impl`` says. The trimap pin and the
+    segmentation pass of the JAX network are not ported yet (ROADMAP
+    A.10): trimap-conditioned configurations raise.
     """
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
@@ -143,10 +148,6 @@ class MattingNetwork(nn.Module):
             raise NotImplementedError(
                 "trimap-conditioned matting is not ported yet "
                 "(ROADMAP A.10)")
-        if cfg.conv_impl != "xla":
-            raise NotImplementedError(
-                f"conv_impl={cfg.conv_impl!r}: the planar conv kernels are "
-                "not ported yet (ROADMAP queue B, slice 2); use 'xla'")
         self.cfg = cfg
         # Compute dtype: None = float32 (parity path); torch.bfloat16 for
         # serving (parameters stay float32 and are cast per layer).

@@ -128,14 +128,83 @@ def default_variables(cfg: ModelConfig) -> Dict[str, Any]:
     return load_npz(path)
 
 
+def _conv_weight(kernel, dtype) -> torch.Tensor:
+    """Flax conv kernel (KH, KW, I, O) -> (O, I, KH, KW) in ``dtype``,
+    unscaled (the planar kernels' weight layout)."""
+    k = torch.from_numpy(np.ascontiguousarray(np.asarray(kernel, np.float32)))
+    return k.permute(3, 2, 0, 1).contiguous().to(dtype)
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(np.asarray(v, np.float32))
+
+
+def folded_planar_params(cfg: ModelConfig, variables: Dict[str, Any],
+                         dtype: torch.dtype = torch.float32
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-site parameters of the planar network, BatchNorm folded once.
+
+    Every conv site maps to {"w": (C_out, C_in, k, k) in ``dtype``,
+    "scale", "bias": (C_out,) float32}: a ConvBNAct's kernel cast unscaled
+    with its BatchNorm folded into (scale, bias) by ``fold_bn``; the head's
+    kernel with scale 1 and its conv bias. Decoder stages add
+    "<stage>_gru": {"wg": (2C, 2C, 3, 3), "bg": (2C,), "wc": (C, 2C, 3, 3),
+    "bc": (C,)}; the bottleneck gate is {"w": (C, F), "b": (F,)} float32.
+    The JAX package's ``fold_bn`` and ``conv_tap_weights`` compute the same
+    values in its layout (tests/test_torch_planar.py holds them equal)."""
+    from vidmat_torch.ops.planar import fold_bn
+
+    prm, stt = variables["params"], variables["batch_stats"]
+
+    def cba(p, st):
+        scale, bias = fold_bn(_f32(p["bn"]["scale"]), _f32(p["bn"]["bias"]),
+                              _f32(st["bn"]["mean"]), _f32(st["bn"]["var"]),
+                              cfg.bn_eps)
+        return {"w": _conv_weight(p["conv"]["kernel"], dtype),
+                "scale": scale, "bias": bias}
+
+    out = {}
+    for name in ("stem", "s2a", "s2b", "s3a", "s3b", "s4a", "s4b"):
+        out[name] = cba(prm["encoder"][name], stt["encoder"][name])
+    bp, bs = prm["bottleneck"], stt["bottleneck"]
+    out["proj"] = cba(bp["proj"], bs["proj"])
+    out["gate"] = {"w": _f32(np.asarray(bp["gate"]["kernel"])[0, 0]),
+                   "b": _f32(bp["gate"]["bias"])}
+    for name in ("d3", "d2", "d1"):
+        out[name] = cba(prm[name]["conv"], stt[name]["conv"])
+        if cfg.recurrent:
+            gp = prm[name]["gru"]
+            out[f"{name}_gru"] = {
+                "wg": _conv_weight(gp["gates"]["kernel"], dtype),
+                "bg": _f32(gp["gates"]["bias"]),
+                "wc": _conv_weight(gp["cand"]["kernel"], dtype),
+                "bc": _f32(gp["cand"]["bias"])}
+    out["d0"] = cba(prm["d0"], stt["d0"])
+    hb = _f32(prm["head"]["bias"])
+    out["head"] = {"w": _conv_weight(prm["head"]["kernel"], dtype),
+                   "scale": torch.ones_like(hb), "bias": hb}
+    return out
+
+
 def build_network(cfg: ModelConfig, variables: Dict[str, Any],
                   dtype: Optional[torch.dtype] = None,
-                  device="cpu"):
-    """A MattingNetwork in eval mode holding ``variables``. A co-trained
-    ``seg_head`` is left out: the segmentation pass is not ported yet
-    (ROADMAP A.10)."""
+                  device="cpu", fuse_pairs: bool = True):
+    """The network for ``cfg`` in eval mode holding ``variables``:
+    a PlanarNetwork (the four planar conv kernels, BatchNorm folded) for
+    ``conv_impl="planar"``, else a MattingNetwork (F.conv2d). ``dtype``:
+    compute (plane) dtype, None = float32. ``fuse_pairs`` selects the
+    planar network's fused kernels. A co-trained ``seg_head`` is left out:
+    the segmentation pass is not ported yet (ROADMAP A.10)."""
     from vidmat_torch.models.matting_net import MattingNetwork
 
+    if cfg.conv_impl == "planar":
+        from vidmat_torch.models.planar import PlanarNetwork
+
+        net = PlanarNetwork(cfg, folded_planar_params(
+            cfg, variables, dtype or torch.float32),
+            dtype=dtype or torch.float32, fuse_pairs=fuse_pairs)
+        net.requires_grad_(False)
+        return net.eval().to(device)
     sd = {k: v for k, v in state_dict_from_jax(variables).items()
           if not k.startswith("seg_head.")}
     net = MattingNetwork(cfg, dtype=dtype)

@@ -3,9 +3,9 @@
 Each source in ``vidmat_torch/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, at
 first use, and loaded with ``ctypes``. The library's name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Outputs go to ``vidmat_torch/build/`` (ignored by
-git); the ``-Xptxas -v`` report of each build (registers, shared memory,
+the source, the shared headers and the flags, so an edited source is
+rebuilt and a stale library is never loaded. Outputs go to
+``vidmat_torch/build/`` (ignored by git); the ``-Xptxas -v`` report of each build (registers, shared memory,
 spills) is kept beside it as ``<name>.log``.
 
 Only sources in this package are built. Nothing here runs at import time:
@@ -31,7 +31,13 @@ SOURCES = {
     "ingest": "ingest.cu",
     "gf_coeffs": "gf_coeffs.cu",
     "refine_composite": "refine_composite.cu",
+    "planar_conv": "planar_conv.cu",
+    "planar_conv2": "planar_conv2.cu",
+    "planar_gru": "planar_gru.cu",
 }
+
+#: headers in csrc/ the sources include; part of every library's hash
+HEADERS = ("planar_common.cuh",)
 
 # --fmad=false: every a*b+c is two IEEE-rounded operations, as in the plain
 # PyTorch versions (separate kernels) and the JAX reference. Division and
@@ -62,8 +68,9 @@ def nvcc_path() -> str:
 def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, SOURCES[name])
     h = hashlib.sha1()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in (src, *(os.path.join(CSRC_DIR, x) for x in HEADERS)):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 

@@ -3,9 +3,15 @@
 The body maps one uint8 frame batch through the serving chain:
 
   ingest (area pool + normalize, CUDA kernel)
-  -> recurrent matting net (F.conv2d, bf16, s2d-aware edge padding)
+  -> recurrent matting net (bf16, s2d-aware edge padding): the planar conv
+     kernels for conv_impl="planar" (the preset), F.conv2d for "xla"
   -> guided-filter coefficients at the coarse grid (CUDA kernel)
   -> fused refine + composite + RGBA pack at full resolution (CUDA kernel)
+
+On the planar net the plan also carries ``chunk_body``, which runs the
+stateless stages (ingest, encoder and bottleneck, guided-filter
+coefficients, the fused tail) once over a K-frame chunk and only the
+recurrent decoder per frame (vidmat/pipeline/stepfactory.py:656-693).
 
 Only the branch the ``video_1080p`` preset takes is ported: an integer
 coarse pool > 1, guided refinement, packed output (optionally reduced to
@@ -22,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from vidmat_torch.config import ModelConfig, RefineConfig
+from vidmat_torch.models.planar import PlanarNetwork
 from vidmat_torch.ops.gf import (guided_filter_coeffs,
                                  guided_filter_coeffs_plain)
 from vidmat_torch.ops.guided_filter import gray_guide
@@ -44,6 +51,9 @@ class ServingPlan:
     alpha_only: bool    # body returns (N, H, W) uint8 alpha, not packed
     # Zero recurrent carry for a batch size (None when non-recurrent).
     make_state: Callable = None
+    # chunk_body(frames_u8 (K, h, w, 3), state) -> (out (K, h, w), state):
+    # the K frames in one call, stateless stages batched (planar net only).
+    chunk_body: Optional[Callable] = None
 
 
 def _unported(what: str, item: str):
@@ -74,16 +84,17 @@ def build_serving_body(
 ) -> Tuple[Callable, ServingPlan]:
     """Build the serving body for a static (h, w, ratio) bucket.
 
-    net:      a MattingNetwork on the device the body runs on, built with
-              compute dtype ``cdtype``.
+    net:      the network (``build_network``: a PlanarNetwork for
+              conv_impl="planar", else a MattingNetwork) on the device the
+              body runs on, built with compute dtype ``cdtype``.
     bg:       (3,) float background color, or None (premultiplied output).
     alpha_only: return the (N, h, w) uint8 alpha byte instead of the
               packed words (a 4x smaller device-to-host copy).
     kernels:  True (serving): the stages call the kernel wrappers, which
               launch the CUDA kernels on CUDA tensors and run the plain
-              versions on CPU tensors. False: the stages call the plain
-              PyTorch versions on any device, the reference the kernel path
-              is held against on the card.
+              versions on CPU tensors. False: the stages (and the planar
+              net's convs) call the plain PyTorch versions on any device,
+              the reference the kernel path is held against on the card.
 
     Returns (body, plan) where
       body(frame_u8 (N, h, w, 3) uint8, state) -> (out, new_state)
@@ -135,13 +146,22 @@ def build_serving_body(
                                    guided_filter_coeffs_plain,
                                    fused_refine_composite_plain)
 
+    planar = isinstance(net, PlanarNetwork)
+
     def make_state(batch: int):
         if not model_cfg.recurrent:
             return None
+        if planar:
+            return net.init_state(batch, state_h, state_w)
         from vidmat_torch.models.matting_net import init_state
 
         dev = next(net.parameters()).device
         return init_state(model_cfg, batch, state_h, state_w, cdtype, dev)
+
+    def net_apply(xp, state):
+        if planar:
+            return net(xp, state, plain=not kernels)
+        return net(xp, state)
 
     def prep_net_input(x):
         """Edge-pad the coarse frame (N, net_h, net_w, C) to the s2d grid
@@ -152,10 +172,8 @@ def build_serving_body(
                    mode="replicate")
         return xp.permute(0, 2, 3, 1)
 
-    @torch.inference_mode()
-    def body(frame_u8: torch.Tensor, state):
-        x = ingest(frame_u8, pool=pool, out_dtype=cdtype)
-        alpha, fgr, new_state = net(prep_net_input(x), state)
+    def finish(frame_u8, x, alpha, fgr):
+        """Coefficients and the fused tail on coarse alpha/fgr."""
         alpha = alpha[:, :net_h, :net_w].float()
         fgr = fgr[:, :net_h, :net_w].float()
         # The guide comes from the ingested coarse frame (RGB channels).
@@ -163,9 +181,29 @@ def build_serving_body(
         p = torch.cat([alpha, fgr], dim=-1)
         ma, mb = gf_coeffs(guide, p, refine.guided_radius, refine.guided_eps)
         out = tail(frame_u8[..., :3], ma, mb, bg, pool)
-        return (alpha_byte(out) if alpha_only else out), new_state
+        return alpha_byte(out) if alpha_only else out
+
+    @torch.inference_mode()
+    def body(frame_u8: torch.Tensor, state):
+        x = ingest(frame_u8, pool=pool, out_dtype=cdtype)
+        alpha, fgr, new_state = net_apply(prep_net_input(x), state)
+        return finish(frame_u8, x, alpha, fgr), new_state
+
+    @torch.inference_mode()
+    def chunk_body(frames_u8: torch.Tensor, state):
+        x = ingest(frames_u8, pool=pool, out_dtype=cdtype)
+        enc = net.encode(prep_net_input(x), plain=not kernels)
+        alphas, fgrs = [], []
+        for i in range(frames_u8.shape[0]):
+            alpha, fgr, state = net.decode(enc.frame(i), state,
+                                           plain=not kernels)
+            alphas.append(alpha)
+            fgrs.append(fgr)
+        return finish(frames_u8, x, torch.cat(alphas), torch.cat(fgrs)), \
+            state
 
     plan = ServingPlan(net_h=net_h, net_w=net_w, state_h=state_h,
                        state_w=state_w, pool=pool, alpha_only=alpha_only,
-                       make_state=make_state)
+                       make_state=make_state,
+                       chunk_body=chunk_body if planar else None)
     return body, plan

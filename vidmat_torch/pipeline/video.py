@@ -8,9 +8,13 @@
     enqueued behind its compute and only waited for after frame t+1 has
     been enqueued, so the host writes frame t while the device computes
     frame t+1
-  - chunk_size K groups K frames per dispatch; the port runs the per-frame
-    body K times in a loop (the JAX package scans it) and records one
-    latency observation per group.
+  - chunk_size K groups K frames per dispatch and records one latency
+    observation per group. Where the plan has a chunk body (the planar
+    net), a full chunk is one call: the K frames go to the device as one
+    copy, the stateless stages run once over them and the recurrent
+    decoder per frame, and the K outputs come back as one copy. Otherwise
+    the per-frame body runs K times. A partial last chunk drains per
+    frame.
 """
 
 from __future__ import annotations
@@ -140,22 +144,26 @@ class VideoPipeline:
         pending = None  # device-to-host handle of the previous frame
 
         def flush(handle):
+            """Write every frame of one device-to-host copy."""
             out = xfer.wait(handle)
             fh, fw = crop  # drop the bucket padding before encode
-            if plan.alpha_only:
-                writers["alpha"].write(out[0, :fh, :fw])
-                return
-            rgba = unpack_rgba_host(out)[0, :fh, :fw]
-            if "alpha" in writers:
-                writers["alpha"].write(rgba[..., 3])
-            if "fgr" in writers:
-                writers["fgr"].write(rgba[..., :3])
-            if "comp" in writers:
-                writers["comp"].write(rgba)
+            for i in range(out.shape[0]):
+                if plan.alpha_only:
+                    writers["alpha"].write(out[i, :fh, :fw])
+                    continue
+                rgba = unpack_rgba_host(out[i:i + 1])[0, :fh, :fw]
+                if "alpha" in writers:
+                    writers["alpha"].write(rgba[..., 3])
+                if "fgr" in writers:
+                    writers["fgr"].write(rgba[..., :3])
+                if "comp" in writers:
+                    writers["comp"].write(rgba)
 
-        def step(host_frame):
+        def step(host_frames, fn=None):
+            """Run (N, h, w, 3) host frames through ``fn`` (the per-frame
+            body by default); returns the output's device-to-host handle."""
             nonlocal state
-            out, state = body(xfer.to_device(host_frame), state)
+            out, state = (fn or body)(xfer.to_device(host_frames), state)
             return xfer.to_host(out)
 
         k = self.pipe_cfg.chunk_size
@@ -190,13 +198,17 @@ class VideoPipeline:
                 chunk_buf.append(host_frame)
                 if len(chunk_buf) < k:
                     continue
-                handles = [step(f) for f in chunk_buf]
+                if plan.chunk_body is not None:
+                    handles = [step(np.concatenate(chunk_buf),
+                                    plan.chunk_body)]
+                else:
+                    handles = [step(f) for f in chunk_buf]
                 chunk_buf = []
                 if pending is not None:
                     flush(pending)
                 for hd in handles[:-1]:
                     flush(hd)
-                pending = handles[-1]  # overlap the last frame's copy
+                pending = handles[-1]  # overlap the last copy
                 n += k
                 t_now = time.perf_counter()
                 metrics.record_chunk(t_now - t_prev, k)
