@@ -12,8 +12,10 @@ Phases (any failure exits nonzero and prints no result line):
      bit-exact, guided-filter coefficients max |d| <= 1e-4,
      refine/composite bytes within +-1; the planar kernels at their 9
      call sites, and planar_gru at the 3 sites of the unfused network,
-     within 1-2 bf16 units in the last place, see close()), plus ragged
-     shapes per kernel
+     within 1-2 bf16 units in the last place, see close();
+     fused_refine_float at 1088x1920 pool 4 max |d| <= 1e-5;
+     composite_rgba_packed bit-exact in its four modes at 480x864 and
+     1088x1920), plus ragged shapes per kernel
   3. the serving chunk body (ingest, planar encoder, per-frame decoder,
      guided-filter coefficients, fused tail) at 1920x1088 on fast_demo in
      bf16, kernel path against the same body on the plain versions, over
@@ -29,6 +31,26 @@ Phases (any failure exits nonzero and prints no result line):
   5. the unfused planar network (fuse_pairs=False: planar_conv pairs,
      planar_conv + planar_gru stages) at 1080p over 4 frames against the
      fused one; planar_gru launches
+  S. MattingSession(1088, 1920) on the video_1080p model in bf16 (ingest,
+     planar net, GF coefficients, fused_refine_float per frame): 16
+     frames against the same session on the plain versions (alpha and
+     fgr mean |d| <= 2e-3, max <= 8e-3), launch counts, the per-frame
+     host split into H2D, body and D2H; static skip on 4 identical frames
+     (3 skips, the net once, bit-identical outputs); convert_video with
+     output_foreground on 8 preset frames (the float tail, not the fused
+     packed one)
+  C. convert_video on clip_480p (synthetic_demo at full resolution through
+     the planar kernels, composite_rgba_packed) over 100 synthetic 480x864
+     frames: launch counts, fps, alpha MAD within 1e-4 of the JAX
+     package's on the same clip; the planar kernels against their plain
+     versions at this net's 9 call sites (s2d=1, the rgb plane at d0 +
+     head), and the run's alpha bytes against the same frames through the
+     serving body on the plain versions (worst-frame mean |d| <= 0.5 LSB,
+     max <= 2). Then the JAX package's defaults (ModelConfig(),
+     PipelineConfig(): auto ratio, unfused guided tail) on 16 frames at
+     1080p: GF and composite_rgba_packed launch, the ingest and fused
+     tails do not; the GF kernel against plain on the coarse grid this
+     path gives it, and the alpha bytes against the plain body as above
   6. each kernel timed with CUDA events at the main-path shapes (L2
      flushed before every launch, the card kept busy while the host
      enqueues it), beside its bound, its plain version's
@@ -69,6 +91,15 @@ N_FRAMES = 64
 # Alpha MAD of the JAX package on the same 64-frame clip and configuration
 # (tests/torch_reference_mad.py, CPU): the port's MAD is held to it.
 JAX_REFERENCE_MAD = 0.08868
+# The same for clip_480p: 100 synthetic 480x864 frames (seed 0),
+# synthetic_demo at full resolution (tests/torch_reference_mad.py
+# clip_480p, CPU).
+CLIP_H, CLIP_W, CLIP_FRAMES = 480, 864, 100
+JAX_REFERENCE_MAD_480P = 0.00030
+# The port's MAD on that clip is held within this of the JAX package's: a
+# third of the quantity, so a wrong kernel cannot hide in it.
+CLIP_MAD_TOL = 1e-4
+SESSION_FRAMES = 16
 CHUNK = 4
 # The planar kernels' call sites on the main path, in call order: the
 # encoder per 4-frame chunk, the decoder and full-res stage per frame.
@@ -214,11 +245,88 @@ def phase_kernels(net, net_unfused, dev):
     assert int(d.max()) <= 1, int(d.max())
     torch.cuda.synchronize()
     chunk = torch.from_numpy(padded_clip(CHUNK, seed=11)).to(dev)
-    sites = capture_sites(net, net_unfused, chunk)
+    sites = capture_sites(net, net_unfused, coarse_input(net, chunk))
     errs.update(planar_kernel_checks(sites, dev))
     log(f"[2] kernels vs plain on the card: {json.dumps(errs)} "
         "(ragged shapes agree too)")
     return errs, (frame, guide, p, ma, mb), sites
+
+
+COMPOSITE_MODES = ("color", "none", "image", "per_frame")
+
+
+def composite_bg(mode, n, h, w, g, dev):
+    """The background of one composite_rgba_packed mode."""
+    import torch
+
+    if mode == "color":
+        return (0.2, 0.9, 0.4)
+    if mode == "none":
+        return None
+    shape = (h, w, 3) if mode == "image" else (n, h, w, 3)
+    return torch.rand(shape, generator=g).to(dev)
+
+
+def phase_tail_kernels(inputs, dev):
+    """fused_refine_float and composite_rgba_packed against their plain
+    versions: the float tail on the main-path frame and coefficient grids
+    (1088x1920, pool 4), composite in all four modes at 480x864 (random
+    mattes, alpha partly outside [0, 1]) and 1088x1920 (the float tail's
+    output), and both on ragged shapes. Returns {kernel name: max |d|}."""
+    import torch
+
+    from vidmat_torch.ops.composite import (composite_rgba_packed,
+                                            composite_rgba_packed_plain)
+    from vidmat_torch.ops.refine import (fused_refine_float,
+                                         fused_refine_float_plain)
+
+    frame, _, _, ma, mb = inputs
+    g = torch.Generator().manual_seed(12)
+
+    def refine_err(fr, a, b):
+        ka, kf = fused_refine_float(fr, a, b, 4)
+        pa, pf = fused_refine_float_plain(fr, a, b, 4)
+        assert ka.shape == pa.shape and kf.shape == pf.shape
+        assert bool(torch.isfinite(ka).all() and torch.isfinite(kf).all())
+        return float(max((ka - pa).abs().max(), (kf - pf).abs().max())), \
+            (ka, kf)
+
+    err_path, (alpha, fgr) = refine_err(frame, ma, mb)
+    fr = torch.randint(0, 256, (2, 36, 300, 3), generator=g,
+                       dtype=torch.uint8).to(dev)
+    a = (torch.rand((2, 9, 75, 4), generator=g) * 2 - 0.5).to(dev)
+    b = (torch.rand((2, 9, 75, 4), generator=g) - 0.5).to(dev)
+    err_ragged, _ = refine_err(fr, a, b)
+    errs = {"fused_refine_float": max(err_path, err_ragged)}
+    log(f"    fused_refine_float 1088x1920 pool 4: max |d| {err_path:.3g}; "
+        f"ragged 36x300: {err_ragged:.3g}")
+    assert errs["fused_refine_float"] <= 1e-5, errs
+
+    def mattes(n, h, w):
+        return (torch.rand((n, h, w, 3), generator=g).to(dev),
+                (torch.rand((n, h, w, 1), generator=g) * 1.2 - 0.1).to(dev))
+
+    cases = [("480x864", *mattes(2, CLIP_H, CLIP_W)),
+             ("1088x1920", fgr.expand(2, -1, -1, -1).contiguous(),
+              alpha.expand(2, -1, -1, -1).contiguous()),
+             ("ragged 37x53", *mattes(2, 37, 53))]
+    worst = 0
+    for label, f, al in cases:
+        n, h, w, _ = f.shape
+        for mode in COMPOSITE_MODES:
+            bg = composite_bg(mode, n, h, w, g, dev)
+            k = composite_rgba_packed(f, al, bg)
+            p = composite_rgba_packed_plain(f, al, bg)
+            assert k.shape == (n, h, w) and k.dtype == torch.uint32
+            d = int((k.view(torch.uint8).int()
+                     - p.view(torch.uint8).int()).abs().max())
+            worst = max(worst, d)
+            assert d == 0, (label, mode, d)
+    torch.cuda.synchronize()
+    errs["composite_rgba_packed"] = float(worst)
+    log(f"    composite_rgba_packed bit-exact in modes {COMPOSITE_MODES} at "
+        f"{', '.join(c[0] for c in cases)}")
+    return errs, (alpha, fgr)
 
 
 def planar_ops():
@@ -252,22 +360,30 @@ def close(got, want, ulps):
     return float(d.max())
 
 
-def capture_sites(net, net_unfused, chunk_u8):
-    """The arguments of every planar call on the main path for one 4-frame
-    chunk (encoder over the chunk, decoder on its first frame), and of the
-    unfused network's planar_gru calls, recorded through the plain
-    versions. Returns {site: (op key, args)}."""
-    import torch
+def coarse_input(net, chunk_u8):
+    """The main path's network input for a chunk of padded frames: the
+    plain ingest at pool 4, edge-padded to the s2d grid."""
     import torch.nn.functional as F
 
-    import vidmat_torch.models.planar as pm
     from vidmat_torch.ops.ingest import ingest_pool_normalize_plain
 
     x = ingest_pool_normalize_plain(chunk_u8, pool=4)
     mult = 16 * net.cfg.space_to_depth
     nh, nw = x.shape[1:3]
-    xp = F.pad(x.permute(0, 3, 1, 2), (0, -nw % mult, 0, -nh % mult),
-               mode="replicate").permute(0, 2, 3, 1)
+    return F.pad(x.permute(0, 3, 1, 2), (0, -nw % mult, 0, -nh % mult),
+                 mode="replicate").permute(0, 2, 3, 1)
+
+
+def capture_sites(net, net_unfused, xp):
+    """The arguments of every planar call the network input ``xp`` (a
+    chunk of frames, s2d-padded) gives: the encoder over the chunk, the
+    decoder on its first frame and, unless ``net_unfused`` is None, the
+    unfused network's planar_gru calls, recorded through the plain
+    versions. Returns {site: (op key, args)}."""
+    import torch
+
+    import vidmat_torch.models.planar as pm
+
     calls = []
     saved = dict(pm._PLAIN)
 
@@ -284,19 +400,20 @@ def capture_sites(net, net_unfused, chunk_u8):
         net.decode(net.encode(xp, plain=True).frame(0), st, plain=True)
         fused = list(calls)
         calls.clear()
-        enc = net_unfused.encode(xp, plain=True)
-        net_unfused.decode(enc.frame(0), st, plain=True)
+        if net_unfused is not None:
+            enc = net_unfused.encode(xp, plain=True)
+            net_unfused.decode(enc.frame(0), st, plain=True)
     pm._PLAIN.update(saved)
     assert [k for k, _ in fused] == [k for _, k in SITES], fused
     gru = [c for c in calls if c[0] == "gru"]
-    assert len(gru) == len(GRU_SITES)
+    assert len(gru) == (0 if net_unfused is None else len(GRU_SITES))
     return {name: call for (name, _), call in zip(SITES + GRU_SITES,
                                                   fused + gru)}
 
 
-def planar_kernel_checks(sites, dev):
+def planar_kernel_checks(sites, dev, ragged=True):
     """Each planar kernel against its plain version at its call sites and
-    on ragged shapes; returns {kernel name: max |d|}."""
+    (with ``ragged``) on ragged shapes; returns {kernel name: max |d|}."""
     import torch
 
     ops = planar_ops()
@@ -312,6 +429,9 @@ def planar_kernel_checks(sites, dev):
         x0 = args[0] if key == "gru" else args[0][0]
         log(f"    {site:8s} {kern.__name__:16s} {tuple(x0.shape)} "
             f"max |d| {e:.3g}")
+    if not ragged:
+        torch.cuda.synchronize()
+        return errs
 
     # Ragged shapes (tile edges cut the image), both plane dtypes, batch 2.
     g = torch.Generator().manual_seed(7)
@@ -421,18 +541,20 @@ def phase_main_path(kernels):
     (planar preset, chunk 4); then the conv_impl="xla" path on 16."""
     import numpy as np
 
-    from vidmat_torch import convert_video
+    from vidmat_torch import convert_video, preset_video_1080p
     from vidmat_torch.config import ModelConfig
     from vidmat_torch.utils.metrics import mad
 
     frames, gt = clip(N_FRAMES, seed=0)
-    convert_video(frames[:8], output_alpha=lambda a: None)  # warm-up
+    preset = dict(zip(("model_cfg", "pipe_cfg"), preset_video_1080p()))
+    convert_video(frames[:8], output_alpha=lambda a: None,
+                  **preset)  # warm-up
     alphas = []
-    for fn in kernels:
-        fn.launches = 0
-    m = convert_video(frames, output_alpha=lambda a: alphas.append(a.copy()))
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    bench = convert_video(frames)  # packed words D2H
+    zero_counts(kernels)
+    m = convert_video(frames, output_alpha=lambda a: alphas.append(a.copy()),
+                      **preset)
+    launches = counts(kernels)
+    bench = convert_video(frames, **preset)  # packed words D2H
     assert m["frames"] == N_FRAMES and len(alphas) == N_FRAMES, m
     assert alphas[0].shape == (FRAME_H, FRAME_W)
     alpha_mad = float(np.mean([mad(a.astype(np.float32) / 255.0, g)
@@ -444,22 +566,25 @@ def phase_main_path(kernels):
         f"{JAX_REFERENCE_MAD}); launches {launches}")
     log(f"    benchmark mode (packed RGBA D2H): fps {bench['fps']:.2f}, "
         f"p50 {bench['p50_ms']:.3f} ms")
-    assert launches == MAIN_PATH_LAUNCHES, launches
+    assert launches == dict(MAIN_PATH_LAUNCHES, fused_refine_float=0,
+                            composite_rgba_packed=0), launches
     assert abs(alpha_mad - JAX_REFERENCE_MAD) <= 5e-3, alpha_mad
 
     # Slice 1's configuration: the net as F.conv2d, the three other
     # kernels still on the path.
     xla = ModelConfig(space_to_depth=2, conv_impl="xla")
-    convert_video(frames[:4], output_alpha=lambda a: None, model_cfg=xla)
-    for fn in kernels:
-        fn.launches = 0
-    mx = convert_video(frames[:16], output_alpha=lambda a: None,
-                       model_cfg=xla)
-    xla_launches = {fn.__name__: fn.launches for fn in kernels}
+    preset["model_cfg"] = xla
+    convert_video(frames[:4], output_alpha=lambda a: None, **preset)
+    zero_counts(kernels)
+    mx = convert_video(frames[:16], output_alpha=lambda a: None, **preset)
+    xla_launches = counts(kernels)
     log(f"    conv_impl='xla', 16 frames: fps {mx['fps']:.2f}; launches "
         f"{xla_launches}")
-    for name, n in xla_launches.items():
-        assert (n > 0) == (not name.startswith("planar_")), xla_launches
+    assert xla_launches == dict(
+        ingest_pool_normalize=16, guided_filter_coeffs=16,
+        fused_refine_composite=16, planar_conv=0, planar_conv2=0,
+        planar_conv_gru=0, planar_gru=0, fused_refine_float=0,
+        composite_rgba_packed=0), xla_launches
     return m, bench, launches, alpha_mad
 
 
@@ -496,6 +621,276 @@ def phase_unfused(net, net_unfused, dev):
     assert launches == 3 * CHUNK, launches
     assert worst <= 1e-6, worst
     return launches
+
+
+def counts(kernels):
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def zero_counts(kernels):
+    for fn in kernels:
+        fn.launches = 0
+
+
+# Per frame of the planar net: stem and proj, three encoder pairs and
+# d0 + head, three decoder stages.
+PLANAR_PER_FRAME = {"planar_conv": 2, "planar_conv2": 4,
+                    "planar_conv_gru": 3, "planar_gru": 0}
+
+
+def expect(kernels, per_frame, frames):
+    """Launch counts of ``frames`` frames of a per-frame path that
+    launches ``per_frame`` (kernel name -> launches per frame; others 0)."""
+    return {fn.__name__: frames * per_frame.get(fn.__name__, 0)
+            for fn in kernels}
+
+
+def step_split(stepper, frames):
+    """Per-frame host ms of the stages of ``VideoStepper.step``, each
+    waited for: "h2d" (the frame to the device), "body" (the serving body)
+    and "d2h" (alpha and fgr back to the host), over ``frames`` from a
+    fresh carry."""
+    import torch
+
+    t = {"h2d": 0.0, "body": 0.0, "d2h": 0.0}
+    stepper.reset()
+    for f in frames:
+        a = time.perf_counter()
+        x = stepper._device_frame(f)
+        torch.cuda.synchronize()
+        b = time.perf_counter()
+        (alpha, fgr), stepper.state = stepper._step(x, stepper.state)
+        torch.cuda.synchronize()
+        c = time.perf_counter()
+        alpha[0].cpu().numpy(), fgr[0].cpu().numpy()
+        d = time.perf_counter()
+        t["h2d"] += b - a
+        t["body"] += c - b
+        t["d2h"] += d - c
+    return {k: v * 1e3 / len(frames) for k, v in t.items()}
+
+
+def phase_session(kernels, dev):
+    """Path A: MattingSession(1088, 1920) on the video_1080p model
+    (fast_demo, s2d=2, planar) at ratio 0.25 in bf16, one frame per step:
+    ingest, planar net, GF coefficients, fused_refine_float. 16 frames
+    against the same stepper on the plain versions; launch counts; the
+    per-frame host split (each stage waited for). Then static skip on four
+    identical frames and convert_video(output_foreground) on 8 preset
+    frames."""
+    import numpy as np
+
+    from vidmat_torch import MattingSession, convert_video, preset_video_1080p
+    from vidmat_torch.pipeline.stepper import VideoStepper
+
+    mcfg, pcfg = preset_video_1080p()
+    frames = padded_clip(SESSION_FRAMES, seed=6)
+    kw = dict(model_cfg=mcfg, downsample_ratio=RATIO, dtype="bfloat16")
+    sess = MattingSession(H, W, **kw)
+    plain = VideoStepper(mcfg, H, W, downsample_ratio=RATIO,
+                         dtype="bfloat16", device=dev, kernels=False)
+    for st in (sess, plain):  # warm-up
+        st.step(frames[0])
+        st.reset()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    outs = [sess.step(f) for f in frames]
+    wall = (time.perf_counter() - t0) * 1e3 / SESSION_FRAMES
+    launches = counts(kernels)
+    split = step_split(sess._stepper, frames)
+    worst_mean = worst_max = 0.0
+    for f, (ka, kf) in zip(frames, outs):
+        assert ka.shape == (H, W, 1) and kf.shape == (H, W, 3)
+        assert ka.dtype == np.float32 and np.isfinite(ka).all() \
+            and np.isfinite(kf).all()
+        pa, pf = plain.step(f)
+        for k, p in ((ka, pa), (kf, pf)):
+            d = np.abs(k - p)
+            worst_mean = max(worst_mean, float(d.mean()))
+            worst_max = max(worst_max, float(d.max()))
+    log(f"[S] MattingSession 1088x1920 bf16, {SESSION_FRAMES} frames, "
+        f"kernels vs plain: alpha/fgr worst-frame mean |d| {worst_mean:.3g}, "
+        f"max {worst_max:.3g}; launches {launches}")
+    log(f"    per frame {wall:.3f} ms through step(); its stages, each "
+        f"waited: H2D {split['h2d']:.3f} + body {split['body']:.3f} + D2H "
+        f"{split['d2h']:.3f} ms (alpha + fgr float32, 33.4 MB)")
+    want = expect(kernels, dict(PLANAR_PER_FRAME, ingest_pool_normalize=1,
+                                guided_filter_coeffs=1, fused_refine_float=1),
+                  SESSION_FRAMES)
+    assert launches == want, (launches, want)
+    assert worst_mean <= 2e-3 and worst_max <= 8e-3, (worst_mean, worst_max)
+
+    skip = MattingSession(H, W, static_skip_eps=0.5 / 255, **kw)
+    zero_counts(kernels)
+    souts = [skip.step(frames[0]) for _ in range(4)]
+    skip_launches = counts(kernels)
+    skips = skip._stepper.state[1][3]
+    log(f"    static skip, 4 identical frames: {skips} skipped; launches "
+        f"{skip_launches}")
+    assert skips == 3, skips
+    want = expect(kernels, PLANAR_PER_FRAME, 1)
+    want.update(ingest_pool_normalize=4, guided_filter_coeffs=1,
+                fused_refine_float=4)
+    assert skip_launches == want, (skip_launches, want)
+    for a, f in souts[1:]:
+        assert np.array_equal(a, souts[0][0]) and np.array_equal(
+            f, souts[0][1]), "static skip: outputs differ"
+
+    src = clip(8, seed=6)[0]
+    fgrs, alphas = [], []
+    zero_counts(kernels)
+    m = convert_video(src, output_foreground=fgrs.append,
+                      output_alpha=alphas.append, model_cfg=mcfg,
+                      pipe_cfg=pcfg)
+    fg_launches = counts(kernels)
+    log(f"    convert_video output_foreground, 8 preset frames: fps "
+        f"{m['fps']:.2f}; launches {fg_launches}")
+    assert m["frames"] == 8 and len(fgrs) == 8 and len(alphas) == 8
+    assert fgrs[0].shape == (FRAME_H, FRAME_W, 3) and fgrs[0].dtype == np.uint8
+    assert fg_launches["fused_refine_float"] == 8, fg_launches
+    assert fg_launches["fused_refine_composite"] == 0, fg_launches
+    return dict(launches=launches, split=split, wall_ms=wall,
+                mean=worst_mean, max=worst_max)
+
+
+def plain_twin(net, mcfg, pcfg, frames, alphas, dev):
+    """Run ``frames`` (source frames, as convert_video took them) through
+    the serving body on the plain versions, built as convert_video builds
+    its own (bucket, ratio, alpha-only output) on ``net`` (the same
+    weights), and hold the kernel run's alpha bytes ``alphas`` to it.
+    Returns (worst-frame mean |d|, max |d|) in LSB."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch.io.reader import pad_frame
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+    from vidmat_torch.pipeline.video import auto_downsample_ratio
+
+    fh, fw = frames[0].shape[:2]
+    ph, pw = fh + (-fh) % 16, fw + (-fw) % 16
+    ratio = pcfg.downsample_ratio
+    if ratio is None:
+        ratio = auto_downsample_ratio(fh, fw)
+    body, plan = build_serving_body(net, mcfg, pcfg.refine, ph, pw, ratio,
+                                    alpha_only=True, kernels=False)
+    state = plan.make_state(1)
+    worst_mean = worst_max = 0.0
+    for f, a in zip(frames, alphas):
+        out, state = body(torch.from_numpy(pad_frame(f, ph, pw)).to(dev),
+                          state)
+        d = np.abs(out[0, :fh, :fw].cpu().numpy().astype(np.int16)
+                   - a.astype(np.int16))
+        worst_mean = max(worst_mean, float(d.mean()))
+        worst_max = max(worst_max, float(d.max()))
+    assert worst_mean <= 0.5 and worst_max <= 2, (worst_mean, worst_max)
+    return worst_mean, worst_max
+
+
+def phase_clip_480p(kernels, dev):
+    """clip_480p through convert_video (synthetic_demo at full resolution:
+    the planar net on the frame itself, then composite_rgba_packed) on 100
+    synthetic 480x864 frames; then the JAX package's defaults on 16 frames
+    at 1080p (F.conv2d net at an auto ratio, guided_upsample through the
+    GF kernel, composite_rgba_packed). Each run is held to the same frames
+    through the plain versions, and the kernels to their plain versions at
+    the call sites these paths add (the s2d=1 planar net at 480x864, GF on
+    the defaults' coarse grid). Returns (result, {kernel name: max |d|})."""
+    import numpy as np
+    import torch
+
+    import vidmat_torch.ops.gf as gf
+    from vidmat_torch import (ModelConfig, PipelineConfig, convert_video,
+                              preset_clip_480p)
+    from vidmat_torch.io.fixtures import synthetic_clip
+    from vidmat_torch.models.weights import build_network, default_variables
+    from vidmat_torch.utils.metrics import mad
+
+    frames, gt = [], []
+    for f, a in synthetic_clip(CLIP_H, CLIP_W, CLIP_FRAMES, seed=0):
+        frames.append(f)
+        gt.append(a[..., 0])
+    mcfg, pcfg = preset_clip_480p()
+    convert_video(frames[:10], output_alpha=lambda a: None, model_cfg=mcfg,
+                  pipe_cfg=pcfg)  # warm-up
+    alphas = []
+    zero_counts(kernels)
+    m = convert_video(frames, output_alpha=lambda a: alphas.append(a.copy()),
+                      model_cfg=mcfg, pipe_cfg=pcfg)
+    launches = counts(kernels)
+    assert m["frames"] == CLIP_FRAMES and alphas[0].shape == (CLIP_H, CLIP_W)
+    alpha_mad = float(np.mean([mad(a.astype(np.float32) / 255.0, g)
+                               for a, g in zip(alphas, gt)]))
+    log(f"[C] convert_video clip_480p, {CLIP_FRAMES}x{CLIP_W}x{CLIP_H} "
+        f"alpha-only: fps {m['fps']:.2f}, p50 {m['p50_ms']:.3f} ms "
+        f"({m.get('latency_granularity', 'per-frame')}), alpha MAD vs ground "
+        f"truth {alpha_mad:.5f} (JAX reference {JAX_REFERENCE_MAD_480P}); "
+        f"launches {launches}")
+    want = expect(kernels, dict(PLANAR_PER_FRAME, composite_rgba_packed=1),
+                  CLIP_FRAMES)
+    assert launches == want, (launches, want)
+    assert abs(alpha_mad - JAX_REFERENCE_MAD_480P) <= CLIP_MAD_TOL, alpha_mad
+
+    net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
+                        device=dev)
+    # The full-resolution input (the body's cast of frame / 255, no pad:
+    # 480x864 is on the 16 grid) of the run's first frame.
+    x0 = (torch.from_numpy(frames[0])[None].to(dev).float()
+          * (1.0 / 255.0)).to(torch.bfloat16)
+    log("    planar kernels vs plain at the s2d=1 net's sites (480x864):")
+    errs = planar_kernel_checks(capture_sites(net, None, x0), dev,
+                                ragged=False)
+    twin = plain_twin(net, mcfg, pcfg, frames, alphas, dev)
+    log(f"    clip_480p kernels vs plain, {CLIP_FRAMES} frames: alpha bytes "
+        f"worst-frame mean |d| {twin[0]:.4g}, max {twin[1]:.0f}")
+
+    # The JAX package's defaults: ModelConfig() / PipelineConfig().
+    src, src_gt = clip(16, seed=0)
+    convert_video(src[:2], output_alpha=lambda a: None)  # warm-up
+    dalphas = []
+    zero_counts(kernels)
+    md = convert_video(src, output_alpha=lambda a: dalphas.append(a.copy()))
+    dl = counts(kernels)
+    d_mad = float(np.mean([mad(a.astype(np.float32) / 255.0, g)
+                           for a, g in zip(dalphas, src_gt)]))
+    log(f"    defaults (ModelConfig(), PipelineConfig()), 16 frames at "
+        f"1920x1080: fps {md['fps']:.2f}, alpha MAD vs ground truth "
+        f"{d_mad:.5f}; launches {dl}")
+    assert md["frames"] == 16 and dalphas[0].shape == (FRAME_H, FRAME_W)
+    assert dl == expect(kernels, dict(guided_filter_coeffs=1,
+                                      composite_rgba_packed=1), 16), dl
+
+    # The plain twin records the GF call of its first frame (guided_upsample
+    # looks the plain version up in ops.gf at each call).
+    dcfg = ModelConfig()
+    dnet = build_network(dcfg, default_variables(dcfg), dtype=torch.bfloat16,
+                         device=dev)
+    gf_plain = gf.guided_filter_coeffs_plain
+    gf_calls = []
+
+    def record(*args):
+        if not gf_calls:
+            gf_calls.append(args)
+        return gf_plain(*args)
+
+    gf.guided_filter_coeffs_plain = record
+    try:
+        dtwin = plain_twin(dnet, dcfg, PipelineConfig(), src, dalphas, dev)
+    finally:
+        gf.guided_filter_coeffs_plain = gf_plain
+    guide, p, r, eps = gf_calls[0]
+    ka, kb = gf.guided_filter_coeffs(guide, p, r, eps)
+    pa, pb = gf_plain(guide, p, r, eps)
+    torch.cuda.synchronize()
+    errs["guided_filter_coeffs"] = float(max((ka - pa).abs().max(),
+                                             (kb - pb).abs().max()))
+    log(f"    defaults kernels vs plain, 16 frames: alpha bytes worst-frame "
+        f"mean |d| {dtwin[0]:.4g}, max {dtwin[1]:.0f}; GF coefficients on "
+        f"the {tuple(guide.shape[1:3])} grid: max |d| "
+        f"{errs['guided_filter_coeffs']:.3g}")
+    assert errs["guided_filter_coeffs"] <= 1e-4, errs
+    return dict(launches=launches, fps=m["fps"], mad=alpha_mad,
+                default_launches=dl, default_fps=md["fps"],
+                default_mad=d_mad), errs
 
 
 def time_cold(fn, iters=50):
@@ -595,19 +990,33 @@ def library_call(key, args):
                     F.conv2d(bh, wc, None, 1, 1))
 
 
-def phase_timing(inputs, sites):
+def phase_timing(inputs, sites, tail):
     import torch
 
+    from vidmat_torch.ops.composite import (composite_rgba_packed,
+                                            composite_rgba_packed_plain)
     from vidmat_torch.ops.gf import (guided_filter_coeffs,
                                      guided_filter_coeffs_plain)
     from vidmat_torch.ops.ingest import (ingest_pool_normalize,
                                          ingest_pool_normalize_plain)
     from vidmat_torch.ops.refine import (fused_refine_composite,
-                                         fused_refine_composite_plain)
+                                         fused_refine_composite_plain,
+                                         fused_refine_float,
+                                         fused_refine_float_plain)
 
     frame, guide, p, ma, mb = inputs
     x = ingest_pool_normalize(frame, pool=4)
     packed = fused_refine_composite(frame, ma, mb, None, 4)
+    # composite_rgba_packed on its paths: clip_480p's 480x864 frame and
+    # the defaults' 1088x1920 one, premultiplied (no background), on the
+    # float tail's mattes (cropped for 480x864).
+    alpha, fgr = tail
+    comp = {}
+    for label, (hh, ww) in (("480x864", (CLIP_H, CLIP_W)),
+                            ("1088x1920", (H, W))):
+        f = fgr[:, :hh, :ww].contiguous()
+        a = alpha[:, :hh, :ww].contiguous()
+        comp[label] = (f, a, composite_rgba_packed(f, a))
     px = frame.shape[1] * frame.shape[2]
     coarse = guide.shape[1] * guide.shape[2]
     r = 4
@@ -633,7 +1042,21 @@ def phase_timing(inputs, sites):
             # 8 channels x 3 lerps x 3 ops, luma 6, 4 apply x 2 + clips,
             # composite 3 x 3, 4 quantizes x 3
             ops=px * (8 * 9 + 6 + 16 + 9 + 12), peak=F32_FLOPS_PER_S),
+        "fused_refine_float": dict(
+            kernel=lambda: fused_refine_float(frame, ma, mb, 4),
+            plain=lambda: fused_refine_float_plain(frame, ma, mb, 4),
+            bytes=nbytes(frame, ma, mb, alpha, fgr),
+            # 8 channels x 3 lerps x 3 ops, luma 6, 4 apply x 2 + clips
+            ops=px * (8 * 9 + 6 + 16), peak=F32_FLOPS_PER_S),
     }
+    for label, (f, a, out) in comp.items():
+        rows["composite_rgba_packed" + ("" if label == "480x864"
+                                        else f" {label}")] = dict(
+            kernel=lambda f=f, a=a: composite_rgba_packed(f, a),
+            plain=lambda f=f, a=a: composite_rgba_packed_plain(f, a),
+            bytes=nbytes(f, a, out),
+            # 3 products, 4 quantizes x 3 (clip, scale, round), 4 packs
+            ops=a.numel() * (3 + 12 + 4), peak=F32_FLOPS_PER_S)
     out = {}
     for name, row in rows.items():
         ms = time_cold(row["kernel"])
@@ -804,9 +1227,11 @@ def main() -> int:
     from vidmat_torch.config import preset_video_1080p
     from vidmat_torch.models.weights import build_network, default_variables
     from vidmat_torch.ops import planar as P
+    from vidmat_torch.ops.composite import composite_rgba_packed
     from vidmat_torch.ops.gf import guided_filter_coeffs
     from vidmat_torch.ops.ingest import ingest_pool_normalize
-    from vidmat_torch.ops.refine import fused_refine_composite
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_float)
 
     t_start = time.perf_counter()
     gpu = gpu_line()
@@ -819,16 +1244,36 @@ def main() -> int:
     net_u = build_network(mcfg, variables, dtype=torch.bfloat16, device=dev,
                           fuse_pairs=False)
     errs, inputs, sites = phase_kernels(net, net_u, dev)
+    tail_errs, tail = phase_tail_kernels(inputs, dev)
+    errs.update(tail_errs)
     phase_body(net, dev)
     kernels = [ingest_pool_normalize, guided_filter_coeffs,
                fused_refine_composite, P.planar_conv, P.planar_conv2,
-               P.planar_conv_gru, P.planar_gru]
+               P.planar_conv_gru, P.planar_gru, fused_refine_float,
+               composite_rgba_packed]
     _, _, launches, _ = phase_main_path(kernels)
     gru_launches = phase_unfused(net, net_u, dev)
-    times = phase_timing(inputs, sites)
+    session = phase_session(kernels, dev)
+    clip480, clip_errs = phase_clip_480p(kernels, dev)
+    for name, e in clip_errs.items():
+        errs[name] = max(errs[name], e)
+    times = phase_timing(inputs, sites, tail)
     phase_profile(net, dev)
 
     main_path = f"convert_video, planar preset, {N_FRAMES} frames"
+    # Each kernel's launches on the path that runs it (the counts of that
+    # path's run, set to 0 just before it).
+    paths = {
+        "planar_gru": (gru_launches, "unfused planar net, 4 frames"),
+        "fused_refine_float": (
+            session["launches"]["fused_refine_float"],
+            f"MattingSession 1088x1920 bf16 (video_1080p model), "
+            f"{SESSION_FRAMES} frames"),
+        "composite_rgba_packed": (
+            clip480["launches"]["composite_rgba_packed"],
+            f"convert_video clip_480p, {CLIP_FRAMES} frames at "
+            f"{CLIP_W}x{CLIP_H}"),
+    }
     meta = {
         "ingest_pool_normalize": ("vidmat_torch/csrc/ingest.cu",
                                   "vidmat/ops/pallas/ingest_kernel.py:140"),
@@ -844,13 +1289,15 @@ def main() -> int:
                             "vidmat/ops/pallas/planar.py:454"),
         "planar_gru": ("vidmat_torch/csrc/planar_gru.cu",
                        "vidmat/ops/pallas/planar.py:549"),
+        "fused_refine_float": ("vidmat_torch/csrc/refine_float.cu",
+                               "vidmat/ops/pallas/refine_kernel.py:193"),
+        "composite_rgba_packed": ("vidmat_torch/csrc/composite.cu",
+                                  "vidmat/ops/pallas/composite_kernel.py:95"),
     }
     rows = []
     for name, (src, rep) in meta.items():
         t = times[name]
-        n, path = launches[name], main_path
-        if name == "planar_gru":
-            n, path = gru_launches, "unfused planar net, 4 frames"
+        n, path = paths.get(name, (launches[name], main_path))
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": n, "path": path,
                      "max_abs_err": errs[name], "ms": t["ms"],

@@ -65,6 +65,88 @@ def test_refine_kernel_within_one_lsb(dev, bg):
     assert int((k - q).abs().max()) <= 1
 
 
+# ---- float tail, composite, unfused guided tail, session (slice 3) ----
+
+
+def test_refine_float_kernel_matches_plain(dev):
+    from vidmat_torch.ops.refine import (fused_refine_float,
+                                         fused_refine_float_plain)
+
+    g = torch.Generator().manual_seed(7)
+    for (n, h, w), pool in (((2, 64, 300), 4), ((1, 36, 52), 2)):
+        fr = torch.randint(0, 256, (n, h, w, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+        hl, wl = h // pool, w // pool
+        a = (torch.rand((n, hl, wl, 4), generator=g) * 2 - 0.5).to(dev)
+        b = (torch.rand((n, hl, wl, 4), generator=g) - 0.5).to(dev)
+        before = fused_refine_float.launches
+        ka, kf = fused_refine_float(fr, a, b, pool)
+        assert fused_refine_float.launches == before + 1
+        pa, pf = fused_refine_float_plain(fr, a, b, pool)
+        assert ka.shape == (n, h, w, 1) and kf.shape == (n, h, w, 3)
+        assert float((ka - pa).abs().max()) <= 1e-5
+        assert float((kf - pf).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["color", "none", "image", "per_frame"])
+def test_composite_kernel_bit_exact(dev, mode):
+    from vidmat_torch.ops.composite import (composite_rgba_packed,
+                                            composite_rgba_packed_plain)
+
+    g = torch.Generator().manual_seed(8)
+    n, h, w = 2, 37, 53
+    fgr = torch.rand((n, h, w, 3), generator=g).to(dev)
+    alpha = (torch.rand((n, h, w, 1), generator=g) * 1.2 - 0.1).to(dev)
+    bg = {"color": (0.2, 0.9, 0.4), "none": None,
+          "image": torch.rand((h, w, 3), generator=g).to(dev),
+          "per_frame": torch.rand((n, h, w, 3), generator=g).to(dev)}[mode]
+    before = composite_rgba_packed.launches
+    k = composite_rgba_packed(fgr, alpha, bg)
+    assert composite_rgba_packed.launches == before + 1
+    assert torch.equal(k, composite_rgba_packed_plain(fgr, alpha, bg))
+
+
+def test_guided_upsample_kernel_matches_plain(dev):
+    from vidmat_torch.ops.gf import guided_filter_coeffs
+    from vidmat_torch.ops.guided_filter import guided_upsample
+
+    g = torch.Generator().manual_seed(9)
+    rgb = torch.rand((1, 96, 128, 3), generator=g).to(dev)
+    alpha = torch.rand((1, 32, 48, 1), generator=g).to(dev)
+    fgr = torch.rand((1, 32, 48, 3), generator=g).to(dev)
+    before = guided_filter_coeffs.launches
+    ka, kf = guided_upsample(rgb, alpha, fgr)
+    assert guided_filter_coeffs.launches == before + 1
+    pa, pf = guided_upsample(rgb, alpha, fgr, kernels=False)
+    assert float((ka - pa).abs().max()) <= 1e-4
+    assert float((kf - pf).abs().max()) <= 1e-4
+
+
+def test_session_kernels_match_plain(dev):
+    """A bf16 serving session (s2d=2 planar, ratio 0.5: the float tail)
+    on the kernels against the same stepper on the plain versions."""
+    import numpy as np
+
+    from vidmat_torch import MattingSession
+    from vidmat_torch.config import ModelConfig
+    from vidmat_torch.io.fixtures import synthetic_frames_only
+    from vidmat_torch.ops.refine import fused_refine_float
+    from vidmat_torch.pipeline.stepper import VideoStepper
+
+    cfg = ModelConfig(space_to_depth=2, conv_impl="planar")
+    h, w = 128, 192
+    sess = MattingSession(h, w, model_cfg=cfg, downsample_ratio=0.5,
+                          dtype="bfloat16")
+    plain = VideoStepper(cfg, h, w, downsample_ratio=0.5, dtype="bfloat16",
+                         device=dev, kernels=False)
+    before = fused_refine_float.launches
+    for f in synthetic_frames_only(h, w, 3, seed=3):
+        (ka, kf), (pa, pf) = sess.step(f), plain.step(f)
+        for k, p in ((ka, pa), (kf, pf)):
+            assert float(np.abs(k - p).mean()) <= 2e-3
+    assert fused_refine_float.launches == before + 3
+
+
 # ---- planar conv kernels (slice 2) ----
 
 

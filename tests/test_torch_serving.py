@@ -82,11 +82,7 @@ def test_unported_branches_raise():
     net = build_network(CFG, default_variables(CFG))
     guided = RefineConfig("guided")
     cases = [
-        (dict(ratio=1.0), "A.4"),
-        (dict(ratio=0.3), "A.4"),
         (dict(refine=RefineConfig("errormap")), "A.11"),
-        (dict(refine=RefineConfig("none")), "A.4"),
-        (dict(need_fgr=True), "A.6"),
         (dict(tile_size=64), "A.8"),
         (dict(bg=torch.zeros(H, W, 3)), "A.9"),
     ]
@@ -99,33 +95,36 @@ def test_unported_branches_raise():
 
 
 def test_convert_video_cpu_smoke():
-    from vidmat_torch import convert_video
+    from vidmat_torch import convert_video, preset_video_1080p
 
+    mcfg, pcfg = preset_video_1080p()
     frames = list(synthetic_frames_only(120, 180, 6, seed=1))
     alphas = []
     comps = []
     pipe = PipelineConfig(downsample_ratio=0.25, chunk_size=4,
                           dtype="float32")
-    m = convert_video(frames, output_alpha=alphas.append, pipe_cfg=pipe,
-                      device="cpu")
+    m = convert_video(frames, output_alpha=alphas.append, model_cfg=mcfg,
+                      pipe_cfg=pipe, device="cpu")
     assert m["frames"] == 6 and len(alphas) == 6
     for k in ("fps", "p50_ms", "p99_ms", "wall_s", "latency_granularity",
               "device"):
         assert k in m, k
     assert alphas[0].shape == (120, 180) and alphas[0].dtype == np.uint8
     m = convert_video(frames, output_composition=comps.append,
-                      pipe_cfg=pipe, device="cpu", max_frames=3)
+                      model_cfg=mcfg, pipe_cfg=pipe, device="cpu",
+                      max_frames=3)
     assert m["frames"] == 3 and comps[0].shape == (120, 180, 4)
     # The composite's alpha channel is the alpha-only output.
     np.testing.assert_array_equal(comps[0][..., 3], alphas[0])
-    m = convert_video(frames, device="cpu")  # benchmark mode, bf16 preset
+    # benchmark mode, bf16 preset
+    m = convert_video(frames, model_cfg=mcfg, pipe_cfg=pcfg, device="cpu")
     assert m["frames"] == 6 and m["fps"] > 0
 
 
 def test_convert_video_file_round_trip(tmp_path):
     """Video-file input and output through cv2 (where installed)."""
     cv2 = pytest.importorskip("cv2")
-    from vidmat_torch import convert_video
+    from vidmat_torch import convert_video, preset_video_1080p
     from vidmat_torch.io.writer import VideoWriter
 
     src = str(tmp_path / "in.mp4")
@@ -135,7 +134,9 @@ def test_convert_video_file_round_trip(tmp_path):
     w.close()
     out = str(tmp_path / "alpha.mp4")
     pipe = PipelineConfig(downsample_ratio=0.25, dtype="float32")
-    m = convert_video(src, output_alpha=out, pipe_cfg=pipe, device="cpu")
+    m = convert_video(src, output_alpha=out,
+                      model_cfg=preset_video_1080p()[0], pipe_cfg=pipe,
+                      device="cpu")
     assert m["frames"] == 5
     cap = cv2.VideoCapture(out)
     n = 0

@@ -1,8 +1,9 @@
-"""The port's weight bridge and its shipped checkpoint.
+"""The port's weight bridge and its shipped checkpoints.
 
-``vidmat_torch/checkpoints/fast_demo.npz`` is the JAX package's
-``checkpoints/fast_demo`` flattened to one npz entry per leaf, so the port
-loads it with numpy alone. Running this file as a script rewrites it:
+``vidmat_torch/checkpoints/fast_demo.npz`` and ``synthetic_demo.npz`` are
+the JAX package's ``checkpoints/fast_demo`` and ``checkpoints/
+synthetic_demo`` flattened to one npz entry per leaf, so the port loads
+them with numpy alone. Running this file as a script rewrites them:
 
     python tests/test_torch_weights.py
 """
@@ -22,28 +23,40 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NPZ = os.path.join(ROOT, "vidmat_torch", "checkpoints", "fast_demo.npz")
+#: shipped checkpoint -> space_to_depth of its ModelConfig
+CHECKPOINTS = {"fast_demo": 2, "synthetic_demo": 1}
 
 
-def _restore_fast_demo():
+def _npz(name):
+    return os.path.join(ROOT, "vidmat_torch", "checkpoints", f"{name}.npz")
+
+
+def _restore(name):
     from vidmat.config import ModelConfig as JModelConfig
     from vidmat.models.weights import default_variables
 
-    variables = default_variables(JModelConfig(space_to_depth=2))
+    variables = default_variables(
+        JModelConfig(space_to_depth=CHECKPOINTS[name]))
     return jax.tree_util.tree_map(np.asarray, variables)
 
 
 def export() -> None:
     from vidmat_torch.models.weights import save_npz
 
-    save_npz(NPZ, _restore_fast_demo())
+    for name in CHECKPOINTS:
+        save_npz(_npz(name), _restore(name))
 
 
-def test_committed_npz_equals_checkpoint():
-    from vidmat_torch.models.weights import flatten_variables, load_npz
+@pytest.mark.parametrize("name", sorted(CHECKPOINTS))
+def test_committed_npz_equals_checkpoint(name):
+    from vidmat_torch.models.weights import (default_checkpoint_path,
+                                             flatten_variables, load_npz)
+    from vidmat_torch.config import ModelConfig
 
-    want = flatten_variables(_restore_fast_demo())
-    got = flatten_variables(load_npz(NPZ))
+    assert default_checkpoint_path(
+        ModelConfig(space_to_depth=CHECKPOINTS[name])) == _npz(name)
+    want = flatten_variables(_restore(name))
+    got = flatten_variables(load_npz(_npz(name)))
     assert sorted(got) == sorted(want)
     assert len(got) == 76
     for k, v in want.items():
@@ -116,14 +129,16 @@ def test_port_imports_neither_jax_nor_vidmat():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from vidmat_torch import convert_video
+    from vidmat_torch import MattingSession, convert_video
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert_video([np.zeros((64, 64, 3), np.uint8)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MattingSession(64, 64)
 
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     export()
-    print(f"wrote {NPZ}")
+    print("wrote", *(_npz(name) for name in CHECKPOINTS))

@@ -1,10 +1,15 @@
-"""Reference alpha MAD of the JAX package on the clip chip_smoke.py's
-main-path phase converts: 64 synthetic 1920x1080 frames (seed 0), the
-video_1080p configuration (fast_demo, bf16, ratio 0.25, guided) with the
-net as XLA convolutions, run on the CPU. chip_smoke.py holds the port's
-MAD on the card to this number.
+"""Reference alpha MADs of the JAX package on the clips chip_smoke.py
+converts, run on the CPU with the net as XLA convolutions (parity-pinned
+to the planar path). chip_smoke.py holds the port's MAD on the card to
+these numbers.
 
-    python tests/torch_reference_mad.py     (about two minutes on 8 cores)
+  video_1080p  64 synthetic 1920x1080 frames (seed 0), fast_demo, bf16,
+               ratio 0.25, guided (chip_smoke.py's main path)
+  clip_480p    100 synthetic 480x864 frames (seed 0), synthetic_demo,
+               bf16, full resolution, no refinement (its clip_480p phase)
+
+    python tests/torch_reference_mad.py [video_1080p|clip_480p]
+        (video_1080p, the default: about two minutes on 8 cores)
 """
 
 import os
@@ -27,24 +32,33 @@ from vidmat.models.matting_net import MattingNetwork  # noqa: E402
 from vidmat.models.weights import default_variables  # noqa: E402
 from vidmat.pipeline.stepfactory import build_serving_body  # noqa: E402
 
+#: clip -> (model config, refine mode, bucket, ratio, frames (h, w), count)
+CLIPS = {
+    "video_1080p": (ModelConfig(space_to_depth=2), "guided", (1088, 1920),
+                    0.25, (1080, 1920), 64),
+    "clip_480p": (ModelConfig(), "none", (480, 864), 1.0, (480, 864), 100),
+}
 
-def main() -> None:
-    cfg = ModelConfig(space_to_depth=2)
+
+def main(name: str = "video_1080p") -> None:
+    cfg, mode, (bh, bw), ratio, (fh, fw), count = CLIPS[name]
     variables = default_variables(cfg)
     body, plan = build_serving_body(
-        MattingNetwork(cfg, dtype=jnp.bfloat16), cfg, RefineConfig("guided"),
-        1088, 1920, 0.25, use_pallas=False)
+        MattingNetwork(cfg, dtype=jnp.bfloat16), cfg, RefineConfig(mode),
+        bh, bw, ratio, use_pallas=False)
     step = jax.jit(body)
     state = plan.make_state(1)
     mads = []
-    for frame, gt in synthetic_clip(1080, 1920, 64, seed=0):
-        padded = np.pad(frame, ((0, 8), (0, 0), (0, 0)), mode="edge")[None]
+    for frame, gt in synthetic_clip(fh, fw, count, seed=0):
+        padded = np.pad(frame, ((0, bh - fh), (0, bw - fw), (0, 0)),
+                        mode="edge")[None]
         outs, state = step(variables, jnp.asarray(padded), state)
-        alpha = np.asarray(outs[0])[0, :1080, :, 0] / 255.0
+        alpha = np.asarray(outs[0])[0, :fh, :fw, 0] / 255.0
         mads.append(float(np.abs(alpha - gt[..., 0]).mean()))
     print("per-frame", np.round(mads, 4).tolist())
-    print(f"JAX reference alpha MAD over 64 frames: {np.mean(mads):.5f}")
+    print(f"JAX reference alpha MAD over {count} frames ({name}): "
+          f"{np.mean(mads):.5f}")
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:])

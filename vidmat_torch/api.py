@@ -1,10 +1,12 @@
 """Public API of the port: video in -> per-frame alpha matte out
-(counterpart of vidmat/api.py ``convert_video``).
+(counterpart of vidmat/api.py ``convert_video`` and ``MattingSession``).
 
-The port serves the ``video_1080p`` configuration (``fast_demo`` weights,
-pool-4 coarse pass, guided refinement, packed output). ``matte_image``,
-the streaming API and the conditioned families are not ported yet
-(ROADMAP queue A).
+``convert_video`` serves the JAX package's defaults (``ModelConfig()``,
+``PipelineConfig()``) when given no configuration, and the presets
+(``preset_video_1080p``, ``preset_clip_480p``) when given theirs.
+``MattingSession`` streams float mattes one frame at a time.
+``matte_image``, tiling, backgrounds other than a color and the
+conditioned families are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -39,12 +41,14 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
     output_*: optional targets, each a video path (needs cv2) or a
         callable that receives every (H, W[, C]) uint8 frame. Without any,
         frames are processed and metrics returned (benchmark mode).
-        output_foreground (raw foreground) is not ported yet (ROADMAP A.6).
     bg_color: background of the composition output.
-    downsample_ratio: coarse-pass scale; None = the preset's 0.25.
+    downsample_ratio: coarse-pass scale; None = pipe_cfg's, else auto
+        from the resolution.
     variables: network weights (nested numpy dict in the JAX package's
-        layout); None = the shipped ``fast_demo`` weights.
-    model_cfg / pipe_cfg: default to ``preset_video_1080p()``.
+        layout); None = the shipped weights of model_cfg (``synthetic_demo``
+        for s2d=1, ``fast_demo`` for s2d=2).
+    model_cfg / pipe_cfg: default to ``ModelConfig()`` and
+        ``PipelineConfig()``, as in the JAX package.
     start_frame / max_frames: trim the input (temporal state starts cold
         at the trim point).
     device: "cuda" (default; raises without a CUDA device) or "cpu".
@@ -61,3 +65,68 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
                         output_composition=output_composition,
                         progress=progress, start_frame=start_frame,
                         max_frames=max_frames)
+
+
+class MattingSession:
+    """Streaming API: push frames, pull (alpha, fgr); the temporal state
+    stays on the device between calls.
+
+    >>> sess = MattingSession(1088, 1920, device="cuda")
+    >>> for frame in frames:
+    ...     alpha, fgr = sess.step(frame)
+
+    The signature is the JAX package's, plus ``device`` ("cuda", the
+    default, raises without a CUDA device; "cpu" runs the plain PyTorch
+    versions of the kernels). dtype="float32" is the parity mode (no
+    kernels); dtype="bfloat16" the serving mode (see
+    ``pipeline.stepper.VideoStepper``). Tiling, plates and segmentation
+    output are not ported yet and raise."""
+
+    def __init__(self, height: int, width: int,
+                 variables=None, model_cfg: Optional[ModelConfig] = None,
+                 downsample_ratio: float = 1.0, dtype: str = "float32",
+                 static_skip_eps: Optional[float] = None,
+                 tile_size: Optional[int] = None,
+                 tile_overlap: int = 128,
+                 bg_plate: Optional[np.ndarray] = None,
+                 output: str = "matte",
+                 device: Union[str, torch.device] = "cuda"):
+        from vidmat_torch.pipeline.stepfactory import _unported
+        from vidmat_torch.pipeline.stepper import VideoStepper
+
+        if tile_size:
+            raise _unported("tiled refinement", "A.8")
+        if bg_plate is not None:
+            raise _unported("clean-plate conditioning", "A.9")
+        if output == "seg":
+            raise _unported("segmentation output", "A.10")
+        if output != "matte":
+            raise ValueError(f"output must be 'matte' or 'seg', got "
+                             f"{output!r}")
+        self._stepper = VideoStepper(
+            model_cfg or ModelConfig(), height, width, variables=variables,
+            downsample_ratio=downsample_ratio, dtype=dtype,
+            static_skip_eps=static_skip_eps, device=device)
+
+    def step(self, frame: np.ndarray, trimap: Optional[np.ndarray] = None
+             ) -> Tuple[np.ndarray, np.ndarray]:
+        """frame: (H, W, 3) uint8 or float RGB. Returns (alpha (H, W, 1),
+        fgr (H, W, 3)) float32 in [0, 1] on the host."""
+        if trimap is not None:
+            from vidmat_torch.pipeline.stepfactory import _unported
+
+            raise _unported("trimap-conditioned sessions", "A.10")
+        return self._stepper.step(frame)
+
+    def reset(self) -> None:
+        """Reset the temporal state (scene cut, new stream)."""
+        self._stepper.reset()
+
+    def save_state(self, path: str, frame_index: int = 0) -> None:
+        """Write the temporal carry to the npz file ``path``."""
+        self._stepper.save_state(path, frame_index)
+
+    def load_state(self, path: str) -> int:
+        """Restore a carry written by save_state; returns its frame
+        index."""
+        return self._stepper.load_state(path)

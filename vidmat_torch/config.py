@@ -5,10 +5,15 @@ configuration reads the same in both; fields no ported code reads yet are
 left out. The port carries its own copy: it imports nothing from
 ``vidmat``.
 
-``preset_video_1080p`` is the port's serving preset, as the JAX package
-ships it: ``conv_impl="planar"``, the net through the four planar conv
-kernels (``vidmat_torch/models/planar.py``). ``conv_impl="xla"`` runs the
-same variables as ``F.conv2d`` (``vidmat_torch/models/matting_net.py``).
+The defaults are the JAX package's: ``ModelConfig()`` (s2d=1, the net as
+``F.conv2d``, shipped ``synthetic_demo`` weights) and ``PipelineConfig()``
+(auto ratio, chunk 1, bfloat16, guided refinement) are what
+``convert_video`` serves when given no configuration. The presets, as the
+JAX package ships them: ``preset_video_1080p`` (``fast_demo``, s2d=2,
+pool 4) and ``preset_clip_480p`` (``synthetic_demo`` at full
+resolution). ``conv_impl="planar"`` runs the net through the four planar
+conv kernels (``vidmat_torch/models/planar.py``); ``conv_impl="xla"`` runs
+the same variables as ``F.conv2d`` (``vidmat_torch/models/matting_net.py``).
 """
 
 from __future__ import annotations
@@ -67,8 +72,13 @@ class PipelineConfig:
     # Compute dtype of the conv path.
     dtype: str = "bfloat16"
     refine: RefineConfig = dataclasses.field(default_factory=RefineConfig)
-    # Not ported yet (ROADMAP A.8, A.6): serving raises when set.
+    # Tiled refinement; not ported yet (ROADMAP A.8): serving raises.
     tile_size: Optional[int] = None
+    # Static-scene fast path: when the ingested coarse frame's mean abs
+    # delta against the frame the cached coefficients came from is <= eps
+    # (in [0, 1] units, e.g. 0.5/255), the net and the guided-filter
+    # coefficients are skipped and the cache reused; the tail still runs
+    # on the current frame. None = off. Batch-1 fused tails only.
     static_skip_eps: Optional[float] = None
 
 
@@ -85,3 +95,16 @@ def preset_video_1080p() -> tuple[ModelConfig, PipelineConfig]:
     return ModelConfig(space_to_depth=2, conv_impl="planar"), PipelineConfig(
         downsample_ratio=0.25, chunk_size=4,
         refine=RefineConfig(mode="guided"))
+
+
+def preset_clip_480p() -> tuple[ModelConfig, PipelineConfig]:
+    """A 480p clip with temporal propagation at full resolution.
+
+    The s2d=1 model (shipped ``synthetic_demo`` weights) through the planar
+    conv kernels, ratio 1.0 (the net runs on the frame itself), no
+    refinement, chunk 10 (a loop of the per-frame body: the full-resolution
+    tail has no chunk body); the float mattes are packed by the
+    ``composite_rgba_packed`` kernel (vidmat/config.py
+    ``preset_clip_480p``)."""
+    return ModelConfig(conv_impl="planar"), PipelineConfig(
+        downsample_ratio=1.0, chunk_size=10, refine=RefineConfig(mode="none"))

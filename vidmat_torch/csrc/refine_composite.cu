@@ -13,7 +13,8 @@
 // The TPU kernel upsamples with banded matmuls over VMEM-resident
 // coefficient grids; here one thread owns one output pixel and reads the
 // four coefficient taps it needs (float4 per tap and grid; neighbouring
-// threads share taps, which the caches serve).
+// threads share taps, which the caches serve). The upsample and the guide
+// are refine_common.cuh's, shared with refine_float.cu.
 //
 // Bound: bytes. At 1088x1920 from a 272x480 grid: 6.3 MB of frame and
 // 4.2 MB of coefficients read, 8.4 MB of packed words written.
@@ -21,47 +22,11 @@
 // Arithmetic order follows the TPU kernel: the row lerp, then the column
 // lerp; built with --fmad=false so each product and sum is rounded.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "refine_common.cuh"
 
 namespace {
 
-struct Bg {
-  float rgb[3];
-  int use;  // 1: composite over rgb; 0: premultiplied fgr * alpha
-};
-
-__device__ __forceinline__ void src_index(int j, int n, float pool, int* lo,
-                                          int* hi, float* frac) {
-  float s = ((float)j + 0.5f) / pool - 0.5f;
-  s = fminf(fmaxf(s, 0.0f), (float)(n - 1));
-  const float l = floorf(s);
-  *frac = s - l;
-  *lo = (int)l;
-  *hi = min(*lo + 1, n - 1);
-}
-
-__device__ __forceinline__ float4 lerp4(float4 p, float4 q, float f) {
-  const float g = 1.0f - f;
-  return make_float4(g * p.x + f * q.x, g * p.y + f * q.y,
-                     g * p.z + f * q.z, g * p.w + f * q.w);
-}
-
-__device__ __forceinline__ float4 upsample(const float4* __restrict__ grid,
-                                           int wl, int y0, int y1, float fy,
-                                           int x0, int x1, float fx) {
-  const float4 r0 = lerp4(grid[y0 * wl + x0], grid[y1 * wl + x0], fy);
-  const float4 r1 = lerp4(grid[y0 * wl + x1], grid[y1 * wl + x1], fy);
-  return lerp4(r0, r1, fx);
-}
-
-__device__ __forceinline__ float clip01(float v) {
-  return fminf(fmaxf(v, 0.0f), 1.0f);
-}
-
-__device__ __forceinline__ uint32_t quant(float v) {
-  return (uint32_t)__float2int_rn(clip01(v) * 255.0f);
-}
+using refine::Bg;
 
 __global__ void refine_composite_kernel(const uint8_t* __restrict__ frame,
                                         const float4* __restrict__ ma,
@@ -73,31 +38,18 @@ __global__ void refine_composite_kernel(const uint8_t* __restrict__ frame,
   const int y = blockIdx.y;
   const int b = blockIdx.z;
   if (x >= w) return;
-  int y0, y1, x0, x1;
-  float fy, fx;
-  src_index(y, hl, pool, &y0, &y1, &fy);
-  src_index(x, wl, pool, &x0, &x1, &fx);
-  const long long grid_off = (long long)b * hl * wl;
-  const float4 A = upsample(ma + grid_off, wl, y0, y1, fy, x0, x1, fx);
-  const float4 B = upsample(mb + grid_off, wl, y0, y1, fy, x0, x1, fx);
-
-  const long long pix = ((long long)b * h + y) * w + x;
-  const uint8_t* px = frame + pix * 3;
-  const float guide = (0.299f * (float)px[0] + 0.587f * (float)px[1] +
-                       0.114f * (float)px[2]) * (1.0f / 255.0f);
-
-  const float alpha = clip01(A.x * guide + B.x);
-  const float fgr[3] = {clip01(A.y * guide + B.y),
-                        clip01(A.z * guide + B.z),
-                        clip01(A.w * guide + B.w)};
-  uint32_t word = quant(alpha) << 24;
+  const float4 v =
+      refine::guided_apply(frame, ma, mb, b, y, x, h, w, hl, wl, pool);
+  const float alpha = v.x;
+  const float fgr[3] = {v.y, v.z, v.w};
+  uint32_t word = refine::quant(alpha) << 24;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float rgb = bg.use ? fgr[c] * alpha + bg.rgb[c] * (1.0f - alpha)
                              : fgr[c] * alpha;
-    word |= quant(rgb) << (8 * c);
+    word |= refine::quant(rgb) << (8 * c);
   }
-  out[pix] = word;
+  out[((long long)b * h + y) * w + x] = word;
 }
 
 }  // namespace

@@ -205,7 +205,9 @@ class PlanarNetwork(nn.Module):
         xs, n2 = self._dec_stage(k, "d2", xs, enc.f2, h2)
         xs, n1 = self._dec_stage(k, "d1", xs, enc.f1, h1)
 
-        cond = enc.x_in if s > 1 else enc.rgb.to(self.dtype)
+        # rgb is a channel slice of the permuted frame: the kernels take
+        # contiguous planes.
+        cond = enc.x_in if s > 1 else enc.rgb.to(self.dtype).contiguous()
         ups = [upsample2x(t) for t in xs] + [cond]
         d0, hd = self._p("d0"), self._p("head")
         if self.fuse_pairs:

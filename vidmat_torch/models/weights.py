@@ -7,10 +7,11 @@ The Flax tree and the port's module tree carry the same names:
   flax  BatchNorm {scale, bias} + batch_stats {mean, var}
   torch bn.{weight, bias, running_mean, running_var}
 
-The shipped checkpoint the port serves (``checkpoints/fast_demo.npz`` in
-this package) is the flattened Flax tree, one npz entry per leaf keyed by
-its path (``params/encoder/stem/conv/kernel``), so it loads with numpy
-alone. Unlike the JAX package's oracle bridge this one keeps the
+The shipped checkpoints the port serves (``checkpoints/fast_demo.npz``,
+the s2d=2 serving model, and ``checkpoints/synthetic_demo.npz``, the s2d=1
+default model, in this package) are flattened Flax trees, one npz entry
+per leaf keyed by its path (``params/encoder/stem/conv/kernel``), so they
+load with numpy alone. Unlike the JAX package's oracle bridge this one keeps the
 ``seg_head`` subtree.
 """
 
@@ -30,6 +31,7 @@ _CKPT_DIR = os.path.join(os.path.dirname(os.path.dirname(
 #: ModelConfig axes (use_trimap, use_bg_plate, space_to_depth, recurrent)
 #: of the base channel plan -> shipped checkpoint in this package.
 _DEFAULT_CKPTS = {
+    (False, False, 1, True): "synthetic_demo",
     (False, False, 2, True): "fast_demo",
 }
 
@@ -101,8 +103,8 @@ def load_npz(path: str) -> Dict[str, Any]:
 
 def default_checkpoint_path(cfg: ModelConfig) -> Optional[str]:
     """Path of the shipped checkpoint matching ``cfg`` in this package, or
-    None. Only ``fast_demo`` (the serving model, s2d=2) ships with the port
-    so far (ROADMAP A.1 lists the others)."""
+    None. ``synthetic_demo`` (s2d=1) and ``fast_demo`` (s2d=2) ship with
+    the port so far (ROADMAP A.1 lists the others)."""
     base = ModelConfig()
     if (cfg.enc_channels, cfg.dec_channels) != (base.enc_channels,
                                                 base.dec_channels):
@@ -123,8 +125,8 @@ def default_variables(cfg: ModelConfig) -> Dict[str, Any]:
         raise ValueError(
             f"no shipped checkpoint in the port matches {cfg!r}: pass "
             "variables=... (a nested dict of numpy arrays in the JAX "
-            "package's layout). The port ships fast_demo (the s2d=2 "
-            "serving model) only.")
+            "package's layout). The port ships synthetic_demo (s2d=1) and "
+            "fast_demo (s2d=2) only.")
     return load_npz(path)
 
 

@@ -31,13 +31,15 @@ SOURCES = {
     "ingest": "ingest.cu",
     "gf_coeffs": "gf_coeffs.cu",
     "refine_composite": "refine_composite.cu",
+    "refine_float": "refine_float.cu",
+    "composite": "composite.cu",
     "planar_conv": "planar_conv.cu",
     "planar_conv2": "planar_conv2.cu",
     "planar_gru": "planar_gru.cu",
 }
 
 #: headers in csrc/ the sources include; part of every library's hash
-HEADERS = ("planar_common.cuh",)
+HEADERS = ("planar_common.cuh", "refine_common.cuh")
 
 # --fmad=false: every a*b+c is two IEEE-rounded operations, as in the plain
 # PyTorch versions (separate kernels) and the JAX reference. Division and

@@ -53,3 +53,34 @@ def box_mean(x: torch.Tensor, r: int) -> torch.Tensor:
     """Edge-truncated (2r+1)^2 box mean of an NHWC tensor."""
     _, h, w, _ = x.shape
     return box_sum(x, r) * inv_window_count(h, w, r, x.device)
+
+
+def guided_upsample(rgb_full: torch.Tensor, alpha_lr: torch.Tensor,
+                    fgr_lr: torch.Tensor, radius: int = 4, eps: float = 1e-4,
+                    kernels: bool = True):
+    """Fast guided upsample of coarse (alpha, fgr) to the full-resolution
+    grid (vidmat/ops/guided_filter.py ``guided_upsample``): the statistics
+    at the coarse grid against the bilinearly downsampled luma guide, the
+    coefficients bilinearly upsampled, ``mean_a * guide_full + mean_b``,
+    clipped. The serving path where the coarse grid is no integer pool of
+    the frame.
+
+    rgb_full (N, H, W, 3) float in [0, 1]; alpha_lr (N, h, w, 1), fgr_lr
+    (N, h, w, 3). kernels: the coefficients through the GF kernel wrapper
+    (``ops.gf.guided_filter_coeffs``: the CUDA kernel on CUDA tensors),
+    else its plain version. Returns (alpha (N, H, W, 1), fgr (N, H, W, 3))
+    float32."""
+    from vidmat_torch.ops.gf import (guided_filter_coeffs,
+                                     guided_filter_coeffs_plain)
+    from vidmat_torch.ops.resize import resize_bilinear
+
+    _, h, w, _ = rgb_full.shape
+    _, hl, wl, _ = alpha_lr.shape
+    guide_full = gray_guide(rgb_full.float())
+    guide = resize_bilinear(guide_full, hl, wl).contiguous()
+    p = torch.cat([alpha_lr, fgr_lr], dim=-1).float()
+    coeffs = guided_filter_coeffs if kernels else guided_filter_coeffs_plain
+    ma, mb = coeffs(guide, p, radius, eps)
+    out = (resize_bilinear(ma, h, w) * guide_full
+           + resize_bilinear(mb, h, w))
+    return out[..., 0:1].clamp(0.0, 1.0), out[..., 1:4].clamp(0.0, 1.0)

@@ -1,26 +1,36 @@
-"""Fused guided refine + composite + RGBA pack (counterpart of
-vidmat/ops/pallas/refine_kernel.py ``fused_refine_composite``).
+"""Fused guided refine tails (counterpart of
+vidmat/ops/pallas/refine_kernel.py).
 
-Replaces the TPU kernel ``fused_refine_composite``
-(vidmat/ops/pallas/refine_kernel.py:302, pallas_call at :366), in its
-color and no-background modes; the per-pixel image and coarse-background
-modes are not ported yet (ROADMAP A.9). The CUDA kernel is
-``csrc/refine_composite.cu``; it is bound by bytes.
-``fused_refine_composite`` launches it for CUDA tensors and runs
-``fused_refine_composite_plain`` for CPU tensors.
+Both tails upsample the coarse guided-filter coefficient grids by
+``pool`` (bilinear, half-pixel, edge-clamped, rows then columns) and apply
+them to the luma guide of the full-resolution uint8 frame:
 
-Output: (N, H, W) uint32 words, little-endian R | G<<8 | B<<16 | A<<24.
+``fused_refine_composite`` replaces the TPU kernel of the same name
+(refine_kernel.py:302, pallas_call at :366), in its color and
+no-background modes; the per-pixel image and coarse-background modes are
+not ported yet (ROADMAP A.9). It composites, quantizes and packs RGBA
+words. CUDA kernel: ``csrc/refine_composite.cu``.
+
+``fused_refine_float`` replaces ``fused_refine_float`` (refine_kernel.py:
+193, pallas_call at :214), the float-output tail of the streaming session
+and of raw-foreground output: float32 alpha and foreground, no composite.
+CUDA kernel: ``csrc/refine_float.cu``.
+
+The two kernels share ``csrc/refine_common.cuh`` (the upsample and the
+guide) and are bound by bytes. Each wrapper launches its kernel for CUDA
+tensors and runs its ``*_plain`` version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from vidmat_torch.ops import _build
+from vidmat_torch.ops.composite import composite_rgba_packed_plain
 from vidmat_torch.ops.resize import resize_bilinear
 
 
@@ -33,6 +43,15 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _float_kernel():
+    fn = _build.load("refine_float").vm_refine_float
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    return fn
+
+
 def _check_shapes(frame_u8, a_lr, b_lr, pool):
     n, h, w, _ = frame_u8.shape
     if (a_lr.shape != (n, h // pool, w // pool, 4) or b_lr.shape != a_lr.shape
@@ -40,18 +59,31 @@ def _check_shapes(frame_u8, a_lr, b_lr, pool):
         raise ValueError("coeff grids must be (N, H/pool, W/pool, 4)")
 
 
-def pack_rgba(rgba_u8: torch.Tensor) -> torch.Tensor:
-    """(..., 4) uint8 [R, G, B, A] -> (...) uint32 little-endian words."""
-    return rgba_u8.contiguous().view(torch.uint32)[..., 0]
+def _check_cuda_inputs(frame_u8, a_lr, b_lr, pool):
+    """Device, dtype, shape and alignment checks of both kernel wrappers;
+    returns the contiguous inputs."""
+    if frame_u8.device.type != "cuda" or {a_lr.device, b_lr.device} != {
+            frame_u8.device}:
+        raise ValueError("frame and coefficient grids must share a CUDA "
+                         "device")
+    if (frame_u8.dtype != torch.uint8 or frame_u8.shape[-1] != 3
+            or a_lr.dtype != torch.float32 or b_lr.dtype != torch.float32):
+        raise ValueError("frame (N, H, W, 3) uint8, grids float32")
+    _check_shapes(frame_u8, a_lr, b_lr, pool)
+    frame_u8 = frame_u8.contiguous()
+    a_lr = a_lr.contiguous()
+    b_lr = b_lr.contiguous()
+    if a_lr.data_ptr() % 16 or b_lr.data_ptr() % 16:
+        raise ValueError("coefficient grids must be 16-byte aligned")
+    return frame_u8, a_lr, b_lr
 
 
-def fused_refine_composite_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
-                                 b_lr: torch.Tensor,
-                                 bg: Optional[Sequence[float]] = None,
-                                 pool: int = 4) -> torch.Tensor:
+def fused_refine_float_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
+                             b_lr: torch.Tensor, pool: int = 4
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: bilinear upsample of the coefficient grids
-    (F.interpolate, half-pixel, no antialias), guided apply, composite,
-    round-half-to-even quantize, pack."""
+    (F.interpolate, half-pixel, no antialias), guided apply, clip.
+    Returns (alpha (N, H, W, 1), fgr (N, H, W, 3)) float32."""
     _check_shapes(frame_u8, a_lr, b_lr, pool)
     _, h, w, _ = frame_u8.shape
     A = resize_bilinear(a_lr.float(), h, w)
@@ -60,15 +92,17 @@ def fused_refine_composite_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
     guide = (0.299 * f[..., 0:1] + 0.587 * f[..., 1:2]
              + 0.114 * f[..., 2:3]) * (1.0 / 255.0)
     out = (A * guide + B).clamp(0.0, 1.0)
-    alpha, fgr = out[..., 0:1], out[..., 1:4]
-    if bg is None:
-        rgb = fgr * alpha
-    else:
-        bgc = torch.as_tensor(bg, dtype=torch.float32, device=fgr.device)
-        rgb = fgr * alpha + bgc * (1.0 - alpha)
-    rgba = torch.cat([rgb, alpha], dim=-1)
-    q = torch.round(rgba.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-    return pack_rgba(q)
+    return out[..., 0:1].contiguous(), out[..., 1:4].contiguous()
+
+
+def fused_refine_composite_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
+                                 b_lr: torch.Tensor,
+                                 bg: Optional[Sequence[float]] = None,
+                                 pool: int = 4) -> torch.Tensor:
+    """Plain PyTorch version: the float tail, then composite,
+    round-half-to-even quantize and pack."""
+    alpha, fgr = fused_refine_float_plain(frame_u8, a_lr, b_lr, pool)
+    return composite_rgba_packed_plain(fgr, alpha, bg)
 
 
 def fused_refine_composite(frame_u8: torch.Tensor, a_lr: torch.Tensor,
@@ -85,20 +119,8 @@ def fused_refine_composite(frame_u8: torch.Tensor, a_lr: torch.Tensor,
     plain version."""
     if frame_u8.device.type == "cpu":
         return fused_refine_composite_plain(frame_u8, a_lr, b_lr, bg, pool)
-    if frame_u8.device.type != "cuda" or {a_lr.device, b_lr.device} != {
-            frame_u8.device}:
-        raise ValueError("frame and coefficient grids must share a CUDA "
-                         "device")
-    if (frame_u8.dtype != torch.uint8 or frame_u8.shape[-1] != 3
-            or a_lr.dtype != torch.float32 or b_lr.dtype != torch.float32):
-        raise ValueError("frame (N, H, W, 3) uint8, grids float32")
-    _check_shapes(frame_u8, a_lr, b_lr, pool)
+    frame_u8, a_lr, b_lr = _check_cuda_inputs(frame_u8, a_lr, b_lr, pool)
     n, h, w, _ = frame_u8.shape
-    frame_u8 = frame_u8.contiguous()
-    a_lr = a_lr.contiguous()
-    b_lr = b_lr.contiguous()
-    if a_lr.data_ptr() % 16 or b_lr.data_ptr() % 16:
-        raise ValueError("coefficient grids must be 16-byte aligned")
     out = torch.empty((n, h, w), dtype=torch.uint32, device=frame_u8.device)
     bg_arr = None
     if bg is not None:
@@ -112,4 +134,33 @@ def fused_refine_composite(frame_u8: torch.Tensor, a_lr: torch.Tensor,
     return out
 
 
+def fused_refine_float(frame_u8: torch.Tensor, a_lr: torch.Tensor,
+                       b_lr: torch.Tensor, pool: int = 4
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coefficient upsample + guided apply emitting float32.
+
+    frame_u8: (N, H, W, 3) uint8; a_lr/b_lr: (N, H/pool, W/pool, 4)
+    float32 (channels [alpha, r, g, b]). Returns (alpha (N, H, W, 1),
+    fgr (N, H, W, 3)) float32 in [0, 1]; no composite, no quantization.
+
+    CUDA tensors launch ``csrc/refine_float.cu``; CPU tensors take the
+    plain version."""
+    if frame_u8.device.type == "cpu":
+        return fused_refine_float_plain(frame_u8, a_lr, b_lr, pool)
+    frame_u8, a_lr, b_lr = _check_cuda_inputs(frame_u8, a_lr, b_lr, pool)
+    n, h, w, _ = frame_u8.shape
+    alpha = torch.empty((n, h, w, 1), dtype=torch.float32,
+                        device=frame_u8.device)
+    fgr = torch.empty((n, h, w, 3), dtype=torch.float32,
+                      device=frame_u8.device)
+    stream = torch.cuda.current_stream(frame_u8.device).cuda_stream
+    err = _float_kernel()(frame_u8.data_ptr(), a_lr.data_ptr(),
+                          b_lr.data_ptr(), alpha.data_ptr(), fgr.data_ptr(),
+                          n, h, w, pool, stream)
+    _build.check(err, "fused_refine_float")
+    fused_refine_float.launches += 1
+    return alpha, fgr
+
+
 fused_refine_composite.launches = 0
+fused_refine_float.launches = 0

@@ -1,27 +1,44 @@
 """The serving step body (counterpart of vidmat/pipeline/stepfactory.py).
 
-The body maps one uint8 frame batch through the serving chain:
+The body maps one frame batch through the serving chain:
 
-  ingest (area pool + normalize, CUDA kernel)
-  -> recurrent matting net (bf16, s2d-aware edge padding): the planar conv
-     kernels for conv_impl="planar" (the preset), F.conv2d for "xla"
-  -> guided-filter coefficients at the coarse grid (CUDA kernel)
-  -> fused refine + composite + RGBA pack at full resolution (CUDA kernel)
+  ingest: area pool + normalize (CUDA kernel) at an integer pool; else
+          a cast to the compute dtype and, below full resolution, a
+          bilinear resize
+  -> recurrent matting net (s2d-aware edge padding): the planar conv
+     kernels for conv_impl="planar", F.conv2d for "xla"
+  -> the tail, by the branch the JAX package takes:
+     fused packed   integer pool > 1, guided, packed output: GF
+                    coefficients (CUDA kernel) and fused refine +
+                    composite + RGBA pack (CUDA kernel)
+     fused float    the same pool, float output or raw foreground: GF
+                    coefficients and fused_refine_float (CUDA kernel)
+     unfused        full resolution (no refinement), bilinear upsample
+                    (refine "none"), or guided refinement at a ratio that
+                    is not an integer pool (``guided_upsample``: the GF
+                    kernel, bilinear upsample, apply); then one
+                    ``finish_float``: float output, packed words through
+                    composite_rgba_packed (CUDA kernel), or the uint8
+                    tuple (alpha, fgr, rgba) for raw-foreground output
 
-On the planar net the plan also carries ``chunk_body``, which runs the
-stateless stages (ingest, encoder and bottleneck, guided-filter
+On the planar net the fused packed plan also carries ``chunk_body``,
+which runs the stateless stages (ingest, encoder and bottleneck, GF
 coefficients, the fused tail) once over a K-frame chunk and only the
 recurrent decoder per frame (vidmat/pipeline/stepfactory.py:656-693).
+``static_skip_eps`` gives the fused tails the static-scene fast path
+(:608-654).
 
-Only the branch the ``video_1080p`` preset takes is ported: an integer
-coarse pool > 1, guided refinement, packed output (optionally reduced to
-the alpha byte), a color background or none. Every other combination
-raises NotImplementedError naming the ROADMAP item that ports it.
+Tiling (A.8), backgrounds other than a color (A.9), trimaps and plates
+(A.9, A.10) and error-map refinement (A.11) raise NotImplementedError
+naming the ROADMAP item that ports them. The JAX package's scoped-VMEM fit
+rule for the fused tails (``refine_tiles_fit``) is a TPU limit the CUDA
+kernels do not have: every integer pool > 1 takes a fused tail.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -29,14 +46,19 @@ import torch.nn.functional as F
 
 from vidmat_torch.config import ModelConfig, RefineConfig
 from vidmat_torch.models.planar import PlanarNetwork
+from vidmat_torch.ops.composite import (composite_rgba,
+                                        composite_rgba_packed,
+                                        composite_rgba_packed_plain)
 from vidmat_torch.ops.gf import (guided_filter_coeffs,
                                  guided_filter_coeffs_plain)
-from vidmat_torch.ops.guided_filter import gray_guide
+from vidmat_torch.ops.guided_filter import gray_guide, guided_upsample
 from vidmat_torch.ops.ingest import (ingest_pool_normalize,
                                      ingest_pool_normalize_plain)
 from vidmat_torch.ops.refine import (fused_refine_composite,
-                                     fused_refine_composite_plain)
-from vidmat_torch.ops.resize import downsample_ratio_shape
+                                     fused_refine_composite_plain,
+                                     fused_refine_float,
+                                     fused_refine_float_plain)
+from vidmat_torch.ops.resize import downsample_ratio_shape, resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +69,17 @@ class ServingPlan:
     net_w: int
     state_h: int        # recurrent-state grid (coarse + s2d padding)
     state_w: int
-    pool: int           # integer area-pool factor
-    alpha_only: bool    # body returns (N, H, W) uint8 alpha, not packed
-    # Zero recurrent carry for a batch size (None when non-recurrent).
+    pool: int           # integer area-pool factor (0 = non-integer ratio)
+    packed: bool        # body returns (N, H, W) uint32 packed RGBA
+    alpha_only: bool    # body returns (N, H, W) uint8 alpha (packed >> 24)
+    static_skip: bool   # carry is (net_state, coefficient cache); the net
+    #                     is skipped on static frames (static_skip_eps)
+    full: bool          # network runs at full resolution (no coarse pass)
+    # Zero carry for a batch size (None when non-recurrent and no cache).
     make_state: Callable = None
     # chunk_body(frames_u8 (K, h, w, 3), state) -> (out (K, h, w), state):
-    # the K frames in one call, stateless stages batched (planar net only).
+    # the K frames in one call, stateless stages batched (planar net on
+    # the fused packed tail only).
     chunk_body: Optional[Callable] = None
 
 
@@ -64,6 +91,10 @@ def alpha_byte(packed: torch.Tensor) -> torch.Tensor:
     """The alpha byte of packed words, (N, H, W) uint8: the high byte of
     each little-endian word, i.e. ``packed >> 24``."""
     return packed.view(torch.uint8).reshape(*packed.shape, 4)[..., 3]
+
+
+def _net_device(net: torch.nn.Module) -> torch.device:
+    return next(itertools.chain(net.parameters(), net.buffers())).device
 
 
 def build_serving_body(
@@ -80,6 +111,8 @@ def build_serving_body(
     alpha_only: bool = False,
     tile_size: Optional[int] = None,
     static_skip_eps: Optional[float] = None,
+    float_frames: bool = False,
+    float_output: bool = False,
     kernels: bool = True,
 ) -> Tuple[Callable, ServingPlan]:
     """Build the serving body for a static (h, w, ratio) bucket.
@@ -88,8 +121,18 @@ def build_serving_body(
               conv_impl="planar", else a MattingNetwork) on the device the
               body runs on, built with compute dtype ``cdtype``.
     bg:       (3,) float background color, or None (premultiplied output).
-    alpha_only: return the (N, h, w) uint8 alpha byte instead of the
-              packed words (a 4x smaller device-to-host copy).
+    need_fgr: the caller needs the raw foreground: the output is the uint8
+              tuple (alpha, fgr, rgba) (the packed word carries composited
+              RGB).
+    alpha_only: packed paths return the (N, h, w) uint8 alpha byte instead
+              of the packed words (a 4x smaller device-to-host copy).
+    static_skip_eps: the static-scene fast path of the fused tails (see
+              ``PipelineConfig.static_skip_eps``); batch 1 only.
+    float_frames: the body takes (N, h, w, 3) float32 frames in [0, 1]
+              (the fp32 parity contract of the streaming stepper); no
+              fused tail.
+    float_output: return (alpha (N, h, w, 1), fgr (N, h, w, 3)) float32,
+              no composite, no quantization (the streaming contract).
     kernels:  True (serving): the stages call the kernel wrappers, which
               launch the CUDA kernels on CUDA tensors and run the plain
               versions on CPU tensors. False: the stages (and the planar
@@ -97,39 +140,43 @@ def build_serving_body(
               the reference the kernel path is held against on the card.
 
     Returns (body, plan) where
-      body(frame_u8 (N, h, w, 3) uint8, state) -> (out, new_state)
-      out = (N, h, w) uint8 alpha   if plan.alpha_only
-          | (N, h, w) uint32 packed RGBA (R | G<<8 | B<<16 | A<<24)
+      body(frame (N, h, w, 3) uint8 (float32 with float_frames), state)
+        -> (out, new_state)
+      out = (N, h, w) uint8 alpha           if plan.alpha_only
+          | (N, h, w) uint32 packed RGBA    if plan.packed
+                (R | G<<8 | B<<16 | A<<24)
+          | (alpha (N, h, w, 1), fgr (N, h, w, 3)) float32  if float_output
+          | (alpha_u8 (N, h, w, 1), fgr_u8 (N, h, w, 3), rgba (N, h, w, 4))
     """
     if model_cfg.use_trimap:
         raise _unported("trimap-conditioned serving", "A.10")
     if model_cfg.use_bg_plate:
         raise _unported("clean-plate conditioning", "A.9")
-    if need_fgr:
-        raise _unported("raw-foreground output (the float tail)", "A.6")
     if tile_size:
         raise _unported("tiled refinement", "A.8")
-    if static_skip_eps is not None:
-        raise _unported("the static-scene fast path", "A.6")
     if refine.mode == "errormap":
         raise _unported("error-map refinement", "A.11")
-    if refine.mode != "guided":
-        raise _unported(f"refine mode {refine.mode!r} (unfused tails)",
-                        "A.4")
+    if refine.mode not in ("guided", "none"):
+        raise ValueError(f"unknown refine mode {refine.mode!r}")
     if bg is not None and (torch.is_tensor(bg) and bg.dim() != 1
                            or len(bg) != 3):
         raise _unported("image and per-frame backgrounds", "A.9")
+    bg = None if bg is None else [float(v) for v in bg]
     net_h, net_w = ((h, w) if ratio >= 1.0
                     else downsample_ratio_shape(h, w, ratio))
     full = (net_h, net_w) == (h, w)
     pool = (h // net_h if (not full and h % net_h == 0 and w % net_w == 0
                            and h // net_h == w // net_w) else 0)
-    if pool < 2:
-        raise _unported(
-            f"a coarse pass that is not an integer pool > 1 ({h}x{w} -> "
-            f"{net_h}x{net_w}; unfused guided, bilinear and full-res tails)",
-            "A.4")
-    bg = None if bg is None else [float(v) for v in bg]
+
+    # The branch the JAX package takes with its kernels on
+    # (stepfactory.py:229-250, 317-318, 525).
+    use_packed = not need_fgr and not float_output
+    kernel_tail_ok = pool > 1 and refine.mode == "guided" and not float_frames
+    use_fused = use_packed and kernel_tail_ok
+    use_float_tail = not use_packed and kernel_tail_ok
+    use_static_skip = (static_skip_eps is not None and not float_frames
+                       and (use_fused or use_float_tail))
+    use_alpha_only = alpha_only and use_packed
 
     # space_to_depth models need the coarse grid padded to 16*s2d.
     mult = 16 * model_cfg.space_to_depth
@@ -138,30 +185,63 @@ def build_serving_body(
     state_h, state_w = net_h + pad_nh, net_w + pad_nw
 
     if kernels:
-        ingest, gf_coeffs, tail = (ingest_pool_normalize,
-                                   guided_filter_coeffs,
-                                   fused_refine_composite)
+        ingest, gf_coeffs, packed_tail, float_tail, composite = (
+            ingest_pool_normalize, guided_filter_coeffs,
+            fused_refine_composite, fused_refine_float,
+            composite_rgba_packed)
     else:
-        ingest, gf_coeffs, tail = (ingest_pool_normalize_plain,
-                                   guided_filter_coeffs_plain,
-                                   fused_refine_composite_plain)
+        ingest, gf_coeffs, packed_tail, float_tail, composite = (
+            ingest_pool_normalize_plain, guided_filter_coeffs_plain,
+            fused_refine_composite_plain, fused_refine_float_plain,
+            composite_rgba_packed_plain)
 
     planar = isinstance(net, PlanarNetwork)
+    dev = _net_device(net)
 
-    def make_state(batch: int):
+    def make_net_state(batch: int):
         if not model_cfg.recurrent:
             return None
         if planar:
             return net.init_state(batch, state_h, state_w)
         from vidmat_torch.models.matting_net import init_state
 
-        dev = next(net.parameters()).device
         return init_state(model_cfg, batch, state_h, state_w, cdtype, dev)
+
+    def make_state(batch: int):
+        if not use_static_skip:
+            return make_net_state(batch)
+        if batch != 1:
+            raise ValueError("static_skip_eps is a batch-1 serving feature; "
+                             "use the plain body for batched serving")
+        # The reference frame starts at +inf: the first frame's delta is
+        # +inf and takes the compute branch even on near-black content.
+        cache = (torch.full((1, net_h, net_w, 3), float("inf"), dtype=cdtype,
+                            device=dev),
+                 torch.zeros((1, net_h, net_w, 4), device=dev),   # mean_a
+                 torch.zeros((1, net_h, net_w, 4), device=dev),   # mean_b
+                 0)                                               # skips
+        return make_net_state(1), cache
 
     def net_apply(xp, state):
         if planar:
             return net(xp, state, plain=not kernels)
         return net(xp, state)
+
+    def ingest_x(frame):
+        """(N, h, w, 3) frame -> (N, net_h, net_w, 3) coarse frame in the
+        compute dtype (stepfactory.py:374-401)."""
+        if pool and not float_frames:
+            return ingest(frame, pool=pool, out_dtype=cdtype)
+        x = frame.float() if float_frames else frame.float() * (1.0 / 255.0)
+        if full:
+            return x.to(cdtype)
+        if pool:
+            # Area pool in float32, then the cast.
+            n, _, _, c = x.shape
+            return x.reshape(n, net_h, pool, net_w, pool, c).mean(
+                (2, 4)).to(cdtype)
+        # The cast first, then the resize, in the compute dtype.
+        return resize_bilinear(x.to(cdtype), net_h, net_w)
 
     def prep_net_input(x):
         """Edge-pad the coarse frame (N, net_h, net_w, C) to the s2d grid
@@ -172,38 +252,95 @@ def build_serving_body(
                    mode="replicate")
         return xp.permute(0, 2, 3, 1)
 
-    def finish(frame_u8, x, alpha, fgr):
-        """Coefficients and the fused tail on coarse alpha/fgr."""
-        alpha = alpha[:, :net_h, :net_w].float()
-        fgr = fgr[:, :net_h, :net_w].float()
-        # The guide comes from the ingested coarse frame (RGB channels).
+    def net_from_x(x, state):
+        alpha, fgr, new_state = net_apply(prep_net_input(x), state)
+        return (alpha[:, :net_h, :net_w].float(),
+                fgr[:, :net_h, :net_w].float(), new_state)
+
+    def coeffs(x, alpha, fgr):
+        """Guided-filter coefficient grids at the coarse grid; the guide
+        comes from the ingested coarse frame."""
         guide = gray_guide(x[..., :3].float())
         p = torch.cat([alpha, fgr], dim=-1)
-        ma, mb = gf_coeffs(guide, p, refine.guided_radius, refine.guided_eps)
-        out = tail(frame_u8[..., :3], ma, mb, bg, pool)
-        return alpha_byte(out) if alpha_only else out
+        return gf_coeffs(guide, p, refine.guided_radius, refine.guided_eps)
+
+    def fused_out(frame_u8, ma, mb):
+        out = packed_tail(frame_u8[..., :3], ma, mb, bg, pool)
+        return alpha_byte(out) if use_alpha_only else out
+
+    def finish_float(alpha, fgr):
+        """Output packaging once full-resolution float alpha and fgr
+        exist (stepfactory.py:588-606)."""
+        if float_output:
+            return alpha, fgr
+        if use_packed:
+            out = composite(fgr, alpha, bg)
+            return alpha_byte(out) if use_alpha_only else out
+        rgba = composite_rgba(fgr, alpha, bg)
+        alpha_u8 = torch.round(alpha * 255.0).to(torch.uint8)
+        fgr_u8 = torch.round(fgr * 255.0).to(torch.uint8)
+        return alpha_u8, fgr_u8, rgba
 
     @torch.inference_mode()
-    def body(frame_u8: torch.Tensor, state):
-        x = ingest(frame_u8, pool=pool, out_dtype=cdtype)
-        alpha, fgr, new_state = net_apply(prep_net_input(x), state)
-        return finish(frame_u8, x, alpha, fgr), new_state
+    def body(frame, state):
+        x = ingest_x(frame)
+        alpha, fgr, new_state = net_from_x(x, state)
+        if use_fused:
+            return fused_out(frame, *coeffs(x, alpha, fgr)), new_state
+        if use_float_tail:
+            alpha, fgr = float_tail(frame[..., :3], *coeffs(x, alpha, fgr),
+                                    pool)
+        elif not full and refine.mode == "guided":
+            rgb = (frame[..., :3].float() if float_frames
+                   else frame[..., :3].float() * (1.0 / 255.0))
+            alpha, fgr = guided_upsample(rgb, alpha, fgr,
+                                         refine.guided_radius,
+                                         refine.guided_eps, kernels=kernels)
+        elif not full:
+            alpha = resize_bilinear(alpha, h, w)
+            fgr = resize_bilinear(fgr, h, w)
+        return finish_float(alpha, fgr), new_state
 
     @torch.inference_mode()
-    def chunk_body(frames_u8: torch.Tensor, state):
-        x = ingest(frames_u8, pool=pool, out_dtype=cdtype)
-        enc = net.encode(prep_net_input(x), plain=not kernels)
-        alphas, fgrs = [], []
-        for i in range(frames_u8.shape[0]):
-            alpha, fgr, state = net.decode(enc.frame(i), state,
-                                           plain=not kernels)
-            alphas.append(alpha)
-            fgrs.append(fgr)
-        return finish(frames_u8, x, torch.cat(alphas), torch.cat(fgrs)), \
-            state
+    def body_static(frame_u8, state):
+        """The net and the coefficients run only when the coarse frame
+        changed against the frame the cached coefficients came from
+        (stepfactory.py:608-654). The branch is taken on the host: one
+        scalar read back per frame."""
+        net_state, (ref_x, ma, mb, skips) = state
+        x = ingest_x(frame_u8)
+        delta = (x.float() - ref_x.float()).abs().mean()
+        changed = bool(delta > static_skip_eps)
+        if changed:
+            alpha, fgr, net_state = net_from_x(x, net_state)
+            ma, mb = coeffs(x, alpha, fgr)
+            ref_x = x
+        else:
+            skips += 1
+        if use_fused:
+            out = fused_out(frame_u8, ma, mb)
+        else:
+            out = finish_float(*float_tail(frame_u8[..., :3], ma, mb, pool))
+        return out, (net_state, (ref_x, ma, mb, skips))
+
+    chunk_body = None
+    if use_fused and planar and not use_static_skip:
+        @torch.inference_mode()
+        def chunk_body(frames_u8: torch.Tensor, state):
+            x = ingest_x(frames_u8)
+            enc = net.encode(prep_net_input(x), plain=not kernels)
+            alphas, fgrs = [], []
+            for i in range(frames_u8.shape[0]):
+                alpha, fgr, state = net.decode(enc.frame(i), state,
+                                               plain=not kernels)
+                alphas.append(alpha[:, :net_h, :net_w].float())
+                fgrs.append(fgr[:, :net_h, :net_w].float())
+            ma, mb = coeffs(x, torch.cat(alphas), torch.cat(fgrs))
+            return fused_out(frames_u8, ma, mb), state
 
     plan = ServingPlan(net_h=net_h, net_w=net_w, state_h=state_h,
-                       state_w=state_w, pool=pool, alpha_only=alpha_only,
-                       make_state=make_state,
-                       chunk_body=chunk_body if planar else None)
-    return body, plan
+                       state_w=state_w, pool=pool, packed=use_packed,
+                       alpha_only=use_alpha_only,
+                       static_skip=use_static_skip, full=full,
+                       make_state=make_state, chunk_body=chunk_body)
+    return (body_static if use_static_skip else body), plan

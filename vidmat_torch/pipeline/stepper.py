@@ -1,0 +1,159 @@
+"""Streaming recurrent stepper (counterpart of vidmat/pipeline/stepper.py
+``VideoStepper``).
+
+One frame per ``step``; the recurrent state stays on the device between
+calls. The body comes from ``build_serving_body`` in float-output mode.
+
+dtype="float32" (the default) is the parity mode: float frames in,
+float32 compute, the net as F.conv2d and every stage on its plain PyTorch
+version, whatever ``conv_impl`` says (the JAX package's no-kernel path,
+vidmat/pipeline/stepper.py:176-178). dtype="bfloat16" is the serving mode:
+uint8 frames through the ingest kernel, the net through the planar
+kernels on ``conv_impl="planar"``, and at an integer pool the GF
+coefficient and ``fused_refine_float`` kernels (``kernels=False`` puts
+every stage on its plain version, the reference the kernels are held
+against on the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from vidmat_torch._device import resolve_device
+from vidmat_torch.config import ModelConfig, RefineConfig
+from vidmat_torch.models.weights import build_network, default_variables
+from vidmat_torch.ops.resize import downsample_ratio_shape
+from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+
+def pad_to_multiple(x: np.ndarray, m: int = 16) -> Tuple[np.ndarray, int, int]:
+    """Edge-pad an HWC image so H and W are multiples of m. Returns
+    (padded, orig_h, orig_w)."""
+    h, w = x.shape[:2]
+    ph, pw = (-h) % m, (-w) % m
+    if ph or pw:
+        x = np.pad(x, ((0, ph), (0, pw), (0, 0)), mode="edge")
+    return x, h, w
+
+
+def to_float_rgb(image: np.ndarray) -> np.ndarray:
+    """uint8 or float HWC -> float32 [0, 1]."""
+    if image.dtype == np.uint8:
+        return image.astype(np.float32) / 255.0
+    return image.astype(np.float32)
+
+
+#: recurrent carry fields, as the JAX package names them
+STATE_FIELDS = ("h3", "h2", "h1")
+
+
+class VideoStepper:
+    """Streaming recurrent stepper for a fixed (height, width) stream.
+
+    downsample_ratio < 1 runs the net on a coarse grid and restores full
+    resolution with the guided filter."""
+
+    def __init__(self, cfg: ModelConfig, height: int, width: int,
+                 variables=None, downsample_ratio: float = 1.0,
+                 dtype: str = "float32", guided_radius: int = 4,
+                 guided_eps: float = 1e-4,
+                 static_skip_eps: Optional[float] = None,
+                 device="cuda", kernels: bool = True):
+        if height % 16 or width % 16:
+            raise ValueError("height/width must be multiples of 16 "
+                             "(pad with pipeline.stepper.pad_to_multiple)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.h, self.w = height, width
+        self.ratio = downsample_ratio
+        self._parity = dtype != "bfloat16"
+        self.dtype = torch.float32 if self._parity else torch.bfloat16
+        if downsample_ratio < 1.0:
+            self.net_h, self.net_w = downsample_ratio_shape(
+                height, width, downsample_ratio)
+        else:
+            self.net_h, self.net_w = height, width
+        if variables is None:
+            variables = default_variables(cfg)
+        # Parity mode runs the net as plain convolutions (the JAX package
+        # builds its planar forward only with its kernels on).
+        net_cfg = (dataclasses.replace(cfg, conv_impl="xla") if self._parity
+                   else cfg)
+        self.net = build_network(
+            net_cfg, variables, dtype=None if self._parity else self.dtype,
+            device=self.device)
+        self._step, self._plan = build_serving_body(
+            self.net, net_cfg,
+            RefineConfig(mode="guided", guided_radius=guided_radius,
+                         guided_eps=guided_eps),
+            height, width, downsample_ratio, cdtype=self.dtype,
+            float_frames=self._parity, float_output=True,
+            static_skip_eps=static_skip_eps,
+            kernels=kernels and not self._parity)
+        self.reset()
+
+    def reset(self) -> None:
+        self.state = self._plan.make_state(1)
+
+    def _device_frame(self, frame: np.ndarray) -> torch.Tensor:
+        """(1, H, W, 3) on the device: float32 in [0, 1] in parity mode,
+        uint8 in serving mode (float frames as round(clip(v) * 255))."""
+        if self._parity:
+            arr = to_float_rgb(frame)
+        elif frame.dtype != np.uint8:
+            arr = np.round(np.clip(frame, 0.0, 1.0) * 255.0).astype(np.uint8)
+        else:
+            arr = frame
+        t = torch.from_numpy(np.ascontiguousarray(arr))[None]
+        return t.to(self.device)
+
+    def step(self, frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """frame: (H, W, 3) uint8 or float RGB. Returns host alpha
+        (H, W, 1) and fgr (H, W, 3), float32 in [0, 1]."""
+        (alpha, fgr), self.state = self._step(self._device_frame(frame),
+                                              self.state)
+        return alpha[0].cpu().numpy(), fgr[0].cpu().numpy()
+
+    # -- mid-video resume: the carry in the port's own npz format --
+
+    def _net_state(self):
+        return self.state[0] if self._plan.static_skip else self.state
+
+    def save_state(self, path: str, frame_index: int = 0) -> None:
+        """Write the recurrent carry (fields h3, h2, h1, as float32) and
+        the frame index to the npz file ``path``."""
+        ns = self._net_state()
+        arrays = {"frame_index": np.asarray(frame_index, np.int64)}
+        if ns is not None:
+            for k, t in zip(STATE_FIELDS, ns):
+                arrays[k] = t.float().cpu().numpy()
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+
+    def load_state(self, path: str) -> int:
+        """Restore a carry written by :meth:`save_state`; returns the saved
+        frame index. The static-skip coefficient cache is reset, so the
+        next frame takes the compute branch."""
+        ns = self._net_state()
+        with np.load(path) as z:
+            saved = {k: z[k] for k in z.files}
+        if ns is not None and any(k in saved for k in STATE_FIELDS):
+            for k, cur in zip(STATE_FIELDS, ns):
+                if k not in saved or saved[k].shape != tuple(cur.shape):
+                    raise ValueError(
+                        f"saved carry field {k!r} has shape "
+                        f"{None if k not in saved else saved[k].shape} but "
+                        f"this session expects {tuple(cur.shape)}: the carry "
+                        "was saved on another serving path or configuration")
+            ns = type(ns)(*(torch.from_numpy(saved[k]).to(
+                device=cur.device, dtype=cur.dtype)
+                for k, cur in zip(STATE_FIELDS, ns)))
+        if self._plan.static_skip:
+            self.state = (ns, self._plan.make_state(1)[1])
+        else:
+            self.state = ns
+        return int(saved["frame_index"])

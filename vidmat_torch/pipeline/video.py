@@ -10,11 +10,14 @@
     frame t+1
   - chunk_size K groups K frames per dispatch and records one latency
     observation per group. Where the plan has a chunk body (the planar
-    net), a full chunk is one call: the K frames go to the device as one
-    copy, the stateless stages run once over them and the recurrent
-    decoder per frame, and the K outputs come back as one copy. Otherwise
-    the per-frame body runs K times. A partial last chunk drains per
-    frame.
+    net on the fused packed tail), a full chunk is one call: the K frames
+    go to the device as one copy, the stateless stages run once over them
+    and the recurrent decoder per frame, and the K outputs come back as
+    one copy. Otherwise (e.g. ``clip_480p``'s full-resolution tail) the
+    per-frame body runs K times. A partial last chunk drains per frame.
+  - output_foreground takes the body's uint8 tuple (alpha, fgr, rgba);
+    otherwise one packed RGBA word (or the alpha byte) per pixel comes
+    back
 """
 
 from __future__ import annotations
@@ -26,8 +29,7 @@ import numpy as np
 import torch
 
 from vidmat_torch._device import resolve_device
-from vidmat_torch.config import (ModelConfig, PipelineConfig,
-                                 preset_video_1080p)
+from vidmat_torch.config import ModelConfig, PipelineConfig
 from vidmat_torch.io.reader import FrameSource, pad_frame
 from vidmat_torch.io.writer import open_sink
 from vidmat_torch.models.weights import build_network, default_variables
@@ -62,29 +64,38 @@ class _Transfers:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def to_host(self, t: torch.Tensor):
+    def to_host(self, out):
+        """Enqueue the copy of a tensor (or a tuple of tensors)."""
+        ts = out if isinstance(out, tuple) else (out,)
         if not self.cuda:
-            return t, None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+            return ts, None, isinstance(out, tuple)
+        hosts = []
+        for t in ts:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
         ev = torch.cuda.Event()
         ev.record()
-        return host, ev
+        return tuple(hosts), ev, isinstance(out, tuple)
 
     @staticmethod
-    def wait(handle) -> np.ndarray:
-        host, ev = handle
+    def wait(handle):
+        """numpy array(s) of a copy enqueued by ``to_host``."""
+        hosts, ev, is_tuple = handle
         if ev is not None:
             ev.synchronize()
-        return host.numpy()
+        arrs = tuple(t.numpy() for t in hosts)
+        return arrs if is_tuple else arrs[0]
 
 
 class VideoPipeline:
-    """End-to-end video matting on the ``video_1080p`` configuration.
+    """End-to-end video matting.
 
-    model_cfg / pipe_cfg default to ``preset_video_1080p()``. variables:
-    the network's weights as a nested dict of numpy arrays in the JAX
-    package's layout; None loads the shipped ``fast_demo`` weights.
+    model_cfg / pipe_cfg default to ``ModelConfig()`` and
+    ``PipelineConfig()``, as in the JAX package (vidmat/api.py:243,
+    vidmat/pipeline/video.py:252); pass a preset's pair for a preset.
+    variables: the network's weights as a nested dict of numpy arrays in
+    the JAX package's layout; None loads the shipped weights of model_cfg.
     device: "cuda" (default; raises without a CUDA device) or "cpu" (the
     plain PyTorch versions of the kernels)."""
 
@@ -93,9 +104,8 @@ class VideoPipeline:
                  variables=None, downsample_ratio: Optional[float] = None,
                  bg_color: Optional[Tuple[float, float, float]] = None,
                  device: Union[str, torch.device] = "cuda"):
-        preset_model, preset_pipe = preset_video_1080p()
-        self.model_cfg = model_cfg or preset_model
-        self.pipe_cfg = pipe_cfg or preset_pipe
+        self.model_cfg = model_cfg or ModelConfig()
+        self.pipe_cfg = pipe_cfg or PipelineConfig()
         self.device = resolve_device(device)
         if variables is None:
             variables = default_variables(self.model_cfg)
@@ -147,6 +157,14 @@ class VideoPipeline:
             """Write every frame of one device-to-host copy."""
             out = xfer.wait(handle)
             fh, fw = crop  # drop the bucket padding before encode
+            if isinstance(out, tuple):  # raw foreground: uint8 tuple
+                alpha_u8, fgr_u8, rgba = out
+                for i in range(rgba.shape[0]):
+                    for name, arr in (("alpha", alpha_u8[i, ..., 0]),
+                                      ("fgr", fgr_u8[i]), ("comp", rgba[i])):
+                        if name in writers:
+                            writers[name].write(arr[:fh, :fw])
+                return
             for i in range(out.shape[0]):
                 if plan.alpha_only:
                     writers["alpha"].write(out[i, :fh, :fw])
@@ -242,6 +260,8 @@ class VideoPipeline:
             wtr.close()
         out = metrics.summary()
         out["frames"] = n
+        if plan is not None and plan.static_skip:
+            out["static_skipped"] = state[1][3]
         out["device"] = (torch.cuda.get_device_name(self.device)
                          if self.device.type == "cuda" else "cpu")
         return out
