@@ -15,7 +15,11 @@ Phases (any failure exits nonzero and prints no result line):
      within 1-2 bf16 units in the last place, see close();
      fused_refine_float at 1088x1920 pool 4 max |d| <= 1e-5;
      composite_rgba_packed bit-exact in its four modes at 480x864 and
-     1088x1920), plus ragged shapes per kernel
+     1088x1920; fused_refine_composite's image and coarse modes bytes
+     within +-1 at 1088x1920, on 4-frame batches with a shared and a
+     per-frame image; int8_conv within 1 int8 unit at 8x16x144x240), plus
+     ragged shapes per kernel (the planar ones at the plate family's 24
+     input channels too)
   3. the serving chunk body (ingest, planar encoder, per-frame decoder,
      guided-filter coefficients, fused tail) at 1920x1088 on fast_demo in
      bf16, kernel path against the same body on the plain versions, over
@@ -51,11 +55,27 @@ Phases (any failure exits nonzero and prints no result line):
      1080p: GF and composite_rgba_packed launch, the ingest and fused
      tails do not; the GF kernel against plain on the coarse grid this
      path gives it, and the alpha bytes against the plain body as above
+  B. backgrounds and the plate family through convert_video on 1920x1080
+     frames: (a) bg_image, (b) bg_video (3 backgrounds cycled, the
+     per-frame body; the H2D share of its float32 backgrounds), (c)
+     bg_blur=16 on the video_1080p preset (chunk 4; fused_refine_composite
+     in image mode once per chunk for (a), per frame for (b), in coarse
+     mode once per chunk for (c)); (d) bg_blur with output_foreground
+     (fused_refine_float) and on the JAX defaults (composite_rgba_packed
+     over per-frame images); (e) plate_demo on the planar net over the
+     camouflage clean-plate clip (alpha MAD within min(a third, 5e-3) of
+     the JAX package's; the planar kernels at its 9 sites against plain);
+     (f) a bare bg_plate (the F.conv2d family). Each: launch counts, fps,
+     output bytes against the plain body (worst-frame mean |d| <= 0.5
+     LSB, max <= 2)
+  Q. the int8 planes probe (vidmat_torch/tools/bench_int8_planes.py):
+     bf16-planes (planar_conv) and int8-planes (int8_conv) ms per
+     layer-batch beside their bytes bounds
   6. each kernel timed with CUDA events at the main-path shapes (L2
      flushed before every launch, the card kept busy while the host
      enqueues it), beside its bound, its plain version's
-     time and, for the planar kernels, cuDNN's F.conv2d for the same
-     convs (a yardstick the port never calls)
+     time and, for the planar kernels and int8_conv, cuDNN's F.conv2d for
+     the same convs (a yardstick the port never calls)
   7. where a frame's time goes on the planar chunk body: host time per
      stage, the body's wall time, device time by kernel group
      (torch.profiler); checks that the planar body launches no library
@@ -329,6 +349,75 @@ def phase_tail_kernels(inputs, dev):
     return errs, (alpha, fgr)
 
 
+def phase_bg_kernels(inputs, dev):
+    """fused_refine_composite's image and coarse modes and int8_conv
+    against their plain versions: the modes on the main-path frame and
+    coefficient grids (1088x1920, pool 4; the coarse background is the
+    portrait blur of the ingested frame), an image shared by a 4-frame
+    batch and one image per frame, and a ragged shape; int8_conv at the
+    probe's 8x16x144x240 and a ragged shape. Returns ({row name: max
+    |d|}, the timing inputs)."""
+    import torch
+
+    from vidmat_torch.ops.guided_filter import box_blur
+    from vidmat_torch.ops.ingest import ingest_pool_normalize_plain
+    from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain)
+
+    frame, _, _, ma, mb = inputs
+    g = torch.Generator().manual_seed(13)
+    image = torch.rand((H, W, 3), generator=g).to(dev)
+    coarse = box_blur(ingest_pool_normalize_plain(frame, 4).float(), 4)
+    chunk = torch.from_numpy(padded_clip(CHUNK, seed=12)).to(dev)
+    ma4 = ma.expand(CHUNK, -1, -1, -1).contiguous()
+    mb4 = mb.expand(CHUNK, -1, -1, -1).contiguous()
+    fr = torch.randint(0, 256, (2, 36, 300, 3), generator=g,
+                       dtype=torch.uint8).to(dev)
+    ra = (torch.rand((2, 9, 75, 4), generator=g) * 2 - 0.5).to(dev)
+    rb = (torch.rand((2, 9, 75, 4), generator=g) - 0.5).to(dev)
+    cases = [
+        ("image", "1088x1920", frame, ma, mb, image),
+        ("coarse", "1088x1920", frame, ma, mb, coarse),
+        ("image", "shared by 4 frames", chunk, ma4, mb4, image),
+        ("per_frame", "4 frames", chunk, ma4, mb4,
+         torch.rand((CHUNK, H, W, 3), generator=g).to(dev)),
+        ("image", "ragged 36x300", fr, ra, rb,
+         (torch.rand((36, 300, 3), generator=g) * 1.2 - 0.1).to(dev)),
+        ("coarse", "ragged 36x300", fr, ra, rb,
+         (torch.rand((2, 9, 75, 3), generator=g) * 1.2 - 0.1).to(dev)),
+    ]
+    errs = {}
+    for mode, label, f, a, b, bg in cases:
+        k = fused_refine_composite(f, a, b, bg, 4)
+        q = fused_refine_composite_plain(f, a, b, bg, 4)
+        d = (k.view(torch.uint8).int() - q.view(torch.uint8).int()).abs()
+        row = ("fused_refine_composite (coarse)" if mode == "coarse"
+               else "fused_refine_composite (image)")
+        errs[row] = max(errs.get(row, 0.0), float(d.max()))
+        log(f"    refine {mode} {label}: bytes mean |d| "
+            f"{float(d.float().mean()):.3g} max {int(d.max())}")
+    assert max(errs.values()) <= 1, errs
+
+    w8 = (torch.randn((16, 16, 3, 3), generator=g) * 0.2).to(
+        dev, torch.bfloat16)
+    x8 = torch.randint(-127, 128, (8, 16, 144, 240), generator=g,
+                       dtype=torch.int8).to(dev)
+    worst = 0
+    for x in (x8, torch.randint(-127, 128, (1, 16, 37, 53), generator=g,
+                                dtype=torch.int8).to(dev)):
+        d = (int8_conv(x, w8).int() - int8_conv_plain(x, w8).int()).abs()
+        worst = max(worst, int(d.max()))
+        log(f"    int8_conv {tuple(x.shape)}: max |d| {int(d.max())} "
+            f"int8 unit, {float((d > 0).float().mean()):.3g} of the "
+            "elements differ")
+    assert worst <= 1, worst
+    errs["int8_conv"] = float(worst)
+    torch.cuda.synchronize()
+    log(f"[2] background modes and int8_conv vs plain: {json.dumps(errs)}")
+    return errs, (image, coarse, x8, w8)
+
+
 def planar_ops():
     """op key -> (kernel wrapper, plain version)."""
     from vidmat_torch.ops import planar as P
@@ -451,7 +540,18 @@ def planar_kernel_checks(sites, dev, ragged=True):
         wg = rnd(6, 6, 3, 3, dt=dt, scale=54 ** -0.5)
         wc = rnd(3, 6, 3, 3, dt=dt, scale=54 ** -0.5)
         (s1, b1), (s2, b2), (_, bg), (_, bc) = aff(6), aff(4), aff(6), aff(3)
-        cases = [("conv", (xs, w1, s1, b1, 2, "relu")),
+        # The plate family's widths: a 24-channel stem, and d0 + head over
+        # three inputs (a, h1, the 24-channel cond).
+        x24 = rnd(2, 24, 13, 21, dt=dt)
+        w24 = rnd(16, 24, 3, 3, dt=dt, scale=216 ** -0.5)
+        xs3 = [rnd(2, 12, 13, 21, dt=dt), rnd(2, 12, 13, 21, dt=dt), x24]
+        w48 = rnd(16, 48, 3, 3, dt=dt, scale=432 ** -0.5)
+        w16 = rnd(16, 16, 3, 3, dt=dt, scale=144 ** -0.5)
+        (s16, b16) = aff(16)
+        cases = [("conv", ([x24], w24, s16, b16, 2, "relu")),
+                 ("conv2", (xs3, w48, s16, b16, w16, s16, b16, 1, "relu",
+                            "none")),
+                 ("conv", (xs, w1, s1, b1, 2, "relu")),
                  ("conv", (xs, w1, s1, b1, 1, "none")),
                  ("conv2", (xs, w1, s1, b1, w2, s2, b2, 2, "relu", "none")),
                  ("conv2", (xs, w1, s1, b1, w2, s2, b2, 1, "relu", "relu")),
@@ -567,7 +667,7 @@ def phase_main_path(kernels):
     log(f"    benchmark mode (packed RGBA D2H): fps {bench['fps']:.2f}, "
         f"p50 {bench['p50_ms']:.3f} ms")
     assert launches == dict(MAIN_PATH_LAUNCHES, fused_refine_float=0,
-                            composite_rgba_packed=0), launches
+                            composite_rgba_packed=0, int8_conv=0), launches
     assert abs(alpha_mad - JAX_REFERENCE_MAD) <= 5e-3, alpha_mad
 
     # Slice 1's configuration: the net as F.conv2d, the three other
@@ -584,7 +684,7 @@ def phase_main_path(kernels):
         ingest_pool_normalize=16, guided_filter_coeffs=16,
         fused_refine_composite=16, planar_conv=0, planar_conv2=0,
         planar_conv_gru=0, planar_gru=0, fused_refine_float=0,
-        composite_rgba_packed=0), xla_launches
+        composite_rgba_packed=0, int8_conv=0), xla_launches
     return m, bench, launches, alpha_mad
 
 
@@ -630,6 +730,8 @@ def counts(kernels):
 def zero_counts(kernels):
     for fn in kernels:
         fn.launches = 0
+        for mode in getattr(fn, "mode_launches", {}):
+            fn.mode_launches[mode] = 0
 
 
 # Per frame of the planar net: stem and proj, three encoder pairs and
@@ -893,6 +995,257 @@ def phase_clip_480p(kernels, dev):
                 default_mad=d_mad), errs
 
 
+# Alpha MAD of the JAX package on 16 frames of the 1920x1080 camouflage
+# clean-plate clip (synthetic_plate_clip, seed 0) with its true plate,
+# plate_demo, bf16, ratio 0.25, guided (tests/torch_reference_mad.py
+# plate_1080p, CPU). The port's is held within a third of it, or 5e-3 if
+# that is smaller.
+JAX_REFERENCE_MAD_PLATE = 0.02043
+PLATE_MAD_TOL = min(JAX_REFERENCE_MAD_PLATE / 3, 5e-3)
+BG_FRAMES = 16
+
+
+def chunked(kernels, frames, **extra):
+    """Launch counts of ``frames`` frames of the planar preset's chunk
+    body (chunk 4): per chunk ingest, stem, proj, three encoder pairs, GF
+    and the fused tail; per frame three decoder stages and d0 + head."""
+    per_chunk = dict(ingest_pool_normalize=1, guided_filter_coeffs=1,
+                     fused_refine_composite=1, planar_conv=2, planar_conv2=3)
+    per_frame = dict(planar_conv2=1, planar_conv_gru=3)
+    c = frames // CHUNK
+    want = {fn.__name__: c * per_chunk.get(fn.__name__, 0)
+            + frames * per_frame.get(fn.__name__, 0) for fn in kernels}
+    want.update(extra)
+    return want
+
+
+def twin_bytes(net, mcfg, pcfg, frames, outs, dev, bgs=None, **kw):
+    """Hold a convert_video run's output frames ``outs`` (as its callback
+    received them: RGBA, or the alpha plane with ``alpha_only``) to the
+    same source frames through the per-frame serving body on the plain
+    versions, built as the pipeline builds its own (bucket, ratio and the
+    options ``kw``) on ``net`` (the same weights); ``bgs``: the per-frame
+    backgrounds of a background video. Returns (worst-frame mean |d|, max
+    |d|) in LSB, after checking mean <= 0.5 and max <= 2."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch.io.reader import pad_frame
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+    from vidmat_torch.pipeline.video import auto_downsample_ratio
+
+    fh, fw = frames[0].shape[:2]
+    ph, pw = fh + (-fh) % 16, fw + (-fw) % 16
+    ratio = pcfg.downsample_ratio
+    if ratio is None:
+        ratio = auto_downsample_ratio(fh, fw)
+    body, plan = build_serving_body(net, mcfg, pcfg.refine, ph, pw, ratio,
+                                    kernels=False, **kw)
+    state = plan.make_state(1)
+    worst_mean = worst_max = 0.0
+    for i, (f, got) in enumerate(zip(frames, outs)):
+        args = (torch.from_numpy(pad_frame(f, ph, pw)).to(dev), state)
+        if bgs is not None:
+            args += (torch.from_numpy(bgs[i]).to(dev),)
+        out, state = body(*args)
+        if isinstance(out, tuple):
+            want = out[2][0]
+        elif plan.alpha_only:
+            want = out[0]
+        else:
+            want = out[0].view(torch.uint8).reshape(ph, pw, 4)
+        d = np.abs(want[:fh, :fw].cpu().numpy().astype(np.int16)
+                   - got.astype(np.int16))
+        worst_mean = max(worst_mean, float(d.mean()))
+        worst_max = max(worst_max, float(d.max()))
+    assert worst_mean <= 0.5 and worst_max <= 2, (worst_mean, worst_max)
+    return worst_mean, worst_max
+
+
+def plate_input(net, chunk_u8, plate_u8):
+    """The plate net's input for a chunk of padded frames: the plain
+    ingest of the frames and of the plate at pool 4, concatenated,
+    edge-padded to the s2d grid."""
+    import torch
+    import torch.nn.functional as F
+
+    from vidmat_torch.ops.ingest import ingest_pool_normalize_plain
+
+    x = ingest_pool_normalize_plain(chunk_u8, pool=4)
+    p = ingest_pool_normalize_plain(plate_u8, pool=4)
+    x = torch.cat([x, p.expand(x.shape[0], -1, -1, -1)], -1)
+    mult = 16 * net.cfg.space_to_depth
+    nh, nw = x.shape[1:3]
+    return F.pad(x.permute(0, 3, 1, 2), (0, -nw % mult, 0, -nh % mult),
+                 mode="replicate").permute(0, 2, 3, 1)
+
+
+def phase_backgrounds(kernels, gpu, dev):
+    """Backgrounds and the plate family through convert_video on 1920x1080
+    synthetic frames: (a) bg_image, (b) bg_video, (c) bg_blur on the
+    video_1080p preset (chunk 4), (d) bg_blur with output_foreground on
+    the preset and with the composition on the JAX defaults (the unfused
+    tail: composite_rgba_packed over per-frame images), (e) plate_demo on
+    the planar net with a color composition, (f) a bare bg_plate (the
+    F.conv2d family at the defaults). Each run's launch counts (set to 0
+    just before, read just after), its fps, and its output bytes against
+    the same frames through the plain body; (e) also the alpha MAD against
+    the fixture and the planar kernels at the plate net's 9 sites.
+    Returns {path: result}."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch import (ModelConfig, PipelineConfig, convert_video,
+                              preset_video_1080p)
+    from vidmat_torch.io.backgrounds import (prepare_bg_image,
+                                             prepare_plate_u8)
+    from vidmat_torch.io.fixtures import synthetic_plate_clip
+    from vidmat_torch.models.weights import (build_network,
+                                             default_variables,
+                                             plate_default_config)
+    from vidmat_torch.pipeline.video import _Transfers
+    from vidmat_torch.utils.metrics import mad
+
+    refine = next(fn for fn in kernels
+                  if fn.__name__ == "fused_refine_composite")
+    mcfg, pcfg = preset_video_1080p()
+    net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
+                        device=dev)
+    frames = clip(BG_FRAMES, seed=4)[0]
+    rng = np.random.RandomState(4)
+    image = rng.rand(H, W, 3).astype(np.float32)
+    video = [(rng.rand(H, W, 3) * 255).astype(np.uint8) for _ in range(3)]
+    res = {}
+
+    def run(name, src, want, twin_kw, n=BG_FRAMES, bgs=None, twin_net=net,
+            twin_cfg=(mcfg, pcfg), target="output_composition", **kw):
+        kw.setdefault("model_cfg", mcfg)
+        kw.setdefault("pipe_cfg", pcfg)
+        convert_video(src[:4], **{target: lambda a: None}, **kw)  # warm-up
+        outs = []
+        zero_counts(kernels)
+        m = convert_video(src[:n], **{target: lambda a: outs.append(
+            a.copy())}, **kw)
+        launches = counts(kernels)
+        modes = {k: v for k, v in refine.mode_launches.items() if v}
+        assert m["frames"] == n and len(outs) == n, m
+        assert launches == want, (name, launches, want)
+        twin = twin_bytes(twin_net, *twin_cfg, src[:n], outs, dev, bgs=bgs,
+                          **twin_kw)
+        log(f"[B] ({name}) {n} frames: fps {m['fps']:.2f} ({gpu}); refine "
+            f"modes {modes}; bytes vs plain twin worst-frame mean |d| "
+            f"{twin[0]:.4g}, max {twin[1]:.0f}; launches {launches}")
+        res[name] = dict(fps=m["fps"], launches=launches, modes=modes,
+                         twin=twin, outs=outs)
+        return res[name]
+
+    run("a: bg_image", frames, chunked(kernels, BG_FRAMES),
+        dict(bg=prepare_bg_image(image, H, W)), bg_image=image)
+    assert res["a: bg_image"]["modes"] == {"image": BG_FRAMES // CHUNK}
+
+    n = BG_FRAMES // 2
+    bgs = [prepare_bg_image(video[i % 3], H, W)[None] for i in range(n)]
+    run("b: bg_video", frames, expect(kernels, dict(
+        PLANAR_PER_FRAME, ingest_pool_normalize=1, guided_filter_coeffs=1,
+        fused_refine_composite=1), n), dict(bg_dynamic=True), n=n, bgs=bgs,
+        bg_video=video)
+    assert res["b: bg_video"]["modes"] == {"image": n}
+    # H2D of one float32 background (the JAX package sends float32 too)
+    # against the frame time of the bg_video run.
+    xfer = _Transfers(dev)
+    xfer.to_device(bgs[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in bgs:
+        xfer.to_device(b)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3 / n
+    frame_ms = 1e3 / res["b: bg_video"]["fps"]
+    res["b: bg_video"].update(bg_h2d_ms=h2d_ms, frame_ms=frame_ms)
+    log(f"    bg_video: H2D of one {bgs[0].nbytes / 1e6:.1f} MB float32 "
+        f"background {h2d_ms:.3f} ms, waited, = {100 * h2d_ms / frame_ms:.1f}"
+        f"% of the {frame_ms:.3f} ms frame time")
+
+    run("c: bg_blur", frames, chunked(kernels, BG_FRAMES),
+        dict(bg_blur=16), bg_blur=16)
+    assert res["c: bg_blur"]["modes"] == {"coarse": BG_FRAMES // CHUNK}
+
+    run("d: bg_blur + output_foreground", frames, expect(kernels, dict(
+        PLANAR_PER_FRAME, ingest_pool_normalize=1, guided_filter_coeffs=1,
+        fused_refine_float=1), n), dict(bg_blur=16, need_fgr=True), n=n,
+        bg_blur=16, output_foreground=lambda a: None)
+    dcfg, dpipe = ModelConfig(), PipelineConfig()
+    dnet = build_network(dcfg, default_variables(dcfg), dtype=torch.bfloat16,
+                         device=dev)
+    run("d: bg_blur, defaults", frames, expect(kernels, dict(
+        guided_filter_coeffs=1, composite_rgba_packed=1), n),
+        dict(bg_blur=16), n=n, twin_net=dnet, twin_cfg=(dcfg, dpipe),
+        model_cfg=dcfg, pipe_cfg=dpipe, bg_blur=16)
+
+    pframes, pgt, plates = zip(*synthetic_plate_clip(FRAME_H, FRAME_W,
+                                                     BG_FRAMES, seed=0))
+    pframes, plate = list(pframes), plates[0]
+    pcfg_e = ModelConfig(use_bg_plate=True, space_to_depth=2,
+                         conv_impl="planar")
+    pnet = build_network(pcfg_e, default_variables(pcfg_e),
+                         dtype=torch.bfloat16, device=dev)
+    plate_u8 = prepare_plate_u8(plate, H, W)
+    e = run("e: plate_demo, planar", pframes,
+            chunked(kernels, BG_FRAMES,
+                    ingest_pool_normalize=BG_FRAMES // CHUNK + 1),
+            dict(bg=(0.0, 1.0, 0.0), bg_plate=plate_u8), twin_net=pnet,
+            twin_cfg=(pcfg_e, pcfg), model_cfg=pcfg_e, bg_plate=plate)
+    assert e["modes"] == {"color": BG_FRAMES // CHUNK}
+    e["mad"] = float(np.mean([mad(o[..., 3].astype(np.float32) / 255.0,
+                                  g[..., 0]) for o, g in zip(e["outs"],
+                                                             pgt)]))
+    log(f"    plate alpha MAD vs ground truth {e['mad']:.5f} (JAX reference "
+        f"{JAX_REFERENCE_MAD_PLATE}, bound +-{PLATE_MAD_TOL:.4g})")
+    assert abs(e["mad"] - JAX_REFERENCE_MAD_PLATE) <= PLATE_MAD_TOL, e["mad"]
+    chunk = torch.from_numpy(np.concatenate(
+        [prepare_plate_u8(f, H, W)[None] for f in pframes[:CHUNK]])).to(dev)
+    log("    planar kernels vs plain at the plate net's sites (1088x1920, "
+        "24 input channels):")
+    sites = capture_sites(pnet, None, plate_input(
+        pnet, chunk, torch.from_numpy(plate_u8[None]).to(dev)))
+    e["errs"] = planar_kernel_checks(sites, dev, ragged=False)
+
+    fcfg = plate_default_config()
+    fnet = build_network(fcfg, default_variables(fcfg), dtype=torch.bfloat16,
+                         device=dev)
+    run("f: bare bg_plate", pframes, expect(kernels, dict(
+        guided_filter_coeffs=1, composite_rgba_packed=1), n),
+        dict(bg_plate=plate_u8, alpha_only=True), n=n, twin_net=fnet,
+        twin_cfg=(fcfg, PipelineConfig()), target="output_alpha",
+        model_cfg=None, pipe_cfg=None, bg_plate=plate)
+    for r in res.values():
+        r.pop("outs")
+    return res
+
+
+def phase_int8_probe(kernels):
+    """The int8 planes probe (vidmat_torch/tools/bench_int8_planes.py) with
+    3 repeats: both legs' ms per layer-batch beside their bytes bounds.
+    Returns (result, int8_conv launches in the probe)."""
+    from vidmat_torch.ops.int8_planar import int8_conv
+    from vidmat_torch.tools import bench_int8_planes as bench
+
+    zero_counts(kernels)
+    int8_conv.launches = 0
+    res = bench.run(repeats=3)
+    launches = int8_conv.launches
+    plane = 8 * 16 * bench.H * bench.W
+    bounds = {"bf16-planes": 2 * 2 * plane / HBM_BYTES_PER_S * 1e3,
+              "int8-planes": 2 * plane / HBM_BYTES_PER_S * 1e3}
+    for name, r in res.items():
+        log(f"[Q] {name}: {r['ms']:.4f} ms/layer-batch (n={r['n']}, "
+            f"{r['min']:.4f}-{r['max']:.4f}), bytes bound "
+            f"{bounds[name]:.4f} ms")
+    log(f"    int8_conv launches in the probe: {launches}")
+    assert set(res) == set(bounds) and launches > 0, (res, launches)
+    return res, launches
+
+
 def time_cold(fn, iters=50):
     """Median device time (ms) of fn() with the L2 cache flushed before
     each call, by CUDA events around the call alone. A device-side spin
@@ -990,8 +1343,11 @@ def library_call(key, args):
                     F.conv2d(bh, wc, None, 1, 1))
 
 
-def phase_timing(inputs, sites, tail):
+def phase_timing(inputs, sites, tail, bg_inputs):
     import torch
+    import torch.nn.functional as F
+
+    from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
 
     from vidmat_torch.ops.composite import (composite_rgba_packed,
                                             composite_rgba_packed_plain)
@@ -1005,8 +1361,12 @@ def phase_timing(inputs, sites, tail):
                                          fused_refine_float_plain)
 
     frame, guide, p, ma, mb = inputs
+    image, coarse_bg, x8, w8 = bg_inputs
     x = ingest_pool_normalize(frame, pool=4)
     packed = fused_refine_composite(frame, ma, mb, None, 4)
+    q8 = int8_conv(x8, w8)
+    x8b = x8.to(torch.bfloat16)
+    refine_ops = 8 * 9 + 6 + 16 + 9 + 12
     # composite_rgba_packed on its paths: clip_480p's 480x864 frame and
     # the defaults' 1088x1920 one, premultiplied (no background), on the
     # float tail's mattes (cropped for 480x864).
@@ -1041,7 +1401,31 @@ def phase_timing(inputs, sites, tail):
             bytes=nbytes(frame, ma, mb, packed),
             # 8 channels x 3 lerps x 3 ops, luma 6, 4 apply x 2 + clips,
             # composite 3 x 3, 4 quantizes x 3
-            ops=px * (8 * 9 + 6 + 16 + 9 + 12), peak=F32_FLOPS_PER_S),
+            ops=px * refine_ops, peak=F32_FLOPS_PER_S),
+        # The same with an (H, W, 3) image read per pixel (bg_image), and
+        # with a coarse background upsampled and clipped in the kernel
+        # (bg_blur: 3 channels x 3 lerps x 3 ops, 3 clips x 2).
+        "fused_refine_composite (image)": dict(
+            kernel=lambda: fused_refine_composite(frame, ma, mb, image, 4),
+            plain=lambda: fused_refine_composite_plain(frame, ma, mb, image,
+                                                       4),
+            bytes=nbytes(frame, ma, mb, image, packed),
+            ops=px * refine_ops, peak=F32_FLOPS_PER_S),
+        "fused_refine_composite (coarse)": dict(
+            kernel=lambda: fused_refine_composite(frame, ma, mb, coarse_bg,
+                                                  4),
+            plain=lambda: fused_refine_composite_plain(frame, ma, mb,
+                                                       coarse_bg, 4),
+            bytes=nbytes(frame, ma, mb, coarse_bg, packed),
+            ops=px * (refine_ops + 27 + 6), peak=F32_FLOPS_PER_S),
+        # 2 ops per multiply-add against the bf16 tensor-core peak; the
+        # library yardstick is cuDNN's bf16 conv without the quantization.
+        "int8_conv": dict(
+            kernel=lambda: int8_conv(x8, w8),
+            plain=lambda: int8_conv_plain(x8, w8),
+            library=lambda: F.conv2d(x8b, w8, None, 1, 1),
+            bytes=nbytes(x8, w8, q8),
+            ops=2 * x8.numel() * 16 * 9, peak=BF16_FLOPS_PER_S),
         "fused_refine_float": dict(
             kernel=lambda: fused_refine_float(frame, ma, mb, 4),
             plain=lambda: fused_refine_float_plain(frame, ma, mb, 4),
@@ -1061,18 +1445,20 @@ def phase_timing(inputs, sites, tail):
     for name, row in rows.items():
         ms = time_cold(row["kernel"])
         plain_ms = time_cold(row["plain"], iters=10)
+        lib_ms = time_cold(row["library"]) if "library" in row else None
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = row["ops"] / row["peak"] * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations",
                          bytes=row["bytes"], ops=row["ops"])
+        lib = ("none computes the same function in one PyTorch call"
+               if lib_ms is None else f"cuDNN conv {lib_ms:.4f} ms")
         log(f"[6] {name}: {ms:.4f} ms (cold L2), plain {plain_ms:.4f} ms, "
             f"bound {out[name]['bound_ms']:.4f} ms by "
             f"{out[name]['bound_by']} ({row['bytes'] / 1e6:.2f} MB, "
-            f"{row['ops'] / 1e6:.1f} Mop); library call: none computes "
-            "the same function in one PyTorch call")
+            f"{row['ops'] / 1e6:.1f} Mop); library call: {lib}")
 
     # Planar kernels: per call site, then summed per kernel (one call at
     # each of its sites: a chunk's encoder calls, one frame's decoder).
@@ -1230,6 +1616,7 @@ def main() -> int:
     from vidmat_torch.ops.composite import composite_rgba_packed
     from vidmat_torch.ops.gf import guided_filter_coeffs
     from vidmat_torch.ops.ingest import ingest_pool_normalize
+    from vidmat_torch.ops.int8_planar import int8_conv
     from vidmat_torch.ops.refine import (fused_refine_composite,
                                          fused_refine_float)
 
@@ -1246,18 +1633,24 @@ def main() -> int:
     errs, inputs, sites = phase_kernels(net, net_u, dev)
     tail_errs, tail = phase_tail_kernels(inputs, dev)
     errs.update(tail_errs)
+    bg_errs, bg_inputs = phase_bg_kernels(inputs, dev)
+    errs.update(bg_errs)
     phase_body(net, dev)
     kernels = [ingest_pool_normalize, guided_filter_coeffs,
                fused_refine_composite, P.planar_conv, P.planar_conv2,
                P.planar_conv_gru, P.planar_gru, fused_refine_float,
-               composite_rgba_packed]
+               composite_rgba_packed, int8_conv]
     _, _, launches, _ = phase_main_path(kernels)
     gru_launches = phase_unfused(net, net_u, dev)
     session = phase_session(kernels, dev)
     clip480, clip_errs = phase_clip_480p(kernels, dev)
     for name, e in clip_errs.items():
         errs[name] = max(errs[name], e)
-    times = phase_timing(inputs, sites, tail)
+    bgs = phase_backgrounds(kernels, gpu, dev)
+    for name, e in bgs["e: plate_demo, planar"]["errs"].items():
+        errs[name] = max(errs[name], e)
+    _, int8_launches = phase_int8_probe(kernels)
+    times = phase_timing(inputs, sites, tail, bg_inputs)
     phase_profile(net, dev)
 
     main_path = f"convert_video, planar preset, {N_FRAMES} frames"
@@ -1273,6 +1666,14 @@ def main() -> int:
             clip480["launches"]["composite_rgba_packed"],
             f"convert_video clip_480p, {CLIP_FRAMES} frames at "
             f"{CLIP_W}x{CLIP_H}"),
+        "fused_refine_composite (image)": (
+            bgs["a: bg_image"]["modes"]["image"],
+            f"convert_video bg_image, planar preset, {BG_FRAMES} frames"),
+        "fused_refine_composite (coarse)": (
+            bgs["c: bg_blur"]["modes"]["coarse"],
+            f"convert_video bg_blur=16, planar preset, {BG_FRAMES} frames"),
+        "int8_conv": (int8_launches,
+                      "vidmat_torch/tools/bench_int8_planes.py, 3 repeats"),
     }
     meta = {
         "ingest_pool_normalize": ("vidmat_torch/csrc/ingest.cu",
@@ -1281,6 +1682,12 @@ def main() -> int:
                                  "vidmat/ops/pallas/gf_kernel.py:123"),
         "fused_refine_composite": ("vidmat_torch/csrc/refine_composite.cu",
                                    "vidmat/ops/pallas/refine_kernel.py:302"),
+        "fused_refine_composite (image)": (
+            "vidmat_torch/csrc/refine_composite.cu",
+            "vidmat/ops/pallas/refine_kernel.py:302"),
+        "fused_refine_composite (coarse)": (
+            "vidmat_torch/csrc/refine_composite.cu",
+            "vidmat/ops/pallas/refine_kernel.py:302"),
         "planar_conv": ("vidmat_torch/csrc/planar_conv.cu",
                         "vidmat/ops/pallas/planar.py:188"),
         "planar_conv2": ("vidmat_torch/csrc/planar_conv2.cu",
@@ -1293,11 +1700,14 @@ def main() -> int:
                                "vidmat/ops/pallas/refine_kernel.py:193"),
         "composite_rgba_packed": ("vidmat_torch/csrc/composite.cu",
                                   "vidmat/ops/pallas/composite_kernel.py:95"),
+        "int8_conv": ("vidmat_torch/csrc/int8_conv.cu",
+                      "tools/bench_int8_planes.py:81"),
     }
     rows = []
     for name, (src, rep) in meta.items():
         t = times[name]
-        n, path = paths.get(name, (launches[name], main_path))
+        n, path = paths[name] if name in paths else (launches[name],
+                                                      main_path)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": n, "path": path,
                      "max_abs_err": errs[name], "ms": t["ms"],

@@ -65,6 +65,90 @@ def test_refine_kernel_within_one_lsb(dev, bg):
     assert int((k - q).abs().max()) <= 1
 
 
+# ---- refine image / coarse modes, int8 probe, plate session (slice 4) ----
+
+
+@pytest.mark.parametrize("mode", ["image", "per_frame", "coarse"])
+def test_refine_kernel_background_modes_within_one_lsb(dev, mode):
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain)
+
+    g = torch.Generator().manual_seed(10)
+    n, h, w, pool = 2, 64, 300, 4
+    fr = torch.randint(0, 256, (n, h, w, 3), generator=g,
+                       dtype=torch.uint8).to(dev)
+    a = (torch.rand((n, h // pool, w // pool, 4), generator=g) * 2
+         - 0.5).to(dev)
+    b = (torch.rand((n, h // pool, w // pool, 4), generator=g) - 0.5).to(dev)
+    # Images slightly outside [0, 1]: the image mode takes them unclipped,
+    # the coarse mode clips after its upsample.
+    shape = {"image": (h, w, 3), "per_frame": (n, h, w, 3),
+             "coarse": (n, h // pool, w // pool, 3)}[mode]
+    bg = (torch.rand(shape, generator=g) * 1.2 - 0.1).to(dev)
+    before = dict(fused_refine_composite.mode_launches)
+    k = fused_refine_composite(fr, a, b, bg, pool).view(torch.uint8).int()
+    assert fused_refine_composite.mode_launches[mode] == before[mode] + 1
+    q = fused_refine_composite_plain(fr, a, b, bg, pool).view(
+        torch.uint8).int()
+    assert int((k - q).abs().max()) <= 1
+
+
+def test_refine_kernel_refuses_backgrounds_it_cannot_take(dev):
+    from vidmat_torch.ops.refine import fused_refine_composite
+
+    fr = torch.zeros((1, 16, 32, 3), dtype=torch.uint8, device=dev)
+    a = torch.zeros((1, 4, 8, 4), device=dev)
+    for bg in (torch.zeros((16, 32, 3), dtype=torch.float64, device=dev),
+               torch.zeros((16, 32, 3)),  # on the CPU
+               torch.zeros((1, 5, 8, 3), device=dev)):
+        with pytest.raises(ValueError):
+            fused_refine_composite(fr, a, a, bg, 4)
+
+
+def test_int8_conv_kernel_matches_plain(dev):
+    from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
+
+    g = torch.Generator().manual_seed(11)
+    w = (torch.randn((16, 16, 3, 3), generator=g) * 0.2).to(dev,
+                                                             torch.bfloat16)
+    for shape in ((2, 16, 144, 240), (1, 16, 13, 37)):
+        x = torch.randint(-127, 128, shape, generator=g,
+                          dtype=torch.int8).to(dev)
+        before = int8_conv.launches
+        k = int8_conv(x, w)
+        assert int8_conv.launches == before + 1
+        d = (k.int() - int8_conv_plain(x, w).int()).abs()
+        # The two sum the same exact products in another order: a tie of
+        # the requantization may round the other way.
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+
+
+def test_plate_session_kernels_match_plain(dev):
+    """A bf16 plate_demo session on the planar kernels (24 input
+    channels at the stem and the d0 + head cond) against the same stepper
+    on the plain versions."""
+    import numpy as np
+
+    from vidmat_torch import MattingSession
+    from vidmat_torch.config import ModelConfig
+    from vidmat_torch.io.fixtures import synthetic_plate_clip
+    from vidmat_torch.pipeline.stepper import VideoStepper
+
+    cfg = ModelConfig(use_bg_plate=True, space_to_depth=2,
+                      conv_impl="planar")
+    h, w = 128, 192
+    clip = list(synthetic_plate_clip(h, w, 3, seed=2))
+    plate = clip[0][2]
+    sess = MattingSession(h, w, model_cfg=cfg, downsample_ratio=0.25,
+                          dtype="bfloat16", bg_plate=plate)
+    plain = VideoStepper(cfg, h, w, downsample_ratio=0.25, dtype="bfloat16",
+                         bg_plate=plate, device=dev, kernels=False)
+    for f, _, _ in clip:
+        (ka, kf), (pa, pf) = sess.step(f), plain.step(f)
+        for k, p in ((ka, pa), (kf, pf)):
+            assert float(np.abs(k - p).mean()) <= 2e-3
+
+
 # ---- float tail, composite, unfused guided tail, session (slice 3) ----
 
 

@@ -84,7 +84,6 @@ def test_unported_branches_raise():
     cases = [
         (dict(refine=RefineConfig("errormap")), "A.11"),
         (dict(tile_size=64), "A.8"),
-        (dict(bg=torch.zeros(H, W, 3)), "A.9"),
     ]
     for kw, item in cases:
         args = dict(refine=guided, ratio=0.25)

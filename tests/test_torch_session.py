@@ -155,7 +155,6 @@ def test_save_load_round_trip(tmp_path):
 
 def test_session_options_not_ported_raise():
     cases = [(dict(tile_size=64), "A.8"),
-             (dict(bg_plate=np.zeros((64, 64, 3), np.uint8)), "A.9"),
              (dict(output="seg"), "A.10")]
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -1,11 +1,12 @@
 """The port's weight bridge and its shipped checkpoints.
 
-``vidmat_torch/checkpoints/fast_demo.npz`` and ``synthetic_demo.npz`` are
-the JAX package's ``checkpoints/fast_demo`` and ``checkpoints/
-synthetic_demo`` flattened to one npz entry per leaf, so the port loads
-them with numpy alone. Running this file as a script rewrites them:
+``vidmat_torch/checkpoints/fast_demo.npz``, ``synthetic_demo.npz`` and
+``plate_demo.npz`` are the JAX package's ``checkpoints/fast_demo``,
+``checkpoints/synthetic_demo`` and ``checkpoints/plate_demo`` flattened to
+one npz entry per leaf, so the port loads them with numpy alone. Running
+this file as a script rewrites the named ones (all by default):
 
-    python tests/test_torch_weights.py
+    python tests/test_torch_weights.py [name ...]
 """
 
 import ast
@@ -23,8 +24,10 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: shipped checkpoint -> space_to_depth of its ModelConfig
-CHECKPOINTS = {"fast_demo": 2, "synthetic_demo": 1}
+#: shipped checkpoint -> the ModelConfig fields that select it
+CHECKPOINTS = {"fast_demo": dict(space_to_depth=2),
+               "synthetic_demo": dict(space_to_depth=1),
+               "plate_demo": dict(use_bg_plate=True, space_to_depth=2)}
 
 
 def _npz(name):
@@ -35,15 +38,14 @@ def _restore(name):
     from vidmat.config import ModelConfig as JModelConfig
     from vidmat.models.weights import default_variables
 
-    variables = default_variables(
-        JModelConfig(space_to_depth=CHECKPOINTS[name]))
+    variables = default_variables(JModelConfig(**CHECKPOINTS[name]))
     return jax.tree_util.tree_map(np.asarray, variables)
 
 
-def export() -> None:
+def export(names=None) -> None:
     from vidmat_torch.models.weights import save_npz
 
-    for name in CHECKPOINTS:
+    for name in names or CHECKPOINTS:
         save_npz(_npz(name), _restore(name))
 
 
@@ -54,7 +56,7 @@ def test_committed_npz_equals_checkpoint(name):
     from vidmat_torch.config import ModelConfig
 
     assert default_checkpoint_path(
-        ModelConfig(space_to_depth=CHECKPOINTS[name])) == _npz(name)
+        ModelConfig(**CHECKPOINTS[name])) == _npz(name)
     want = flatten_variables(_restore(name))
     got = flatten_variables(load_npz(_npz(name)))
     assert sorted(got) == sorted(want)
@@ -140,5 +142,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    export()
-    print("wrote", *(_npz(name) for name in CHECKPOINTS))
+    names = sys.argv[1:] or list(CHECKPOINTS)
+    export(names)
+    print("wrote", *(_npz(name) for name in names))

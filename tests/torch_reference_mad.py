@@ -7,8 +7,11 @@ these numbers.
                ratio 0.25, guided (chip_smoke.py's main path)
   clip_480p    100 synthetic 480x864 frames (seed 0), synthetic_demo,
                bf16, full resolution, no refinement (its clip_480p phase)
+  plate_1080p  16 frames of the 1920x1080 camouflage clean-plate clip
+               (synthetic_plate_clip, seed 0) with its true plate,
+               plate_demo, bf16, ratio 0.25, guided (its phase B, path e)
 
-    python tests/torch_reference_mad.py [video_1080p|clip_480p]
+    python tests/torch_reference_mad.py [video_1080p|clip_480p|plate_1080p]
         (video_1080p, the default: about two minutes on 8 cores)
 """
 
@@ -27,7 +30,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from vidmat.config import ModelConfig, RefineConfig  # noqa: E402
-from vidmat.io.fixtures import synthetic_clip  # noqa: E402
+from vidmat.io.fixtures import (synthetic_clip,  # noqa: E402
+                                synthetic_plate_clip)
 from vidmat.models.matting_net import MattingNetwork  # noqa: E402
 from vidmat.models.weights import default_variables  # noqa: E402
 from vidmat.pipeline.stepfactory import build_serving_body  # noqa: E402
@@ -37,21 +41,35 @@ CLIPS = {
     "video_1080p": (ModelConfig(space_to_depth=2), "guided", (1088, 1920),
                     0.25, (1080, 1920), 64),
     "clip_480p": (ModelConfig(), "none", (480, 864), 1.0, (480, 864), 100),
+    "plate_1080p": (ModelConfig(use_bg_plate=True, space_to_depth=2),
+                    "guided", (1088, 1920), 0.25, (1080, 1920), 16),
 }
+
+
+def _pad(img, bh, bw):
+    fh, fw = img.shape[:2]
+    return np.pad(img, ((0, bh - fh), (0, bw - fw), (0, 0)), mode="edge")
 
 
 def main(name: str = "video_1080p") -> None:
     cfg, mode, (bh, bw), ratio, (fh, fw), count = CLIPS[name]
     variables = default_variables(cfg)
+    if cfg.use_bg_plate:
+        clip = [(f, a) for f, a, _ in synthetic_plate_clip(fh, fw, count,
+                                                           seed=0)]
+        plate = next(synthetic_plate_clip(fh, fw, 1, seed=0))[2]
+        extra = dict(bg_plate=jnp.asarray(_pad(plate, bh, bw)))
+    else:
+        clip = synthetic_clip(fh, fw, count, seed=0)
+        extra = {}
     body, plan = build_serving_body(
         MattingNetwork(cfg, dtype=jnp.bfloat16), cfg, RefineConfig(mode),
-        bh, bw, ratio, use_pallas=False)
+        bh, bw, ratio, use_pallas=False, **extra)
     step = jax.jit(body)
     state = plan.make_state(1)
     mads = []
-    for frame, gt in synthetic_clip(fh, fw, count, seed=0):
-        padded = np.pad(frame, ((0, bh - fh), (0, bw - fw), (0, 0)),
-                        mode="edge")[None]
+    for frame, gt in clip:
+        padded = _pad(frame, bh, bw)[None]
         outs, state = step(variables, jnp.asarray(padded), state)
         alpha = np.asarray(outs[0])[0, :fh, :fw, 0] / 255.0
         mads.append(float(np.abs(alpha - gt[..., 0]).mean()))

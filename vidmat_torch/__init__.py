@@ -2,9 +2,10 @@
 
 A second package beside ``vidmat`` (the JAX reference, which it never
 imports). ``convert_video`` serves the JAX package's defaults and the
-``video_1080p`` and ``clip_480p`` presets; ``MattingSession`` streams
-float mattes. Every TPU kernel of those paths (ingest, the planar convs,
-guided-filter coefficients, the refine tails, composite) runs as a
+``video_1080p`` and ``clip_480p`` presets, with color, image, video and
+portrait-blur backgrounds and the clean-plate family; ``MattingSession``
+streams float mattes. Every TPU kernel of those paths (ingest, the planar
+convs, guided-filter coefficients, the refine tails, composite) runs as a
 hand-written CUDA kernel (``vidmat_torch/csrc``). Entry points run on the
 card (``device="cuda"``) unless the caller passes ``device="cpu"``.
 """

@@ -4,9 +4,11 @@
 ``convert_video`` serves the JAX package's defaults (``ModelConfig()``,
 ``PipelineConfig()``) when given no configuration, and the presets
 (``preset_video_1080p``, ``preset_clip_480p``) when given theirs.
-``MattingSession`` streams float mattes one frame at a time.
-``matte_image``, tiling, backgrounds other than a color and the
-conditioned families are not ported yet (ROADMAP queue A).
+``MattingSession`` streams float mattes one frame at a time. Both take
+the clean-plate family (``bg_plate``, shipped ``plate_demo``);
+``convert_video`` composites over a color, an image, a background video
+or a blur of the source frame. ``matte_image``, tiling and the trimap and
+segmentation families are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
                   output_foreground: Optional[Target] = None,
                   output_composition: Optional[Target] = None,
                   bg_color: Tuple[float, float, float] = (0.0, 1.0, 0.0),
+                  bg_image: Optional[Union[str, np.ndarray]] = None,
+                  bg_video: Optional[Union[str, Iterable[np.ndarray]]] = None,
+                  bg_blur: Optional[int] = None,
+                  bg_plate: Optional[Union[str, np.ndarray]] = None,
                   downsample_ratio: Optional[float] = None,
                   variables=None,
                   model_cfg: Optional[ModelConfig] = None,
@@ -42,6 +48,21 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
         callable that receives every (H, W[, C]) uint8 frame. Without any,
         frames are processed and metrics returned (benchmark mode).
     bg_color: background of the composition output.
+    bg_image: background-replacement image of the composition (path or
+        (H, W, 3) array, uint8 or float in [0, 1]); takes precedence over
+        bg_color.
+    bg_video: per-frame background of the composition (video path or
+        iterable of (H, W, 3) frames, consumed in lockstep with the input
+        and looped if shorter); takes precedence over bg_image.
+    bg_blur: portrait blur: composite over a blur of the source frame of
+        this radius in full-resolution pixels (e.g. 16); takes precedence
+        over bg_video. The background options apply only with
+        output_composition.
+    bg_plate: clean-plate conditioning: an image of the scene without the
+        subject (path or (H, W, 3) array), an input of the
+        plate-conditioned net. With model_cfg=None it selects that family
+        (``ModelConfig(use_bg_plate=True, space_to_depth=2)``, shipped
+        plate_demo weights).
     downsample_ratio: coarse-pass scale; None = pipe_cfg's, else auto
         from the resolution.
     variables: network weights (nested numpy dict in the JAX package's
@@ -56,10 +77,19 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
     """
     from vidmat_torch.pipeline.video import VideoPipeline
 
+    if bg_plate is not None and model_cfg is None:
+        from vidmat_torch.models.weights import plate_default_config
+
+        model_cfg = plate_default_config()
+    comp = bool(output_composition)
     pipeline = VideoPipeline(
         model_cfg=model_cfg, pipe_cfg=pipe_cfg, variables=variables,
         downsample_ratio=downsample_ratio,
-        bg_color=bg_color if output_composition else None, device=device)
+        bg_color=bg_color if comp else None,
+        bg_image=bg_image if comp else None,
+        bg_video=bg_video if comp else None,
+        bg_blur=bg_blur if comp else None,
+        bg_plate=bg_plate, device=device)
     return pipeline.run(input_source, output_alpha=output_alpha,
                         output_foreground=output_foreground,
                         output_composition=output_composition,
@@ -79,8 +109,10 @@ class MattingSession:
     default, raises without a CUDA device; "cpu" runs the plain PyTorch
     versions of the kernels). dtype="float32" is the parity mode (no
     kernels); dtype="bfloat16" the serving mode (see
-    ``pipeline.stepper.VideoStepper``). Tiling, plates and segmentation
-    output are not ported yet and raise."""
+    ``pipeline.stepper.VideoStepper``). bg_plate: the clean plate of the
+    plate-conditioned family, fixed for the session (with model_cfg=None
+    it selects ``plate_default_config()``, shipped plate_demo). Tiling and
+    segmentation output are not ported yet and raise."""
 
     def __init__(self, height: int, width: int,
                  variables=None, model_cfg: Optional[ModelConfig] = None,
@@ -96,17 +128,20 @@ class MattingSession:
 
         if tile_size:
             raise _unported("tiled refinement", "A.8")
-        if bg_plate is not None:
-            raise _unported("clean-plate conditioning", "A.9")
         if output == "seg":
             raise _unported("segmentation output", "A.10")
         if output != "matte":
             raise ValueError(f"output must be 'matte' or 'seg', got "
                              f"{output!r}")
+        if bg_plate is not None and model_cfg is None:
+            from vidmat_torch.models.weights import plate_default_config
+
+            model_cfg = plate_default_config()
         self._stepper = VideoStepper(
             model_cfg or ModelConfig(), height, width, variables=variables,
             downsample_ratio=downsample_ratio, dtype=dtype,
-            static_skip_eps=static_skip_eps, device=device)
+            static_skip_eps=static_skip_eps, bg_plate=bg_plate,
+            device=device)
 
     def step(self, frame: np.ndarray, trimap: Optional[np.ndarray] = None
              ) -> Tuple[np.ndarray, np.ndarray]:

@@ -50,6 +50,27 @@ __device__ __forceinline__ float4 upsample(const float4* __restrict__ grid,
   return lerp4(r0, r1, fx);
 }
 
+__device__ __forceinline__ float lerp1(float p, float q, float f) {
+  return (1.0f - f) * p + f * q;
+}
+
+// A 3-channel coarse grid (hl x wl x 3 floats, not float4-aligned) at one
+// output pixel, in upsample()'s order: the row lerp of both columns' taps,
+// then the column lerp. The coarse background of the portrait-blur tail.
+__device__ __forceinline__ void upsample3(const float* __restrict__ grid,
+                                          int wl, int y0, int y1, float fy,
+                                          int x0, int x1, float fx,
+                                          float out[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float r0 = lerp1(grid[(y0 * wl + x0) * 3 + c],
+                           grid[(y1 * wl + x0) * 3 + c], fy);
+    const float r1 = lerp1(grid[(y0 * wl + x1) * 3 + c],
+                           grid[(y1 * wl + x1) * 3 + c], fy);
+    out[c] = lerp1(r0, r1, fx);
+  }
+}
+
 __device__ __forceinline__ float clip01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
 }

@@ -12,12 +12,36 @@ from typing import Iterable, Iterator, Optional, Union
 import numpy as np
 
 
+def require_cv2(what: str):
+    """cv2, imported at the one place that needs it, or a clear error."""
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(
+            f"{what} needs OpenCV (cv2), which is not installed: pass "
+            "arrays at the stream's size instead") from None
+    return cv2
+
+
+def read_image(path: str) -> np.ndarray:
+    """Read an image file -> (H, W, 3) uint8 RGB (RGBA with an alpha
+    channel, (H, W) for a grayscale file). Needs cv2."""
+    cv2 = require_cv2(f"reading the image {path!r}")
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(path)
+    if img.ndim == 3 and img.shape[-1] == 4:
+        return cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA)
+    if img.ndim == 3:
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return img
+
+
 class VideoReader:
     """Iterates (H, W, 3) uint8 RGB frames of a video file (needs cv2)."""
 
     def __init__(self, path: str):
-        import cv2
-
+        cv2 = require_cv2(f"decoding the video {path!r}")
         self._cv2 = cv2
         self.cap = cv2.VideoCapture(path)
         if not self.cap.isOpened():

@@ -8,11 +8,12 @@ The Flax tree and the port's module tree carry the same names:
   torch bn.{weight, bias, running_mean, running_var}
 
 The shipped checkpoints the port serves (``checkpoints/fast_demo.npz``,
-the s2d=2 serving model, and ``checkpoints/synthetic_demo.npz``, the s2d=1
-default model, in this package) are flattened Flax trees, one npz entry
-per leaf keyed by its path (``params/encoder/stem/conv/kernel``), so they
-load with numpy alone. Unlike the JAX package's oracle bridge this one keeps the
-``seg_head`` subtree.
+the s2d=2 serving model, ``checkpoints/synthetic_demo.npz``, the s2d=1
+default model, and ``checkpoints/plate_demo.npz``, the clean-plate
+conditioned s2d=2 model, in this package) are flattened Flax trees, one
+npz entry per leaf keyed by its path (``params/encoder/stem/conv/kernel``),
+so they load with numpy alone. Unlike the JAX package's oracle bridge this
+one keeps the ``seg_head`` subtree.
 """
 
 from __future__ import annotations
@@ -33,7 +34,15 @@ _CKPT_DIR = os.path.join(os.path.dirname(os.path.dirname(
 _DEFAULT_CKPTS = {
     (False, False, 1, True): "synthetic_demo",
     (False, False, 2, True): "fast_demo",
+    (False, True, 2, True): "plate_demo",
 }
+
+
+def plate_default_config() -> ModelConfig:
+    """The shipped clean-plate family's configuration (``plate_demo``),
+    which a bare ``bg_plate=`` argument selects, as in the JAX package.
+    Must stay in sync with the ``plate_demo`` axes in ``_DEFAULT_CKPTS``."""
+    return ModelConfig(use_bg_plate=True, space_to_depth=2)
 
 
 def _walk(tree: Dict[str, Any], prefix: str = ""):
@@ -103,8 +112,9 @@ def load_npz(path: str) -> Dict[str, Any]:
 
 def default_checkpoint_path(cfg: ModelConfig) -> Optional[str]:
     """Path of the shipped checkpoint matching ``cfg`` in this package, or
-    None. ``synthetic_demo`` (s2d=1) and ``fast_demo`` (s2d=2) ship with
-    the port so far (ROADMAP A.1 lists the others)."""
+    None. ``synthetic_demo`` (s2d=1), ``fast_demo`` (s2d=2) and
+    ``plate_demo`` (plate-conditioned, s2d=2) ship with the port so far
+    (ROADMAP A.1 lists the others)."""
     base = ModelConfig()
     if (cfg.enc_channels, cfg.dec_channels) != (base.enc_channels,
                                                 base.dec_channels):
@@ -125,8 +135,8 @@ def default_variables(cfg: ModelConfig) -> Dict[str, Any]:
         raise ValueError(
             f"no shipped checkpoint in the port matches {cfg!r}: pass "
             "variables=... (a nested dict of numpy arrays in the JAX "
-            "package's layout). The port ships synthetic_demo (s2d=1) and "
-            "fast_demo (s2d=2) only.")
+            "package's layout). The port ships synthetic_demo (s2d=1), "
+            "fast_demo (s2d=2) and plate_demo (use_bg_plate, s2d=2) only.")
     return load_npz(path)
 
 

@@ -36,6 +36,7 @@ SOURCES = {
     "planar_conv": "planar_conv.cu",
     "planar_conv2": "planar_conv2.cu",
     "planar_gru": "planar_gru.cu",
+    "int8_conv": "int8_conv.cu",
 }
 
 #: headers in csrc/ the sources include; part of every library's hash

@@ -1,6 +1,6 @@
 """Guided-filter statistics in plain PyTorch (counterpart of
-vidmat/ops/guided_filter.py: ``gray_guide`` and the edge-truncated box
-mean).
+vidmat/ops/guided_filter.py: ``gray_guide``, the edge-truncated box mean
+and ``box_blur``, the portrait-blur background).
 
 The box mean sums the (2r+1)^2 window with zero padding, rows first, then
 columns, each pass adding the 2r+1 shifted terms in ascending order, and
@@ -53,6 +53,13 @@ def box_mean(x: torch.Tensor, r: int) -> torch.Tensor:
     """Edge-truncated (2r+1)^2 box mean of an NHWC tensor."""
     _, h, w, _ = x.shape
     return box_sum(x, r) * inv_window_count(h, w, r, x.device)
+
+
+def box_blur(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Edge-truncated (2r+1)^2 mean blur of an NHWC tensor: the background
+    of the portrait-blur path, taken at the coarse grid
+    (vidmat/ops/guided_filter.py ``box_blur``; plain XLA there too)."""
+    return box_mean(x, radius)
 
 
 def guided_upsample(rgb_full: torch.Tensor, alpha_lr: torch.Tensor,

@@ -6,10 +6,14 @@ Both tails upsample the coarse guided-filter coefficient grids by
 them to the luma guide of the full-resolution uint8 frame:
 
 ``fused_refine_composite`` replaces the TPU kernel of the same name
-(refine_kernel.py:302, pallas_call at :366), in its color and
-no-background modes; the per-pixel image and coarse-background modes are
-not ported yet (ROADMAP A.9). It composites, quantizes and packs RGBA
-words. CUDA kernel: ``csrc/refine_composite.cu``.
+(refine_kernel.py:302, pallas_call at :366) in all four of its background
+modes, dispatched on the background's rank as the TPU kernel's wrapper
+does (:327-343): a (3,) color, an (H, W, 3) image shared by the batch, an
+(N, H/pool, W/pool, 3) coarse background per frame (upsampled inside the
+kernel like the coefficient grids and clipped: the portrait-blur path),
+or None (premultiplied). It also takes (N, H, W, 3) images, one per frame
+(pool > 1). It composites, quantizes and packs RGBA words. CUDA kernel:
+``csrc/refine_composite.cu``.
 
 ``fused_refine_float`` replaces ``fused_refine_float`` (refine_kernel.py:
 193, pallas_call at :214), the float-output tail of the streaming session
@@ -25,8 +29,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from vidmat_torch.ops import _build
@@ -39,7 +44,8 @@ def _kernel():
     fn = _build.load("refine_composite").vm_refine_composite
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
     return fn
 
 
@@ -78,6 +84,34 @@ def _check_cuda_inputs(frame_u8, a_lr, b_lr, pool):
     return frame_u8, a_lr, b_lr
 
 
+Background = Union[None, Sequence[float], np.ndarray, torch.Tensor]
+
+#: background modes of fused_refine_composite, in the kernel's terms
+BG_MODES = ("none", "color", "image", "per_frame", "coarse")
+
+
+def background_mode(bg: Background, n: int, h: int, w: int,
+                    pool: int) -> str:
+    """The mode of ``fused_refine_composite``'s background, by its rank
+    and shape (refine_kernel.py:327-343): None -> "none", (3,) ->
+    "color", (H, W, 3) -> "image", (N, H/pool, W/pool, 3) -> "coarse",
+    (N, H, W, 3) at pool > 1 -> "per_frame". Raises on any other shape."""
+    if bg is None:
+        return "none"
+    shape = tuple(bg.shape) if hasattr(bg, "shape") else np.shape(bg)
+    if shape == (3,):
+        return "color"
+    if shape == (h, w, 3):
+        return "image"
+    if shape == (n, h // pool, w // pool, 3):
+        return "coarse"
+    if shape == (n, h, w, 3):
+        return "per_frame"
+    raise ValueError(
+        f"background must be (3,), ({h}, {w}, 3), ({n}, {h // pool}, "
+        f"{w // pool}, 3) or ({n}, {h}, {w}, 3); got {shape}")
+
+
 def fused_refine_float_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
                              b_lr: torch.Tensor, pool: int = 4
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,24 +130,29 @@ def fused_refine_float_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
 
 
 def fused_refine_composite_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
-                                 b_lr: torch.Tensor,
-                                 bg: Optional[Sequence[float]] = None,
+                                 b_lr: torch.Tensor, bg: Background = None,
                                  pool: int = 4) -> torch.Tensor:
     """Plain PyTorch version: the float tail, then composite,
-    round-half-to-even quantize and pack."""
+    round-half-to-even quantize and pack; a coarse background is first
+    upsampled (``resize_bilinear``) and clipped to [0, 1]."""
     alpha, fgr = fused_refine_float_plain(frame_u8, a_lr, b_lr, pool)
+    n, h, w, _ = frame_u8.shape
+    if background_mode(bg, n, h, w, pool) == "coarse":
+        bg = resize_bilinear(torch.as_tensor(bg, dtype=torch.float32,
+                                             device=frame_u8.device),
+                             h, w).clamp(0.0, 1.0)
     return composite_rgba_packed_plain(fgr, alpha, bg)
 
 
 def fused_refine_composite(frame_u8: torch.Tensor, a_lr: torch.Tensor,
-                           b_lr: torch.Tensor,
-                           bg: Optional[Sequence[float]] = None,
+                           b_lr: torch.Tensor, bg: Background = None,
                            pool: int = 4) -> torch.Tensor:
     """Coefficient upsample + guided apply + composite + RGBA pack.
 
     frame_u8: (N, H, W, 3) uint8; a_lr/b_lr: (N, H/pool, W/pool, 4)
-    float32 (channels [alpha, r, g, b]); bg: (3,) color or None
-    (premultiplied). Returns (N, H, W) uint32.
+    float32 (channels [alpha, r, g, b]); bg: see ``background_mode``
+    (an image or coarse background on CUDA is a float32 tensor on the
+    frame's device). Returns (N, H, W) uint32.
 
     CUDA tensors launch ``csrc/refine_composite.cu``; CPU tensors take the
     plain version."""
@@ -121,16 +160,29 @@ def fused_refine_composite(frame_u8: torch.Tensor, a_lr: torch.Tensor,
         return fused_refine_composite_plain(frame_u8, a_lr, b_lr, bg, pool)
     frame_u8, a_lr, b_lr = _check_cuda_inputs(frame_u8, a_lr, b_lr, pool)
     n, h, w, _ = frame_u8.shape
+    mode = background_mode(bg, n, h, w, pool)
+    color = img = coarse = None
+    if mode == "color":
+        color = ctypes.cast((ctypes.c_float * 3)(*[float(v) for v in bg]),
+                            ctypes.c_void_p)
+    elif mode != "none":
+        if (not torch.is_tensor(bg) or bg.dtype != torch.float32
+                or bg.device != frame_u8.device):
+            raise ValueError(f"a {mode} background must be a float32 tensor "
+                             f"on {frame_u8.device}")
+        bg = bg.contiguous()
+        if mode == "coarse":
+            coarse = bg.data_ptr()
+        else:
+            img = bg.data_ptr()
     out = torch.empty((n, h, w), dtype=torch.uint32, device=frame_u8.device)
-    bg_arr = None
-    if bg is not None:
-        bg_arr = ctypes.cast((ctypes.c_float * 3)(*[float(v) for v in bg]),
-                             ctypes.c_void_p)
     stream = torch.cuda.current_stream(frame_u8.device).cuda_stream
     err = _kernel()(frame_u8.data_ptr(), a_lr.data_ptr(), b_lr.data_ptr(),
-                    out.data_ptr(), n, h, w, pool, bg_arr, stream)
+                    out.data_ptr(), n, h, w, pool, color, img,
+                    int(mode == "per_frame"), coarse, stream)
     _build.check(err, "fused_refine_composite")
     fused_refine_composite.launches += 1
+    fused_refine_composite.mode_launches[mode] += 1
     return out
 
 
@@ -163,4 +215,6 @@ def fused_refine_float(frame_u8: torch.Tensor, a_lr: torch.Tensor,
 
 
 fused_refine_composite.launches = 0
+#: launches per background mode (their sum is ``launches``)
+fused_refine_composite.mode_launches = dict.fromkeys(BG_MODES, 0)
 fused_refine_float.launches = 0

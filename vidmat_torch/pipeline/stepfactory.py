@@ -28,18 +28,28 @@ recurrent decoder per frame (vidmat/pipeline/stepfactory.py:656-693).
 ``static_skip_eps`` gives the fused tails the static-scene fast path
 (:608-654).
 
-Tiling (A.8), backgrounds other than a color (A.9), trimaps and plates
-(A.9, A.10) and error-map refinement (A.11) raise NotImplementedError
-naming the ROADMAP item that ports them. The JAX package's scoped-VMEM fit
-rule for the fused tails (``refine_tiles_fit``) is a TPU limit the CUDA
-kernels do not have: every integer pool > 1 takes a fused tail.
+Backgrounds (:199-204, 320-335, 536-551, 636-641, 687-700): a color or an
+(h, w, 3) image baked into the body; a per-call image (``bg_dynamic``, a
+video background); or a portrait blur (``bg_blur``), the edge-truncated box
+mean of the ingested coarse frame, which the fused packed tail upsamples
+inside its kernel (coarse mode) and the other tails upsample with
+``resize_bilinear`` and composite as per-frame images. A clean plate
+(``bg_plate``, the plate-conditioned family) is ingested once at build
+time and appended to the net's input; the guide, the tails, the composite
+and the static-skip delta see the frame's channels only (:403-432).
+
+Tiling (A.8), trimaps (A.10) and error-map refinement (A.11) raise
+NotImplementedError naming the ROADMAP item that ports them. The JAX
+package's scoped-VMEM fit rule for the fused tails (``refine_tiles_fit``)
+is a TPU limit the CUDA kernels do not have: every integer pool > 1 takes
+a fused tail.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,10 +61,11 @@ from vidmat_torch.ops.composite import (composite_rgba,
                                         composite_rgba_packed_plain)
 from vidmat_torch.ops.gf import (guided_filter_coeffs,
                                  guided_filter_coeffs_plain)
-from vidmat_torch.ops.guided_filter import gray_guide, guided_upsample
+from vidmat_torch.ops.guided_filter import (box_blur, gray_guide,
+                                            guided_upsample)
 from vidmat_torch.ops.ingest import (ingest_pool_normalize,
                                      ingest_pool_normalize_plain)
-from vidmat_torch.ops.refine import (fused_refine_composite,
+from vidmat_torch.ops.refine import (Background, fused_refine_composite,
                                      fused_refine_composite_plain,
                                      fused_refine_float,
                                      fused_refine_float_plain)
@@ -106,7 +117,10 @@ def build_serving_body(
     ratio: float,
     *,
     cdtype: torch.dtype = torch.bfloat16,
-    bg: Optional[Sequence[float]] = None,
+    bg: Background = None,
+    bg_dynamic: bool = False,
+    bg_blur: Optional[int] = None,
+    bg_plate=None,
     need_fgr: bool = False,
     alpha_only: bool = False,
     tile_size: Optional[int] = None,
@@ -120,7 +134,22 @@ def build_serving_body(
     net:      the network (``build_network``: a PlanarNetwork for
               conv_impl="planar", else a MattingNetwork) on the device the
               body runs on, built with compute dtype ``cdtype``.
-    bg:       (3,) float background color, or None (premultiplied output).
+    bg:       (3,) float background color, (h, w, 3) float image in
+              [0, 1] (array or tensor), or None (premultiplied output).
+    bg_dynamic: per-call background (a video background): the body takes
+              a third argument, an (N, h, w, 3) float32 [0, 1] tensor on
+              the device of which it composites over ``bg_frame[0]``;
+              single-frame serving (N = 1); no ``chunk_body``; ``bg``
+              must be None.
+    bg_blur:  portrait blur: composite over the edge-truncated box mean of
+              the source frame, radius ``bg_blur`` full-resolution pixels,
+              taken on the ingested coarse frame (radius
+              ``max(1, round(bg_blur * net_h / h))``). Exclusive with
+              ``bg`` and ``bg_dynamic``; ignored with ``float_output``.
+    bg_plate: the clean plate of the plate-conditioned family
+              (``model_cfg.use_bg_plate``, which requires it): ([N,] h, w,
+              3) uint8, or float in [0, 1]. Ingested once here as the
+              frames are and appended to the net's input.
     need_fgr: the caller needs the raw foreground: the output is the uint8
               tuple (alpha, fgr, rgba) (the packed word carries composited
               RGB).
@@ -140,8 +169,8 @@ def build_serving_body(
               the reference the kernel path is held against on the card.
 
     Returns (body, plan) where
-      body(frame (N, h, w, 3) uint8 (float32 with float_frames), state)
-        -> (out, new_state)
+      body(frame (N, h, w, 3) uint8 (float32 with float_frames), state
+           [, bg_frame with bg_dynamic]) -> (out, new_state)
       out = (N, h, w) uint8 alpha           if plan.alpha_only
           | (N, h, w) uint32 packed RGBA    if plan.packed
                 (R | G<<8 | B<<16 | A<<24)
@@ -150,18 +179,47 @@ def build_serving_body(
     """
     if model_cfg.use_trimap:
         raise _unported("trimap-conditioned serving", "A.10")
-    if model_cfg.use_bg_plate:
-        raise _unported("clean-plate conditioning", "A.9")
     if tile_size:
         raise _unported("tiled refinement", "A.8")
     if refine.mode == "errormap":
         raise _unported("error-map refinement", "A.11")
     if refine.mode not in ("guided", "none"):
         raise ValueError(f"unknown refine mode {refine.mode!r}")
-    if bg is not None and (torch.is_tensor(bg) and bg.dim() != 1
-                           or len(bg) != 3):
-        raise _unported("image and per-frame backgrounds", "A.9")
-    bg = None if bg is None else [float(v) for v in bg]
+    if bg_dynamic and bg is not None:
+        raise ValueError("bg_dynamic takes bg per call; build with bg=None")
+    if bg_blur and (bg is not None or bg_dynamic):
+        raise ValueError("bg_blur composites over a blur of the source "
+                         "frame; it is mutually exclusive with bg / "
+                         "bg_dynamic")
+    if bg_plate is not None and not model_cfg.use_bg_plate:
+        raise ValueError(
+            "bg_plate given but the model is not plate-conditioned: build "
+            "with ModelConfig(use_bg_plate=True) (shipped plate_demo at "
+            "space_to_depth=2), or drop bg_plate")
+    if model_cfg.use_bg_plate and bg_plate is None:
+        raise ValueError(
+            "model_cfg.use_bg_plate=True needs the pre-captured clean "
+            "background plate: pass bg_plate=<(h, w, 3) image> (the scene "
+            "without the subject)")
+    dev = _net_device(net)
+    if bg is not None:
+        bg_t = torch.as_tensor(bg, dtype=torch.float32)
+        if tuple(bg_t.shape) == (3,):
+            bg = [float(v) for v in bg_t]
+        elif tuple(bg_t.shape) == (h, w, 3):
+            bg = bg_t.to(dev).contiguous()
+        else:
+            raise ValueError(f"bg must be (3,) or ({h}, {w}, 3); got "
+                             f"{tuple(bg_t.shape)}")
+    if bg_plate is not None:
+        bg_plate = torch.as_tensor(bg_plate)
+        if bg_plate.dim() == 3:
+            bg_plate = bg_plate[None]
+        if tuple(bg_plate.shape[-3:]) != (h, w, 3):
+            raise ValueError(
+                f"bg_plate must be ([N,] {h}, {w}, 3) matching the frame "
+                f"bucket; got {tuple(bg_plate.shape)} (resize the plate to "
+                "the stream resolution on the host first)")
     net_h, net_w = ((h, w) if ratio >= 1.0
                     else downsample_ratio_shape(h, w, ratio))
     full = (net_h, net_w) == (h, w)
@@ -177,6 +235,10 @@ def build_serving_body(
     use_static_skip = (static_skip_eps is not None and not float_frames
                        and (use_fused or use_float_tail))
     use_alpha_only = alpha_only and use_packed
+    # Portrait blur (stepfactory.py:320-335): a no-op with float_output,
+    # whose contract emits no composite.
+    use_bg_blur = bool(bg_blur) and not float_output
+    blur_rc = max(1, round(bg_blur * net_h / h)) if use_bg_blur else 0
 
     # space_to_depth models need the coarse grid padded to 16*s2d.
     mult = 16 * model_cfg.space_to_depth
@@ -196,7 +258,6 @@ def build_serving_body(
             composite_rgba_packed_plain)
 
     planar = isinstance(net, PlanarNetwork)
-    dev = _net_device(net)
 
     def make_net_state(batch: int):
         if not model_cfg.recurrent:
@@ -243,9 +304,34 @@ def build_serving_body(
         # The cast first, then the resize, in the compute dtype.
         return resize_bilinear(x.to(cdtype), net_h, net_w)
 
+    # The clean plate through the frames' own ingest, once, in the body's
+    # frame contract (uint8, or float in [0, 1] with float_frames).
+    cond_const = None
+    if bg_plate is not None:
+        if float_frames:
+            plate_in = (bg_plate.float() / 255.0
+                        if bg_plate.dtype == torch.uint8
+                        else bg_plate.float())
+        else:
+            plate_in = (bg_plate if bg_plate.dtype == torch.uint8
+                        else torch.round(bg_plate.float().clamp(0.0, 1.0)
+                                         * 255.0).to(torch.uint8))
+        cond_const = ingest_x(plate_in.to(dev).contiguous())
+
+    def bg_from_x(x):
+        """The portrait-blur background (N, net_h, net_w, 3) float32: box
+        blur of the ingested coarse frame's RGB."""
+        return box_blur(x[..., :3].float(), blur_rc)
+
     def prep_net_input(x):
-        """Edge-pad the coarse frame (N, net_h, net_w, C) to the s2d grid
-        at the bottom and right."""
+        """Append the clean plate (if any) to the coarse frame (N, net_h,
+        net_w, C) and edge-pad it to the s2d grid at the bottom and
+        right."""
+        if cond_const is not None:
+            cc = cond_const.to(x.dtype)
+            if cc.shape[0] == 1 and x.shape[0] != 1:
+                cc = cc.expand(x.shape[0], -1, -1, -1)
+            x = torch.cat([x, cc], dim=-1)
         if not (pad_nh or pad_nw):
             return x
         xp = F.pad(x.permute(0, 3, 1, 2), (0, pad_nw, 0, pad_nh),
@@ -264,29 +350,35 @@ def build_serving_body(
         p = torch.cat([alpha, fgr], dim=-1)
         return gf_coeffs(guide, p, refine.guided_radius, refine.guided_eps)
 
-    def fused_out(frame_u8, ma, mb):
-        out = packed_tail(frame_u8[..., :3], ma, mb, bg, pool)
+    def fused_out(frame_u8, ma, mb, bgv):
+        out = packed_tail(frame_u8[..., :3], ma, mb, bgv, pool)
         return alpha_byte(out) if use_alpha_only else out
 
-    def finish_float(alpha, fgr):
+    def finish_float(alpha, fgr, bgv):
         """Output packaging once full-resolution float alpha and fgr
         exist (stepfactory.py:588-606)."""
         if float_output:
             return alpha, fgr
         if use_packed:
-            out = composite(fgr, alpha, bg)
+            out = composite(fgr, alpha, bgv)
             return alpha_byte(out) if use_alpha_only else out
-        rgba = composite_rgba(fgr, alpha, bg)
+        rgba = composite_rgba(fgr, alpha, bgv)
         alpha_u8 = torch.round(alpha * 255.0).to(torch.uint8)
         fgr_u8 = torch.round(fgr * 255.0).to(torch.uint8)
         return alpha_u8, fgr_u8, rgba
 
     @torch.inference_mode()
-    def body(frame, state):
+    def body_impl(frame, state, bgv):
         x = ingest_x(frame)
         alpha, fgr, new_state = net_from_x(x, state)
         if use_fused:
-            return fused_out(frame, *coeffs(x, alpha, fgr)), new_state
+            # With bg_blur the coarse background is upsampled inside the
+            # refine kernel (coarse mode).
+            if use_bg_blur:
+                bgv = bg_from_x(x)
+            return fused_out(frame, *coeffs(x, alpha, fgr), bgv), new_state
+        if use_bg_blur:
+            bgv = resize_bilinear(bg_from_x(x), h, w)
         if use_float_tail:
             alpha, fgr = float_tail(frame[..., :3], *coeffs(x, alpha, fgr),
                                     pool)
@@ -299,10 +391,10 @@ def build_serving_body(
         elif not full:
             alpha = resize_bilinear(alpha, h, w)
             fgr = resize_bilinear(fgr, h, w)
-        return finish_float(alpha, fgr), new_state
+        return finish_float(alpha, fgr, bgv), new_state
 
     @torch.inference_mode()
-    def body_static(frame_u8, state):
+    def body_static(frame_u8, state, bgv):
         """The net and the coefficients run only when the coarse frame
         changed against the frame the cached coefficients came from
         (stepfactory.py:608-654). The branch is taken on the host: one
@@ -317,14 +409,20 @@ def build_serving_body(
             ref_x = x
         else:
             skips += 1
+        if use_bg_blur:
+            # The blur of the current frame, not of the coefficients'
+            # reference: the tail always runs on the current frame.
+            bgv = (bg_from_x(x) if use_fused
+                   else resize_bilinear(bg_from_x(x), h, w))
         if use_fused:
-            out = fused_out(frame_u8, ma, mb)
+            out = fused_out(frame_u8, ma, mb, bgv)
         else:
-            out = finish_float(*float_tail(frame_u8[..., :3], ma, mb, pool))
+            out = finish_float(*float_tail(frame_u8[..., :3], ma, mb, pool),
+                               bgv)
         return out, (net_state, (ref_x, ma, mb, skips))
 
     chunk_body = None
-    if use_fused and planar and not use_static_skip:
+    if use_fused and planar and not use_static_skip and not bg_dynamic:
         @torch.inference_mode()
         def chunk_body(frames_u8: torch.Tensor, state):
             x = ingest_x(frames_u8)
@@ -336,11 +434,22 @@ def build_serving_body(
                 alphas.append(alpha[:, :net_h, :net_w].float())
                 fgrs.append(fgr[:, :net_h, :net_w].float())
             ma, mb = coeffs(x, torch.cat(alphas), torch.cat(fgrs))
-            return fused_out(frames_u8, ma, mb), state
+            return fused_out(frames_u8, ma, mb,
+                             bg_from_x(x) if use_bg_blur else bg), state
+
+    impl = body_static if use_static_skip else body_impl
+    if bg_dynamic:
+        def body(frame, state, bg_frame):
+            # bg_frame: (N, h, w, 3) float32 in [0, 1]; the tails take one
+            # (h, w, 3) image (single-frame serving).
+            return impl(frame, state, bg_frame[0])
+    else:
+        def body(frame, state):
+            return impl(frame, state, bg)
 
     plan = ServingPlan(net_h=net_h, net_w=net_w, state_h=state_h,
                        state_w=state_w, pool=pool, packed=use_packed,
                        alpha_only=use_alpha_only,
                        static_skip=use_static_skip, full=full,
                        make_state=make_state, chunk_body=chunk_body)
-    return (body_static if use_static_skip else body), plan
+    return body, plan

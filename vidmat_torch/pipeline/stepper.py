@@ -25,6 +25,7 @@ import torch
 
 from vidmat_torch._device import resolve_device
 from vidmat_torch.config import ModelConfig, RefineConfig
+from vidmat_torch.io.backgrounds import prepare_plate_u8
 from vidmat_torch.models.weights import build_network, default_variables
 from vidmat_torch.ops.resize import downsample_ratio_shape
 from vidmat_torch.pipeline.stepfactory import build_serving_body
@@ -55,14 +56,16 @@ class VideoStepper:
     """Streaming recurrent stepper for a fixed (height, width) stream.
 
     downsample_ratio < 1 runs the net on a coarse grid and restores full
-    resolution with the guided filter."""
+    resolution with the guided filter. bg_plate: the clean plate of a
+    plate-conditioned ``cfg`` (path or (H, W, 3) array), prepared to the
+    stream's size once and fixed for the session."""
 
     def __init__(self, cfg: ModelConfig, height: int, width: int,
                  variables=None, downsample_ratio: float = 1.0,
                  dtype: str = "float32", guided_radius: int = 4,
                  guided_eps: float = 1e-4,
                  static_skip_eps: Optional[float] = None,
-                 device="cuda", kernels: bool = True):
+                 bg_plate=None, device="cuda", kernels: bool = True):
         if height % 16 or width % 16:
             raise ValueError("height/width must be multiples of 16 "
                              "(pad with pipeline.stepper.pad_to_multiple)")
@@ -93,6 +96,8 @@ class VideoStepper:
             height, width, downsample_ratio, cdtype=self.dtype,
             float_frames=self._parity, float_output=True,
             static_skip_eps=static_skip_eps,
+            bg_plate=(None if bg_plate is None
+                      else prepare_plate_u8(bg_plate, height, width)),
             kernels=kernels and not self._parity)
         self.reset()
 

@@ -18,6 +18,13 @@
   - output_foreground takes the body's uint8 tuple (alpha, fgr, rgba);
     otherwise one packed RGBA word (or the alpha byte) per pixel comes
     back
+  - backgrounds of the composition, by precedence bg_blur > bg_video >
+    bg_image > bg_color (vidmat/pipeline/video.py:320-330): a blur of the
+    source frame made on the device, a per-frame image sent with each
+    frame (the per-frame body, in lockstep with the frames, looped if the
+    background clip is shorter), one image baked into the body, or a
+    color. A clean plate (the plate-conditioned family) is prepared once
+    per bucket and baked into the body
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import torch
 
 from vidmat_torch._device import resolve_device
 from vidmat_torch.config import ModelConfig, PipelineConfig
+from vidmat_torch.io.backgrounds import (BgFrameSource, prepare_bg_image,
+                                         prepare_plate_u8)
 from vidmat_torch.io.reader import FrameSource, pad_frame
 from vidmat_torch.io.writer import open_sink
 from vidmat_torch.models.weights import build_network, default_variables
@@ -96,6 +105,16 @@ class VideoPipeline:
     vidmat/pipeline/video.py:252); pass a preset's pair for a preset.
     variables: the network's weights as a nested dict of numpy arrays in
     the JAX package's layout; None loads the shipped weights of model_cfg.
+    bg_color / bg_image / bg_video / bg_blur: the composition's
+    background, as in the JAX package: a color; an image (path or
+    (H, W, 3) array, uint8 or float in [0, 1]); a background video (path
+    or iterable of frames, one per input frame, looped); the radius in
+    full-resolution pixels of a blur of the source frame. Precedence
+    bg_blur > bg_video > bg_image > bg_color. A background or plate whose
+    size differs from the stream's bucket is resized with cv2.
+    bg_plate: the clean plate (path or (H, W, 3) array) of the
+    plate-conditioned family (``ModelConfig(use_bg_plate=True)``, which
+    requires it): an input of the net, not a background.
     device: "cuda" (default; raises without a CUDA device) or "cpu" (the
     plain PyTorch versions of the kernels)."""
 
@@ -103,9 +122,23 @@ class VideoPipeline:
                  pipe_cfg: Optional[PipelineConfig] = None,
                  variables=None, downsample_ratio: Optional[float] = None,
                  bg_color: Optional[Tuple[float, float, float]] = None,
+                 bg_image: Optional[Union[str, np.ndarray]] = None,
+                 bg_video: Optional[Union[str, Iterable[np.ndarray]]] = None,
+                 bg_blur: Optional[int] = None,
+                 bg_plate: Optional[Union[str, np.ndarray]] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.model_cfg = model_cfg or ModelConfig()
         self.pipe_cfg = pipe_cfg or PipelineConfig()
+        if self.model_cfg.use_bg_plate and bg_plate is None:
+            raise ValueError(
+                "ModelConfig(use_bg_plate=True) needs the pre-captured "
+                "clean background plate: pass bg_plate=<image path or "
+                "(H, W, 3) array> (the scene without the subject)")
+        if bg_plate is not None and not self.model_cfg.use_bg_plate:
+            raise ValueError(
+                "bg_plate given but the model is not plate-conditioned: "
+                "build with ModelConfig(use_bg_plate=True, "
+                "space_to_depth=2) (shipped plate_demo), or drop bg_plate")
         self.device = resolve_device(device)
         if variables is None:
             variables = default_variables(self.model_cfg)
@@ -117,6 +150,10 @@ class VideoPipeline:
             device=self.device)
         self.downsample_ratio = downsample_ratio
         self.bg_color = bg_color
+        self.bg_image = bg_image
+        self.bg_video = bg_video
+        self.bg_blur = bg_blur
+        self.bg_plate = bg_plate
         self._step_cache = {}
 
     def _build_step(self, h: int, w: int, ratio: float,
@@ -126,12 +163,25 @@ class VideoPipeline:
         key = (h, w, ratio, need_fgr, alpha_only)
         if key not in self._step_cache:
             cfg = self.pipe_cfg
+            bg = None  # a blur is made on the device, a video sent per frame
+            if not (self.bg_blur or self.bg_video is not None):
+                bg = (prepare_bg_image(self.bg_image, h, w)
+                      if self.bg_image is not None else self.bg_color)
+            plate = (prepare_plate_u8(self.bg_plate, h, w)
+                     if self.bg_plate is not None else None)
             self._step_cache[key] = build_serving_body(
                 self.net, self.model_cfg, cfg.refine, h, w, ratio,
-                cdtype=self.cdtype, bg=self.bg_color, need_fgr=need_fgr,
+                cdtype=self.cdtype, bg=bg, bg_dynamic=self._bg_dynamic,
+                bg_blur=self.bg_blur, bg_plate=plate, need_fgr=need_fgr,
                 alpha_only=alpha_only, tile_size=cfg.tile_size,
                 static_skip_eps=cfg.static_skip_eps)
         return self._step_cache[key]
+
+    @property
+    def _bg_dynamic(self) -> bool:
+        """A background video takes the per-frame body with a per-call
+        background (a blur takes precedence over it)."""
+        return self.bg_video is not None and not self.bg_blur
 
     def run(self, input_source: Union[str, Iterable[np.ndarray]],
             output_alpha: Optional[Target] = None,
@@ -149,7 +199,7 @@ class VideoPipeline:
         xfer = _Transfers(self.device)
         metrics = RunMetrics()
         writers = {}
-        body = plan = state = None
+        body = plan = state = bg_src = None
         crop = pad = None
         pending = None  # device-to-host handle of the previous frame
 
@@ -179,9 +229,13 @@ class VideoPipeline:
 
         def step(host_frames, fn=None):
             """Run (N, h, w, 3) host frames through ``fn`` (the per-frame
-            body by default); returns the output's device-to-host handle."""
+            body by default; with a background video, with the next
+            background); returns the output's device-to-host handle."""
             nonlocal state
-            out, state = (fn or body)(xfer.to_device(host_frames), state)
+            args = (xfer.to_device(host_frames), state)
+            if bg_src is not None:
+                args += (xfer.to_device(bg_src.next()),)
+            out, state = (fn or body)(*args)
             return xfer.to_host(out)
 
         k = self.pipe_cfg.chunk_size
@@ -203,6 +257,8 @@ class VideoPipeline:
                     alpha_only=bool(output_alpha)
                     and not output_foreground and not output_composition)
                 state = plan.make_state(1)
+                if self._bg_dynamic:
+                    bg_src = BgFrameSource(self.bg_video, ph, pw)
                 for name, target in (("alpha", output_alpha),
                                      ("fgr", output_foreground),
                                      ("comp", output_composition)):
