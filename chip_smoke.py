@@ -75,11 +75,13 @@ Phases (any failure exits nonzero and prints no result line):
      flushed before every launch, the card kept busy while the host
      enqueues it), beside its bound, its plain version's
      time and, for the planar kernels and int8_conv, cuDNN's F.conv2d for
-     the same convs (a yardstick the port never calls)
+     the same convs (a yardstick the port never calls); for the tensor-core
+     planar kernels also the tile edge, block count and shared memory each
+     site's launch chose
   7. where a frame's time goes on the planar chunk body: host time per
-     stage, the body's wall time, device time by kernel group
-     (torch.profiler); checks that the planar body launches no library
-     convolution or GEMM
+     stage, the body's wall time, device time by kernel group and by
+     kernel file (torch.profiler); checks that the planar body launches no
+     library convolution or GEMM
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -1312,6 +1314,27 @@ def site_cost(key, args):
             px * 9 * (cout * cin + 2 * c * 2 * c + c * 2 * c))
 
 
+def site_plan(key, args):
+    """The launch a bf16 tensor-core planar call makes at this site
+    ({"tile", "blocks", "smem"}), or None for planar_conv."""
+    from vidmat_torch.ops.planar import planar_conv2_plan, planar_gru_plan
+
+    if key == "conv2":
+        xs, w1, w2, stride = args[0], args[1], args[4], args[7]
+        n, _, hh, ww = xs[0].shape
+        return planar_conv2_plan([t.shape[1] for t in xs], n, hh, ww,
+                                 w1.shape[0], w2.shape[0], stride)
+    if key == "conv_gru":
+        h = args[4]
+        n, c, hh, ww = h.shape
+        return planar_gru_plan(True, sum(t.shape[1] for t in args[0]), n,
+                               hh, ww, c)
+    if key == "gru":
+        n, c, hh, ww = args[1].shape
+        return planar_gru_plan(False, c, n, hh, ww, c)
+    return None
+
+
 def library_call(key, args):
     """One cuDNN F.conv2d pass over the same convs (inputs concatenated
     beforehand, no epilogue): the yardstick of a planar call."""
@@ -1460,10 +1483,11 @@ def phase_timing(inputs, sites, tail, bg_inputs):
             f"{out[name]['bound_by']} ({row['bytes'] / 1e6:.2f} MB, "
             f"{row['ops'] / 1e6:.1f} Mop); library call: {lib}")
 
-    # Planar kernels: per call site, then summed per kernel (one call at
-    # each of its sites: a chunk's encoder calls, one frame's decoder).
-    # Operations count 2 per multiply-add against the bf16 tensor-core
-    # peak; bytes against HBM.
+    # Planar kernels: per call site, with the launch the tensor-core
+    # kernels chose there, then summed per kernel (one call at each of its
+    # sites: a chunk's encoder calls, one frame's decoder). Operations
+    # count 2 per multiply-add against the bf16 tensor-core peak; bytes
+    # against HBM.
     ops = planar_ops()
     per_site = {}
     for site, (key, args) in sites.items():
@@ -1475,12 +1499,16 @@ def phase_timing(inputs, sites, tail, bg_inputs):
                    ms=time_cold(lambda: kern(*args)),
                    plain_ms=time_cold(lambda: plain(*args), iters=10),
                    library_ms=time_cold(library_call(key, args)),
-                   t_bytes=t_bytes, t_ops=t_ops, bytes=nb, macs=macs)
+                   t_bytes=t_bytes, t_ops=t_ops, bytes=nb, macs=macs,
+                   plan=site_plan(key, args))
         per_site[site] = row
+        plan = ("" if row["plan"] is None else
+                f"; tile {row['plan']['tile']}, {row['plan']['blocks']} "
+                f"blocks, {row['plan']['smem'] / 1024:.1f} KB shared")
         log(f"[6] {site:8s} {kern.__name__:16s} {row['ms']:.4f} ms (cold "
             f"L2), plain {row['plain_ms']:.4f}, cuDNN conv(s) "
             f"{row['library_ms']:.4f}, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({nb / 1e6:.2f} MB, {macs / 1e6:.1f} M MAC)")
+            f"({nb / 1e6:.2f} MB, {macs / 1e6:.1f} M MAC){plan}")
     for name in sorted({r["kernel"] for r in per_site.values()}):
         rs = [r for r in per_site.values() if r["kernel"] == name]
         t_bytes = sum(r["t_bytes"] for r in rs)
@@ -1497,10 +1525,14 @@ def phase_timing(inputs, sites, tail, bg_inputs):
     return out
 
 
-# Kernel names of the port (the profiler's device events).
-PORT_KERNELS = ("ingest_kernel", "gf_ab_kernel", "gf_box_kernel",
-                "refine_composite_kernel", "planar_conv_kernel",
-                "planar_conv2_kernel", "planar_gru_kernel")
+# Kernel names of the port (the profiler's device events; a name matches
+# its instantiations, e.g. planar_gru_kernel_mma<true>) and their files.
+PORT_KERNELS = {"ingest_kernel": "ingest.cu", "gf_ab_kernel": "gf_coeffs.cu",
+                "gf_box_kernel": "gf_coeffs.cu",
+                "refine_composite_kernel": "refine_composite.cu",
+                "planar_conv_kernel": "planar_conv.cu",
+                "planar_conv2_kernel": "planar_conv2.cu",
+                "planar_gru_kernel": "planar_gru.cu"}
 LIBRARY_CONV = ("conv", "cudnn", "xmma", "gemm", "implicit", "wgrad",
                 "dgrad", "nchwtonhwc", "nhwctonchw", "cutlass")
 
@@ -1569,7 +1601,7 @@ def phase_profile(net, dev):
         f.write(avgs.table(sort_by="cuda_time_total", row_limit=60))
     groups = {"port kernels": 0.0, "library convolutions": 0.0,
               "other": 0.0}
-    by_kernel = {}
+    by_kernel, by_file = {}, {}
     library = []
     for ev in avgs:
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1579,6 +1611,8 @@ def phase_profile(net, dev):
         if ours:
             groups["port kernels"] += ms
             by_kernel[ours] = by_kernel.get(ours, 0.0) + ms
+            f = PORT_KERNELS[ours]
+            by_file[f] = by_file.get(f, 0.0) + ms
         elif any(c in ev.key.lower() for c in LIBRARY_CONV):
             groups["library convolutions"] += ms
             library.append(ev.key)
@@ -1595,9 +1629,14 @@ def phase_profile(net, dev):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
     log("    port kernels per frame: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in sorted(by_kernel.items())))
+    log("    port kernels per frame by file: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in sorted(by_file.items())))
     assert dev_ms > 0, "the profiler saw no device time"
     assert not library, f"library convolutions on the planar body: {library}"
-    assert all(k in by_kernel for k in PORT_KERNELS[:6]), by_kernel
+    assert all(k in by_kernel for k in list(PORT_KERNELS)[:6]), by_kernel
+    with open(os.path.join(OUT_DIR, "profile_by_file.json"), "w") as f:
+        json.dump(dict(by_file=by_file, groups=groups, body_ms=body_only,
+                       seq_ms=seq), f, indent=1)
 
 
 def main() -> int:

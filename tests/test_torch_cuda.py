@@ -298,21 +298,44 @@ def test_planar_conv_matches_plain(dev, dtype, n):
             _close(got, want, 1)
 
 
+# Main-path sites (1080p, fast_demo, s2d 2): the encoder pairs s2, s3, s4
+# (batch 4 on the path), d0 + head with 36 inputs and the plate net's 48,
+# the decoder stages d3, d2, d1 (batch 1); and ragged shapes: output
+# channels not a multiple of 8 (12, 20), input sums not a multiple of 16
+# (36, 104, 5 + 3), widths not a multiple of 16, stride 2 on odd sizes.
+CONV2_CASES = [((16,), 24, 24, 2, "relu", 72, 120),
+               ((24,), 40, 40, 2, "relu", 36, 60),
+               ((40,), 64, 64, 2, "relu", 18, 30),
+               ((12, 12, 12), 16, 16, 1, "none", 144, 240),
+               ((12, 12, 24), 16, 16, 1, "none", 144, 240),
+               ((16,), 24, 24, 2, "relu", 36, 60),
+               ((12, 12, 12), 16, 16, 1, "none", 20, 30),
+               ((5, 3), 6, 4, 2, "relu", 13, 21),
+               ((5,), 6, 4, 1, "none", 13, 21),
+               ((5, 3), 20, 12, 2, "relu", 13, 21),
+               ((64, 40), 12, 20, 1, "relu", 11, 19),
+               ((12, 12, 3), 16, 4, 1, "none", 17, 35)]
+CONV_GRU_CASES = [((64, 40), 24, 18, 30), ((24, 24, 24), 16, 36, 60),
+                  ((16, 16, 16), 12, 72, 120), ((5, 7), 4, 13, 21),
+                  ((5, 3), 6, 13, 21), ((12, 12, 12), 10, 11, 19),
+                  ((64, 40), 10, 9, 15)]
+GRU_CASES = [(12, 20, 30), (24, 18, 30), (5, 13, 21), (16, 36, 60),
+             (12, 72, 120), (10, 13, 21), (6, 11, 19)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 4])
 def test_planar_conv2_matches_plain(dev, dtype, n):
     from vidmat_torch.ops.planar import planar_conv2, planar_conv2_plain
 
     g = torch.Generator().manual_seed(4)
-    cases = [((16,), 24, 24, 2, "relu", 36, 60),
-             ((12, 12, 12), 16, 16, 1, "none", 20, 30),
-             ((5, 3), 6, 4, 2, "relu", 13, 21),
-             ((5,), 6, 4, 1, "none", 13, 21)]
-    for cins, cmid, cout, stride, act2, h, w in cases:
+    for cins, cmid, cout, stride, act2, h, w in CONV2_CASES:
         xs = [_rand(g, (n, c, h, w), dev, dtype) for c in cins]
         w1, s1, b1 = _conv_args(g, cins, cmid, 3, dev, dtype)
         w2, s2, b2 = _conv_args(g, (cmid,), cout, 3, dev, dtype)
+        before = planar_conv2.launches
         got = planar_conv2(xs, w1, s1, b1, w2, s2, b2, stride, "relu", act2)
+        assert planar_conv2.launches == before + 1
         want = planar_conv2_plain(xs, w1, s1, b1, w2, s2, b2, stride,
                                   "relu", act2)
         assert got.shape == want.shape
@@ -326,8 +349,7 @@ def test_planar_conv_gru_matches_plain(dev, dtype, n):
                                          planar_conv_gru_plain)
 
     g = torch.Generator().manual_seed(5)
-    for cins, c, h, w in (((64, 40), 24, 18, 30), ((16, 16, 16), 12, 72, 120),
-                          ((5, 7), 4, 13, 21)):
+    for cins, c, h, w in CONV_GRU_CASES:
         xs = [_rand(g, (n, ci, h, w), dev, dtype) for ci in cins]
         wt, sc, bi = _conv_args(g, cins, 2 * c, 3, dev, dtype)
         hp = _rand(g, (n, c, h, w), dev, dtype, 0.5)
@@ -346,7 +368,7 @@ def test_planar_gru_matches_plain(dev, dtype, n):
     from vidmat_torch.ops.planar import planar_gru, planar_gru_plain
 
     g = torch.Generator().manual_seed(6)
-    for c, h, w in ((12, 20, 30), (24, 18, 30), (5, 13, 21)):
+    for c, h, w in GRU_CASES:
         x = _rand(g, (n, c, h, w), dev, dtype)
         hp = _rand(g, (n, c, h, w), dev, dtype, 0.5)
         gw = _gru_args(g, c, dev, dtype)
@@ -354,6 +376,208 @@ def test_planar_gru_matches_plain(dev, dtype, n):
         got = planar_gru(x, hp, *gw)
         assert planar_gru.launches == before + 1
         _close(got, planar_gru_plain(x, hp, *gw), 1)
+
+
+# ---- planted bf16 rounding ties (slice 5) ----
+#
+# On bf16 planes the tensor-core kernels sum in k16 chunks, tap by tap, and
+# recompute in the CUDA-core kernels' order (input channel, then ky, then
+# kx) every value whose bf16 rounding the order could change. These inputs
+# put values on bf16 rounding midpoints: b + 2^-8 with b = 1 + j 2^-7, in
+# [1, 2), times a power of two. Where nothing else reaches the value the
+# sum is exact in every order (an exact tie, rounded half to even). Where
+# products of +-2^-26 reach it too, the sequential order drops each of
+# them (each is under half a float32 unit of the running sum) and rounds
+# the tie half to even, while the chunked order sums them first and rounds
+# the value off the tie (a near tie). The kernels must give the sequential
+# order's values exactly. The plain versions' cuDNN convolutions choose
+# their own order per shape, so on these inputs they are no reference:
+# each case prints how far they land from the sequential order.
+
+_TINY = 2.0 ** -13
+
+
+def _seq_conv_f32(xs, w, stride):
+    """planar._conv_f32 summed in the CUDA-core kernels' order: input
+    channel, then ky, then kx, each product (exact in float32) added to a
+    float32 sum that starts from 0."""
+    x = torch.cat([t.float() for t in xs], 1)
+    k = w.shape[-1]
+    n, c, hh, ww = x.shape
+    oh, ow = (hh - 1) // stride + 1, (ww - 1) // stride + 1
+    xp = torch.nn.functional.pad(x, (k // 2,) * 4)
+    wf = w.float()
+    acc = torch.zeros((n, w.shape[0], oh, ow), device=x.device)
+    for ci in range(c):
+        for ky in range(k):
+            for kx in range(k):
+                win = xp[:, ci:ci + 1, ky:ky + stride * (oh - 1) + 1:stride,
+                         kx:kx + stride * (ow - 1) + 1:stride]
+                acc = acc + win * wf[:, ci, ky, kx].view(1, -1, 1, 1)
+    return acc
+
+
+def _planted_input(g, n, cins, h, w, dev):
+    """bf16 inputs split into ``cins``: channel 0 is 1, channel 1 is 2^-8
+    on three pixels in four (else 0), the rest +-2^-13 or 0."""
+    c = sum(cins)
+    x = torch.zeros((n, c, h, w))
+    x[:, 0] = 1.0
+    x[:, 1] = 2.0 ** -8 * (torch.rand((n, h, w), generator=g) < 0.75)
+    x[:, 2:] = _TINY * torch.randint(-1, 2, (n, c - 2, h, w), generator=g)
+    return [t.contiguous() for t in torch.split(x.to(dev, torch.bfloat16),
+                                                list(cins), 1)]
+
+
+def _planted_conv(g, cin, small, roles, dev, signed=False):
+    """3x3 weights (len(roles), cin, 3, 3) in bf16 and float32 scale and
+    bias, over inputs whose channel 0 is 1, channel 1 is 2^-8 (or 0) and
+    channels ``small`` are +-2^-13 (or 0). roles[co]:
+      "tie"       b * [0] + [1] + tiny terms on ``small``, scale a power
+                  of two, bias 0: a bf16 midpoint where channel 1 is set;
+                  one row in four has no tiny terms (exact ties); negative
+                  at random if ``signed``;
+      ("pass", k) a copy of channel k;
+      "free"      random weights over every channel, scale and bias."""
+    cout = len(roles)
+    w = torch.zeros((cout, cin, 3, 3))
+    scale, bias = torch.ones(cout), torch.zeros(cout)
+    for co, role in enumerate(roles):
+        if role == "tie":
+            s = -1.0 if signed and torch.rand((), generator=g) < 0.5 else 1.0
+            w[co, 0, 1, 1] = s * (1 + int(torch.randint(0, 128, (),
+                                                        generator=g)) / 128)
+            w[co, 1, 1, 1] = s
+            if torch.rand((), generator=g) < 0.75:
+                w[co, small] = _TINY * torch.randint(
+                    -1, 2, (len(small), 3, 3), generator=g).float()
+            scale[co] = 2.0 ** int(torch.randint(-1, 3, (), generator=g))
+        elif role == "free":
+            w[co] = torch.randn((cin, 3, 3), generator=g) * (9 * cin) ** -0.5
+            scale[co] = float(torch.rand((), generator=g)) + 0.5
+            bias[co] = float(torch.randn((), generator=g)) * 0.1
+        else:
+            w[co, role[1], 1, 1] = 1.0
+    return w.to(dev, torch.bfloat16), scale.to(dev), bias.to(dev)
+
+
+def _midpoints(acc, scale, bias):
+    """Values of acc * scale + bias (float32) that lie on a bf16 rounding
+    midpoint."""
+    from vidmat_torch.ops.planar import _affine_act
+
+    v = _affine_act(acc, scale, bias, "none")
+    return int(((v.view(torch.int32) & 0xFFFF) == 0x8000).sum())
+
+
+# (input channels, mid, out, stride, H, W) and (input channels, C, H, W):
+# the s2 and d0 + head sites' widths, d3's and d1's, ragged ones.
+PLANTED_CONV2 = [((16,), 24, 24, 2, 36, 60), ((12, 12, 12), 16, 16, 1, 40, 64),
+                 ((5, 3), 12, 20, 2, 13, 21)]
+PLANTED_CONV_GRU = [((64, 40), 24, 18, 30), ((16, 16, 16), 12, 36, 60),
+                    ((5, 7), 6, 13, 21)]
+
+
+@pytest.mark.parametrize("case", range(len(PLANTED_CONV2)))
+def test_planar_conv2_rounds_planted_ties_as_sequential_order(
+        dev, monkeypatch, case):
+    from vidmat_torch.ops import planar as P
+
+    cins, cmid, cout, stride, h, w = PLANTED_CONV2[case]
+    g = torch.Generator().manual_seed(7 + case)
+    cin = sum(cins)
+    xs = _planted_input(g, 2, cins, h, w, dev)
+    # mid: 1, 2^-8 and a few tiny channels passed on, then ties and free
+    # values; out: ties over those, free values over all of mid.
+    npass = min(cin - 2, cmid // 4)
+    ntie = (cmid - 2 - npass) // 2
+    roles1 = ([("pass", 0), ("pass", 1)]
+              + [("pass", 2 + k) for k in range(npass)]
+              + ["tie"] * ntie + ["free"] * (cmid - 2 - npass - ntie))
+    w1, s1, b1 = _planted_conv(g, cin, list(range(2, cin)), roles1, dev)
+    roles2 = ["tie"] * (cout // 2) + ["free"] * (cout - cout // 2)
+    w2, s2, b2 = _planted_conv(g, cmid, list(range(2, 2 + npass)), roles2,
+                               dev, signed=True)
+    args = (xs, w1, s1, b1, w2, s2, b2, stride, "relu", "none")
+
+    got = P.planar_conv2(*args)
+    plain = P.planar_conv2_plain(*args)
+    with monkeypatch.context() as m:
+        m.setattr(P, "_conv_f32", _seq_conv_f32)
+        seq = P.planar_conv2_plain(*args)
+        mid = P.planar_conv_plain(xs, w1, s1, b1, stride, "relu")
+        ties = (_midpoints(_seq_conv_f32(xs, w1, stride), s1, b1)
+                + _midpoints(_seq_conv_f32([mid], w2, 1), s2, b2))
+    print(f"planar_conv2 {PLANTED_CONV2[case]}: {ties} midpoints; cuDNN "
+          f"plain vs sequential max |d| {float((plain - seq).abs().max())}")
+    assert ties > got.numel() // 20
+    assert torch.equal(got, seq)
+
+
+@pytest.mark.parametrize("case", range(len(PLANTED_CONV_GRU)))
+def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(
+        dev, monkeypatch, case):
+    """Also fused = unfused: planar_conv (CUDA-core, sequential order) then
+    planar_gru give the fused stage's a and h'."""
+    from vidmat_torch.ops import planar as P
+
+    cins, c, h, w = PLANTED_CONV_GRU[case]
+    g = torch.Generator().manual_seed(17 + case)
+    cin = sum(cins)
+    xs = _planted_input(g, 1, cins, h, w, dev)
+    half = ["tie"] * (c // 2) + ["free"] * (c - c // 2)
+    wt, sc, bi = _planted_conv(g, cin, list(range(2, cin)), half + half, dev)
+    hp = _rand(g, (1, c, h, w), dev, torch.bfloat16, 0.5)
+    gw = _gru_args(g, c, dev, torch.bfloat16)
+
+    a, hn = P.planar_conv_gru(xs, wt, sc, bi, hp, *gw)
+    mid = P.planar_conv(xs, wt, sc, bi, 1, "relu")
+    ua = mid[:, :c].contiguous()
+    uh = P.planar_gru(mid[:, c:].contiguous(), hp, *gw)
+    pa, ph = P.planar_conv_gru_plain(xs, wt, sc, bi, hp, *gw)
+    with monkeypatch.context() as m:
+        m.setattr(P, "_conv_f32", _seq_conv_f32)
+        sa, sh = P.planar_conv_gru_plain(xs, wt, sc, bi, hp, *gw)
+        smid = P.planar_conv_plain(xs, wt, sc, bi, 1, "relu")
+        ties = _midpoints(_seq_conv_f32(xs, wt, 1), sc, bi)
+    print(f"planar_conv_gru {PLANTED_CONV_GRU[case]}: {ties} midpoints; "
+          f"cuDNN plain vs sequential max |d| a "
+          f"{float((pa - sa).abs().max())}, h' "
+          f"{float((ph - sh).abs().max())}")
+    assert ties > mid.numel() // 20
+    assert torch.equal(mid, smid)
+    assert torch.equal(a, ua) and torch.equal(hn, uh)
+    assert torch.equal(a, sa) and torch.equal(hn, sh)
+
+
+def test_planar_tensor_core_plans_fit_every_shipped_site(dev):
+    """Every bf16 planar_conv2 / planar_conv_gru / planar_gru site of the
+    shipped configurations (fast_demo and synthetic_demo at s2d 2 and 1,
+    the clean-plate family's extra input channels) gets a tile that fits
+    in shared memory: the widths are the configurations' own, and shared
+    memory depends on the widths only."""
+    from vidmat_torch.config import ModelConfig
+    from vidmat_torch.ops.planar import planar_conv2_plan, planar_gru_plan
+
+    for plate in (False, True):
+        for s2d in (1, 2):
+            cfg = ModelConfig(space_to_depth=s2d, use_bg_plate=plate)
+            e, d = cfg.enc_channels, cfg.dec_channels
+            # d0 + head's conditioning: the packed input, or the RGB.
+            cond = cfg.in_channels * s2d * s2d if s2d > 1 else 3
+            pairs = [((e[0],), e[1], e[1], 2), ((e[1],), e[2], e[2], 2),
+                     ((e[2],), e[3], e[3], 2),
+                     ((d[2] // 2, d[2] // 2, cond), d[3], 4 * s2d * s2d, 1)]
+            for cins, cmid, cout, stride in pairs:
+                p = planar_conv2_plan(cins, 4, 72, 120, cmid, cout, stride)
+                assert p["tile"] > 0 and p["smem"] <= 232448, (cins, p)
+            grus = [(e[3] + e[2], d[0] // 2), (d[0] // 2 * 2 + e[1],
+                                              d[1] // 2),
+                    (d[1] // 2 * 2 + e[0], d[2] // 2)]
+            for cin, c in grus:
+                for fused in (True, False):
+                    p = planar_gru_plan(fused, cin, 1, 36, 60, c)
+                    assert p["tile"] > 0 and p["smem"] <= 232448, (cin, p)
 
 
 def test_planar_wrappers_raise_on_bad_input(dev):

@@ -31,10 +31,21 @@
 // h 24 at 18x30; d2 [24, 24, 24] -> 32, h 16 at 36x60; d1 [16, 16, 16]
 // -> 24, h 12 at 72x120. The standalone step runs on the unfused path
 // (fuse_pairs=False). Bound: bytes on this card (d1 moves 1.2 MB and does
-// 0.2 G multiply-adds); this CUDA-core kernel is limited by its
-// shared-memory and weight loads and by the halo recompute.
+// 0.2 G multiply-adds).
+//
+// bf16 planes (the serving path) run on the tensor cores
+// (planar_mma.cuh): every region is staged channels-last, each of the
+// three convs is an implicit GEMM over mma.sync.m16n8k16 whose epilogue
+// writes the next stage's region (b, then rh and z) in shared memory, and
+// the block reorders the weights into [n][tap][k] itself: the decoder
+// conv's beside its input, then the gate and candidate weights over both
+// once the conv is done. The tile edge (16, 8 or 4) is the one of least
+// estimated time whose shared memory fits (mma::plan_tile): at these
+// grids device-memory latency of the staging and the halo recompute, not
+// the arithmetic, set the time. f32 planes are the parity instantiation:
+// the CUDA-core FMAs below (exact products, the 1e-5 bar).
 
-#include "planar_common.cuh"
+#include "planar_mma.cuh"
 
 namespace {
 
@@ -222,19 +233,253 @@ __global__ void __launch_bounds__(kThreads) planar_gru_kernel(Args a) {
   gru_stage(a, sm, b, oy0, ox0);
 }
 
-template <typename T, bool FUSED>
-cudaError_t launch(Args a, int n, cudaStream_t stream) {
+template <bool FUSED>
+cudaError_t launch_f32(Args a, int n, cudaStream_t stream) {
   const int cin = a.in.total;
-  auto smem_of = [&](int t) { return Smem<T>::bytes(a.c, cin, t, FUSED); };
+  auto smem_of = [&](int t) {
+    return Smem<float>::bytes(a.c, cin, t, FUSED);
+  };
   a.tile = pick_tile(n, a.hh, a.ww, smem_of);
   if (!grid_ok(n, a.hh, a.ww, a.tile)) return cudaErrorInvalidValue;
   const size_t smem = smem_of(a.tile);
   cudaError_t err =
-      set_smem((const void*)planar_gru_kernel<T, FUSED>, smem);
+      set_smem((const void*)planar_gru_kernel<float, FUSED>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.ww + a.tile - 1) / a.tile, (a.hh + a.tile - 1) / a.tile,
                   n);
-  planar_gru_kernel<T, FUSED><<<grid, kThreads, smem, stream>>>(a);
+  planar_gru_kernel<float, FUSED><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---- bf16 planes: tensor cores ----
+
+using mma::bf16;
+
+// Shared memory of the bf16 kernel (offsets in bytes): z [t^2][c] f32
+// and its error scale dz [t^2][c] f32; bh, the t+4 region [b | h | 0] (ps_bh); rh, the t+2 region (ps_rh); then
+// one area used twice: the conv's input region (t+6, ps_in) and weights
+// [2c][9 * cinp] (fused only), later the gate weights [2c][9 * up(2c, 16)]
+// and the candidate weights [c][9 * 2 * up(c, 16)] (x from bh in the first
+// half of each tap's k, rh in the second); the warps' recompute queues.
+struct Layout {
+  int e3, e2, e1, cinp, ps_in, ps_bh, ps_rh, kg, kc;
+  size_t z, bh, rh, in, w, wg, wc, queue, total;
+
+  __host__ __device__ Layout(int c, int cin, int t, bool fused) {
+    e3 = t + 6;
+    e2 = t + 4;
+    e1 = t + 2;
+    cinp = mma::up(cin, 16);
+    ps_in = mma::pstride(cin);
+    ps_bh = mma::pstride(2 * c);
+    ps_rh = mma::pstride(c);
+    kg = mma::up(2 * c, 16);
+    kc = 2 * mma::up(c, 16);
+    z = 0;
+    bh = z + (size_t)2 * t * t * c * sizeof(float);
+    bh = (bh + 15) / 16 * 16;
+    rh = bh + (size_t)e2 * e2 * ps_bh * sizeof(bf16);
+    in = rh + (size_t)e1 * e1 * ps_rh * sizeof(bf16);
+    w = in + (fused ? (size_t)e3 * e3 * ps_in * sizeof(bf16) : 0);
+    const size_t conv_end =
+        fused ? w + mma::welems(2 * c, cinp) * sizeof(bf16) : in;
+    wg = in;
+    wc = wg + mma::welems(2 * c, kg) * sizeof(bf16);
+    const size_t gru_end = wc + mma::welems(c, kc) * sizeof(bf16);
+    queue = conv_end > gru_end ? conv_end : gru_end;
+    total = queue + mma::kQueueBytes;
+  }
+};
+
+template <bool FUSED>
+__global__ void __launch_bounds__(kThreads) planar_gru_kernel_mma(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t = a.tile, c = a.c, b = blockIdx.z;
+  const int oy0 = blockIdx.y * t, ox0 = blockIdx.x * t;
+  const int cin = a.in.total;
+  const Layout L(c, cin, t, FUSED);
+  float* z = (float*)(smem_raw + L.z);
+  float* dz = z + t * t * c;
+  bf16* bh = (bf16*)(smem_raw + L.bh);
+  bf16* rh = (bf16*)(smem_raw + L.rh);
+  const int e2 = L.e2, e1 = L.e1;
+  const int hw = a.hh * a.ww;
+
+  Planes hp{};
+  hp.p[0] = a.h;
+  hp.c[0] = c;
+  hp.n = 1;
+  hp.total = c;
+  // bh = [b | h | 0] on the t+4 region (origin -2); rh's padding channels.
+  mma::stage_cl(hp, b, a.hh, a.ww, oy0 - 2, ox0 - 2, e2, e2, bh, L.ps_bh, c,
+                L.kg);
+  mma::zero_cl(rh, e1 * e1, L.ps_rh, c, mma::up(c, 16));
+  unsigned* queue = (unsigned*)(smem_raw + L.queue);
+  if (FUSED) {
+    bf16* in = (bf16*)(smem_raw + L.in);
+    bf16* w = (bf16*)(smem_raw + L.w);
+    mma::stage_cl(a.in, b, a.hh, a.ww, oy0 - 3, ox0 - 3, L.e3, L.e3, in,
+                  L.ps_in, 0, L.cinp);
+    mma::stage_w((const bf16*)a.w, 2 * c, cin, L.cinp, cin, cin, w);
+    __syncthreads();
+
+    // The decoder conv on the t+4 region (origin -2): channels < c are a,
+    // written on the tile to device memory; the rest are b, into bh.
+    const mma::Seg segs[1] = {{in, L.e3, L.ps_in, 0, L.cinp / 16, 0, cin}};
+    bf16* out_a = (bf16*)a.a + (long long)b * c * hw;
+    auto put = [&](int m, int ch, float v) {
+      const int ly = m / e2, lx = m - ly * e2;
+      if (ch < c)
+        out_a[(long long)ch * hw + (oy0 - 2 + ly) * a.ww + ox0 - 2 + lx] =
+            __float2bfloat16_rn(v);
+      else
+        bh[(size_t)m * L.ps_bh + ch - c] = __float2bfloat16_rn(v);
+    };
+    mma::conv_stage(
+        segs, 1, e2, e2, w, L.cinp, 2 * c, queue,
+        [&](int m, int ch, float acc, float e) {
+          if (ch >= 2 * c) return true;
+          const int ly = m / e2, lx = m - ly * e2;
+          const int y = oy0 - 2 + ly, x = ox0 - 2 + lx;
+          const bool inside = y >= 0 && y < a.hh && x >= 0 && x < a.ww;
+          if (ch < c &&
+              (!inside || ly < 2 || ly >= t + 2 || lx < 2 || lx >= t + 2))
+            return true;  // a: the tile only
+          float v = 0.0f;
+          if (inside &&
+              !mma::affine_checked(acc, e, a.scale[ch], a.bias[ch], 1, &v))
+            return false;
+          put(m, ch, v);
+          return true;
+        },
+        [&](int m, int ch) {
+          put(m, ch, affine(mma::seq_sum(segs, 1, e2, m, w, L.cinp, ch),
+                            a.scale[ch], a.bias[ch], 1));
+        });
+    __syncthreads();
+  } else {
+    mma::stage_cl(a.in, b, a.hh, a.ww, oy0 - 2, ox0 - 2, e2, e2, bh,
+                  L.ps_bh, 0, c);
+  }
+  bf16* wg = (bf16*)(smem_raw + L.wg);
+  bf16* wc = (bf16*)(smem_raw + L.wc);
+  const int cp = mma::up(c, 16);
+  mma::stage_w((const bf16*)a.wg, 2 * c, 2 * c, L.kg, 2 * c, 2 * c, wg);
+  mma::stage_w((const bf16*)a.wc, c, 2 * c, L.kc, c, cp, wc);
+  __syncthreads();
+
+  // Gates on the t+2 region (origin -1): r * h into rh (zero outside the
+  // image: h is), z and its error scale on the tile.
+  const mma::Seg gsegs[1] = {{bh, e2, L.ps_bh, 0, L.kg / 16, 0, 2 * c}};
+  auto h_at = [&](int ly, int lx, int ch) {  // h on the t+4 region
+    return __bfloat162float(bh[((size_t)ly * e2 + lx) * L.ps_bh + c + ch]);
+  };
+  auto r_h = [&](int m, int ch, float acc) {
+    return __fmul_rn(sigmoid(__fadd_rn(acc, a.bg[ch])),
+                     h_at(m / e1 + 1, m % e1 + 1, ch));
+  };
+  mma::conv_stage(
+      gsegs, 1, e1, e1, wg, L.kg, 2 * c, queue,
+      [&](int m, int ch, float acc, float e) {
+        if (ch >= 2 * c) return true;
+        const int ly = m / e1, lx = m - ly * e1;
+        const int y = oy0 - 1 + ly, x = ox0 - 1 + lx;
+        const bool inside = y >= 0 && y < a.hh && x >= 0 && x < a.ww;
+        // sigmoid's slope is at most 1/4.
+        const float ds = 0.25f * e;
+        if (ch < c) {
+          float v = 0.0f;
+          if (inside) {
+            v = r_h(m, ch, acc);
+            if (mma::near_tie(v, ds * fabsf(h_at(ly + 1, lx + 1, ch))))
+              return false;
+          }
+          rh[(size_t)m * L.ps_rh + ch] = __float2bfloat16_rn(v);
+        } else if (inside && ly >= 1 && ly <= t && lx >= 1 && lx <= t) {
+          const int i = ((ly - 1) * t + lx - 1) * c + ch - c;
+          z[i] = sigmoid(__fadd_rn(acc, a.bg[ch]));
+          dz[i] = ds;
+        }
+        return true;
+      },
+      [&](int m, int ch) {
+        rh[(size_t)m * L.ps_rh + ch] = __float2bfloat16_rn(
+            r_h(m, ch, mma::seq_sum(gsegs, 1, e1, m, wg, L.kg, ch)));
+      });
+  __syncthreads();
+
+  // Candidate and update on the tile: conv over [x (bh, first c channels),
+  // rh]. Near a rounding midpoint z and the candidate are both recomputed
+  // in the CUDA-core order.
+  {
+    const mma::Seg segs[2] = {{bh, e2, L.ps_bh, 1, cp / 16, 0, c},
+                              {rh, e1, L.ps_rh, 0, cp / 16, cp, c}};
+    bf16* out = (bf16*)a.h_new + (long long)b * c * hw;
+    auto update = [&](int m, int ch, float cacc, float zz) {
+      const float cand = tanhf(__fadd_rn(cacc, a.bc[ch]));
+      const float hc = h_at(m / t + 2, m % t + 2, ch);
+      return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, zz), hc),
+                       __fmul_rn(zz, cand));
+    };
+    auto put = [&](int m, int ch, float hn) {
+      const int ly = m / t, lx = m - ly * t;
+      out[(long long)ch * hw + (oy0 + ly) * a.ww + ox0 + lx] =
+          __float2bfloat16_rn(hn);
+    };
+    mma::conv_stage(
+        segs, 1, t, t, wc, L.kc, c, queue,
+        [&](int m, int ch, float acc, float e) {
+          const int ly = m / t, lx = m - ly * t;
+          if (ch >= c || oy0 + ly >= a.hh || ox0 + lx >= a.ww) return true;
+          const float zz = z[m * c + ch];
+          const float hn = update(m, ch, acc, zz);
+          // h' moves by (c - h) dz + z dc; tanh's slope is at most 1, and
+          // |c - h| <= 2.
+          if (mma::near_tie(hn, 2.0f * dz[m * c + ch] + zz * e))
+            return false;
+          put(m, ch, hn);
+          return true;
+        },
+        [&](int m, int ch) {
+          const int ly = m / t, lx = m - ly * t;
+          const float zs = mma::seq_sum(gsegs, 1, e1, (ly + 1) * e1 + lx + 1,
+                                        wg, L.kg, c + ch);
+          put(m, ch,
+              update(m, ch, mma::seq_sum(segs, 1, t, m, wc, L.kc, ch),
+                     sigmoid(__fadd_rn(zs, a.bg[c + ch]))));
+        });
+  }
+}
+
+mma::Plan plan_bf16(int c, int cin, int n, int hh, int ww, bool fused) {
+  auto smem_of = [&](int t) { return Layout(c, cin, t, fused).total; };
+  auto work_of = [&](int t) {
+    const Layout L(c, cin, t, fused);
+    double staged = (double)L.e2 * L.e2 * c * (fused ? 1 : 2) +
+                    9.0 * (4 * c * c + 2 * c * c);
+    double work = 0.0;
+    if (fused) {
+      staged += (double)L.e3 * L.e3 * L.cinp + 9.0 * 2 * c * cin;
+      work += mma::stage_work(L.e2 * L.e2, 2 * c, L.cinp);
+    }
+    return work + mma::staging_work(staged) +
+           mma::stage_work(L.e1 * L.e1, 2 * c, L.kg) +
+           mma::stage_work(t * t, c, L.kc);
+  };
+  return mma::plan_tile(n, hh, ww, smem_of, work_of);
+}
+
+template <bool FUSED>
+cudaError_t launch_bf16(Args a, int n, cudaStream_t stream) {
+  const mma::Plan p = plan_bf16(a.c, a.in.total, n, a.hh, a.ww, FUSED);
+  a.tile = p.tile;
+  if (!grid_ok(n, a.hh, a.ww, a.tile)) return cudaErrorInvalidValue;
+  cudaError_t err =
+      set_smem((const void*)planar_gru_kernel_mma<FUSED>, p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.ww + a.tile - 1) / a.tile, (a.hh + a.tile - 1) / a.tile,
+                  n);
+  planar_gru_kernel_mma<FUSED><<<grid, kThreads, p.smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -242,10 +487,8 @@ cudaError_t dispatch(const Args& a, int n, int f32, bool fused,
                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (f32)
-    return fused ? launch<float, true>(a, n, s)
-                 : launch<float, false>(a, n, s);
-  return fused ? launch<__nv_bfloat16, true>(a, n, s)
-               : launch<__nv_bfloat16, false>(a, n, s);
+    return fused ? launch_f32<true>(a, n, s) : launch_f32<false>(a, n, s);
+  return fused ? launch_bf16<true>(a, n, s) : launch_bf16<false>(a, n, s);
 }
 
 }  // namespace
@@ -302,4 +545,18 @@ extern "C" int vm_planar_conv_gru(const void* const* xs, const int* cins,
   a.ww = ww;
   a.c = c;
   return (int)dispatch(a, n, f32, true, stream);
+}
+
+// The launch vm_planar_conv_gru (fused = 1, cin input channels) or
+// vm_planar_gru (fused = 0) makes for bf16 planes of these shapes:
+// plan[0] tile edge (0: none fits), plan[1] blocks, plan[2] shared-memory
+// bytes. Returns 0, or cudaErrorInvalidValue for shapes it refuses.
+extern "C" int vm_planar_gru_plan(int fused, int cin, int n, int hh, int ww,
+                                  int c, int* plan) {
+  if (c < 1 || cin < 1) return (int)cudaErrorInvalidValue;
+  const mma::Plan p = plan_bf16(c, cin, n, hh, ww, fused != 0);
+  plan[0] = p.tile;
+  plan[1] = p.blocks;
+  plan[2] = (int)p.smem;
+  return 0;
 }

@@ -40,7 +40,7 @@ SOURCES = {
 }
 
 #: headers in csrc/ the sources include; part of every library's hash
-HEADERS = ("planar_common.cuh", "refine_common.cuh")
+HEADERS = ("planar_common.cuh", "planar_mma.cuh", "refine_common.cuh")
 
 # --fmad=false: every a*b+c is two IEEE-rounded operations, as in the plain
 # PyTorch versions (separate kernels) and the JAX reference. Division and

@@ -26,7 +26,10 @@ kernel casts it, and is zero outside the image.
 Each ``planar_*`` wrapper launches its CUDA kernel (``csrc/planar_conv.cu``,
 ``csrc/planar_conv2.cu``, ``csrc/planar_gru.cu``) for CUDA tensors, raises
 on what the kernel does not take, and runs its ``*_plain`` twin for CPU
-tensors only. ``.launches`` counts kernel launches.
+tensors only. ``.launches`` counts kernel launches. On bfloat16 planes
+planar_conv2, planar_conv_gru and planar_gru run on the tensor cores
+(``csrc/planar_mma.cuh``); ``planar_conv2_plan`` and ``planar_gru_plan``
+report the tile edge, block count and shared memory such a launch takes.
 """
 
 from __future__ import annotations
@@ -182,6 +185,16 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: shapes the kernel refuses
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err == _INVALID_VALUE:
+        raise ValueError(f"{what}: shapes the kernel cannot take (no tile "
+                         "fits in shared memory, or the grid is too large)")
+    _build.check(err, what)
+
+
 def _out_hw(h, w, k, stride):
     p = k // 2
     return (h + 2 * p - k) // stride + 1, (w + 2 * p - k) // stride + 1
@@ -240,7 +253,7 @@ def planar_conv2(xs: Sequence[torch.Tensor], w1: torch.Tensor,
         w2.data_ptr(), scale2.data_ptr(), bias2.data_ptr(), out.data_ptr(),
         n, h, wd, cmid, cout, stride, _ACTS[act], _ACTS[act2], f32,
         _stream(out))
-    _build.check(err, "planar_conv2")
+    _check_launch(err, "planar_conv2")
     planar_conv2.launches += 1
     return out
 
@@ -285,7 +298,7 @@ def planar_conv_gru(xs: Sequence[torch.Tensor], w: torch.Tensor,
         h.data_ptr(), wg.data_ptr(), bg.data_ptr(), wc.data_ptr(),
         bc.data_ptr(), a.data_ptr(), h_new.data_ptr(), n, hh, ww, c, f32,
         _stream(h))
-    _build.check(err, "planar_conv_gru")
+    _check_launch(err, "planar_conv_gru")
     planar_conv_gru.launches += 1
     return a, h_new
 
@@ -309,9 +322,36 @@ def planar_gru(x: torch.Tensor, h: torch.Tensor, wg: torch.Tensor,
         x.data_ptr(), h.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         wc.data_ptr(), bc.data_ptr(), h_new.data_ptr(), n, hh, ww, c,
         int(h.dtype == torch.float32), _stream(h))
-    _build.check(err, "planar_gru")
+    _check_launch(err, "planar_gru")
     planar_gru.launches += 1
     return h_new
+
+
+def planar_conv2_plan(cins: Sequence[int], n: int, h: int, w: int, cmid: int,
+                      cout: int, stride: int) -> dict:
+    """The launch planar_conv2 makes for bfloat16 planes of these shapes
+    (inputs of ``cins`` channels, (n, h, w) each): {"tile": edge, "blocks",
+    "smem": bytes}; tile 0 if no tile fits. Needs the built kernel."""
+    cins = list(cins)
+    arr = (ctypes.c_int * _MAX_INPUTS)(*cins)
+    plan = (ctypes.c_int * 3)()
+    err = _fn("planar_conv2", "vm_planar_conv2_plan", (_P,) + (_I,) * 7
+              + (_P,))(ctypes.cast(arr, ctypes.c_void_p), len(cins), n, h, w,
+                       cmid, cout, stride, ctypes.cast(plan, ctypes.c_void_p))
+    _check_launch(err, "planar_conv2_plan")
+    return dict(zip(("tile", "blocks", "smem"), plan))
+
+
+def planar_gru_plan(fused: bool, cin: int, n: int, h: int, w: int,
+                    c: int) -> dict:
+    """The launch planar_conv_gru (``fused``, ``cin`` input channels) or
+    planar_gru makes for bfloat16 planes of these shapes, as
+    planar_conv2_plan."""
+    plan = (ctypes.c_int * 3)()
+    err = _fn("planar_gru", "vm_planar_gru_plan", (_I,) * 6 + (_P,))(
+        int(fused), cin, n, h, w, c, ctypes.cast(plan, ctypes.c_void_p))
+    _check_launch(err, "planar_gru_plan")
+    return dict(zip(("tile", "blocks", "smem"), plan))
 
 
 planar_conv.launches = 0
