@@ -9,10 +9,13 @@ Phases (any failure exits nonzero and prints no result line):
      reports them
   2. each kernel against its plain PyTorch version on the card, at the
      shapes and on the inputs the 1080p main path gives it (ingest
-     bit-exact, guided-filter coefficients max |d| <= 1e-4,
-     refine/composite bytes within +-1; the planar kernels at their 9
-     call sites, and planar_gru at the 3 sites of the unfused network,
-     within 1-2 bf16 units in the last place, see close();
+     bit-exact, guided-filter coefficients bit-exact in one launch with no
+     scratch, refine/composite bytes within +-1; the planar kernels at
+     their 9 call sites, and planar_gru at the 3 sites of the unfused
+     network, within 1-2 bf16 units in the last place of the plain twin
+     summing in the kernels' fixed order (sequential=True; float32 planes
+     against the cuDNN twin), see close(), with the count of values
+     unequal to that twin and cuDNN's distance logged per site;
      fused_refine_float at 1088x1920 pool 4 max |d| <= 1e-5;
      composite_rgba_packed bit-exact in its four modes at 480x864 and
      1088x1920; fused_refine_composite's image and coarse modes bytes
@@ -79,9 +82,10 @@ Phases (any failure exits nonzero and prints no result line):
      planar kernels also the tile edge, block count and shared memory each
      site's launch chose
   7. where a frame's time goes on the planar chunk body: host time per
-     stage, the body's wall time, device time by kernel group and by
-     kernel file (torch.profiler); checks that the planar body launches no
-     library convolution or GEMM
+     stage, the body's wall time, device time by kernel group, by kernel
+     (the body's six: ingest, GF, refine and the three tensor-core planar
+     kernels, each required) and by kernel file (torch.profiler); checks
+     that the planar body launches no library convolution or GEMM
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -200,6 +204,25 @@ def main_path_inputs(net, frame_u8, state_hw):
     return guide.contiguous(), p.contiguous(), ma, mb
 
 
+def gf_one_launch(guide, p, *args):
+    """guided_filter_coeffs(guide, p, *args), checking that the call
+    launches its kernel once and allocates nothing beside its two
+    outputs (no scratch grid)."""
+    import torch
+
+    from vidmat_torch.ops.gf import guided_filter_coeffs
+
+    torch.cuda.synchronize()
+    before, mem = guided_filter_coeffs.launches, torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ka, kb = guided_filter_coeffs(guide, p, *args)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - mem
+    assert guided_filter_coeffs.launches == before + 1
+    assert grew <= nbytes(ka, kb) + 1024, (grew, nbytes(ka, kb))
+    return ka, kb
+
+
 def phase_kernels(net, net_unfused, dev):
     """Each kernel against its plain version at the main-path shapes."""
     import torch
@@ -225,12 +248,12 @@ def phase_kernels(net, net_unfused, dev):
     nh, nw = H // 4, W // 4
     guide, p, _, _ = main_path_inputs(
         net, frame, (nh + (-nh) % mult, nw + (-nw) % mult))
-    ka, kb = guided_filter_coeffs(guide, p)
+    ka, kb = gf_one_launch(guide, p)
     pa, pb = guided_filter_coeffs_plain(guide, p)
     torch.cuda.synchronize()
     errs["guided_filter_coeffs"] = float(max((ka - pa).abs().max(),
                                              (kb - pb).abs().max()))
-    assert errs["guided_filter_coeffs"] <= 1e-4, errs
+    assert torch.equal(ka, pa) and torch.equal(kb, pb), errs
 
     ma, mb = pa, pb
     for bg in (None, (0.0, 1.0, 0.0)):
@@ -253,10 +276,11 @@ def phase_kernels(net, net_unfused, dev):
     gi = torch.rand((2, 37, 53, 1), generator=g).to(dev)
     pi = torch.rand((2, 37, 53, 4), generator=g).to(dev)
     for r in (2, 4, 8):
-        ka, kb = guided_filter_coeffs(gi, pi, r, 1e-3)
+        ka, kb = gf_one_launch(gi, pi, r, 1e-3)
         pa, pb = guided_filter_coeffs_plain(gi, pi, r, 1e-3)
-        e = float(max((ka - pa).abs().max(), (kb - pb).abs().max()))
-        assert e <= 1e-4, (r, e)
+        assert torch.equal(ka, pa) and torch.equal(kb, pb), r
+    log("    guided_filter_coeffs bit-exact to plain at the main-path grid "
+        "and at 2x37x53 (r 2, 4, 8), one launch and no scratch per call")
     fr = torch.randint(0, 256, (2, 36, 300, 3), generator=g,
                        dtype=torch.uint8).to(dev)
     a = (torch.rand((2, 9, 75, 4), generator=g) * 2 - 0.5).to(dev)
@@ -502,24 +526,54 @@ def capture_sites(net, net_unfused, xp):
                                                   fused + gru)}
 
 
+def check_planar(key, args):
+    """One planar kernel call against its plain version: bf16 planes
+    against the sequential-order twin (``sequential=True``, the order the
+    bf16 kernels reproduce), float32 ones against the cuDNN twin, each
+    within close()'s bars. Returns (max |d|, values unequal to the
+    sequential twin, max |d| to the cuDNN twin), the last two for bf16
+    only (else None)."""
+    import torch
+
+    ulps = {"conv": 1, "conv2": 2, "conv_gru": 2, "gru": 1}
+    kern, plain = planar_ops()[key]
+    got = kern(*args)
+    bf16 = got[0].dtype == torch.bfloat16 if key == "conv_gru" \
+        else got.dtype == torch.bfloat16
+    want = plain(*args, sequential=bf16)
+    if key != "conv_gru":
+        got, want = (got,), (want,)
+    e = max(close(a, b, ulps[key]) for a, b in zip(got, want))
+    if not bf16:
+        return e, None, None
+    unequal = sum(int((a != b).sum()) for a, b in zip(got, want))
+    lib = plain(*args)
+    lib = (lib,) if key != "conv_gru" else lib
+    return e, unequal, max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, lib))
+
+
 def planar_kernel_checks(sites, dev, ragged=True):
     """Each planar kernel against its plain version at its call sites and
-    (with ``ragged``) on ragged shapes; returns {kernel name: max |d|}."""
+    (with ``ragged``) on ragged shapes (check_planar); returns {kernel
+    name: max |d|}. Logs per site the values unequal to the sequential
+    twin (expected 0) and, as information, the cuDNN twin's max |d|."""
     import torch
 
     ops = planar_ops()
-    ulps = {"conv": 1, "conv2": 2, "conv_gru": 2, "gru": 1}
     errs = {}
     for site, (key, args) in sites.items():
-        kern, plain = ops[key]
-        got, want = kern(*args), plain(*args)
-        if key != "conv_gru":
-            got, want = (got,), (want,)
-        e = max(close(a, b, ulps[key]) for a, b in zip(got, want))
+        kern = ops[key][0]
+        e, unequal, lib = check_planar(key, args)
         errs[kern.__name__] = max(errs.get(kern.__name__, 0.0), e)
         x0 = args[0] if key == "gru" else args[0][0]
+        if unequal is None:
+            log(f"    {site:8s} {kern.__name__:16s} {tuple(x0.shape)} "
+                f"max |d| {e:.3g} vs the cuDNN twin (float32)")
+            continue
         log(f"    {site:8s} {kern.__name__:16s} {tuple(x0.shape)} "
-            f"max |d| {e:.3g}")
+            f"max |d| {e:.3g} vs the sequential twin, {unequal} values "
+            f"unequal; cuDNN twin max |d| {lib:.3g}")
     if not ragged:
         torch.cuda.synchronize()
         return errs
@@ -534,6 +588,7 @@ def planar_kernel_checks(sites, dev, ragged=True):
         return ((torch.rand(c, generator=g) + 0.5).to(dev),
                 (torch.randn(c, generator=g) * 0.1).to(dev))
 
+    ragged_unequal = {}
     for dt in (torch.bfloat16, torch.float32):
         xs = [rnd(2, 5, 13, 21, dt=dt), rnd(2, 3, 13, 21, dt=dt)]
         w1 = rnd(6, 8, 3, 3, dt=dt, scale=72 ** -0.5)
@@ -560,13 +615,12 @@ def planar_kernel_checks(sites, dev, ragged=True):
                  ("conv_gru", (xs, w1, s1, b1, h, wg, bg, wc, bc)),
                  ("gru", (h.clone(), h, wg, bg, wc, bc))]
         for key, args in cases:
-            kern, plain = ops[key]
-            got, want = kern(*args), plain(*args)
-            if key != "conv_gru":
-                got, want = (got,), (want,)
-            for a, b in zip(got, want):
-                close(a, b, ulps[key])
+            _, unequal, _ = check_planar(key, args)
+            if unequal is not None:
+                ragged_unequal[key] = ragged_unequal.get(key, 0) + unequal
     torch.cuda.synchronize()
+    log(f"    ragged bf16 cases, values unequal to the sequential twin: "
+        f"{ragged_unequal}")
     return errs
 
 
@@ -1316,9 +1370,16 @@ def site_cost(key, args):
 
 def site_plan(key, args):
     """The launch a bf16 tensor-core planar call makes at this site
-    ({"tile", "blocks", "smem"}), or None for planar_conv."""
-    from vidmat_torch.ops.planar import planar_conv2_plan, planar_gru_plan
+    ({"tile", "blocks", "smem"}, and "nb", the output channels per block,
+    for planar_conv)."""
+    from vidmat_torch.ops.planar import (planar_conv2_plan, planar_conv_plan,
+                                         planar_gru_plan)
 
+    if key == "conv":
+        xs, w, stride = args[0], args[1], args[4]
+        n, _, hh, ww = xs[0].shape
+        return planar_conv_plan([t.shape[1] for t in xs], n, hh, ww,
+                                w.shape[0], w.shape[-1], stride)
     if key == "conv2":
         xs, w1, w2, stride = args[0], args[1], args[4], args[7]
         n, _, hh, ww = xs[0].shape
@@ -1329,10 +1390,22 @@ def site_plan(key, args):
         n, c, hh, ww = h.shape
         return planar_gru_plan(True, sum(t.shape[1] for t in args[0]), n,
                                hh, ww, c)
-    if key == "gru":
-        n, c, hh, ww = args[1].shape
-        return planar_gru_plan(False, c, n, hh, ww, c)
-    return None
+    n, c, hh, ww = args[1].shape
+    return planar_gru_plan(False, c, n, hh, ww, c)
+
+
+def kernel_call(key, args):
+    """The planar kernel call of a site as the network makes it: planar_conv
+    on bf16 planes with its weights packed beforehand."""
+    import torch
+
+    from vidmat_torch.ops.planar import pack_conv_weight
+
+    kern = planar_ops()[key][0]
+    if key == "conv" and args[1].dtype == torch.bfloat16:
+        wp = pack_conv_weight(args[1])
+        return lambda: kern(*args, packed=wp)
+    return lambda: kern(*args)
 
 
 def library_call(key, args):
@@ -1496,15 +1569,17 @@ def phase_timing(inputs, sites, tail, bg_inputs):
         t_bytes = nb / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * macs / BF16_FLOPS_PER_S * 1e3
         row = dict(kernel=kern.__name__,
-                   ms=time_cold(lambda: kern(*args)),
+                   ms=time_cold(kernel_call(key, args)),
                    plain_ms=time_cold(lambda: plain(*args), iters=10),
                    library_ms=time_cold(library_call(key, args)),
                    t_bytes=t_bytes, t_ops=t_ops, bytes=nb, macs=macs,
                    plan=site_plan(key, args))
         per_site[site] = row
-        plan = ("" if row["plan"] is None else
-                f"; tile {row['plan']['tile']}, {row['plan']['blocks']} "
-                f"blocks, {row['plan']['smem'] / 1024:.1f} KB shared")
+        p = row["plan"]
+        plan = (f"; tile {p['tile']}"
+                + (f", {p['nb']} output channels a block" if "nb" in p
+                   else "")
+                + f", {p['blocks']} blocks, {p['smem'] / 1024:.1f} KB shared")
         log(f"[6] {site:8s} {kern.__name__:16s} {row['ms']:.4f} ms (cold "
             f"L2), plain {row['plain_ms']:.4f}, cuDNN conv(s) "
             f"{row['library_ms']:.4f}, bound {max(t_bytes, t_ops):.4f} ms "
@@ -1527,9 +1602,13 @@ def phase_timing(inputs, sites, tail, bg_inputs):
 
 # Kernel names of the port (the profiler's device events; a name matches
 # its instantiations, e.g. planar_gru_kernel_mma<true>) and their files.
-PORT_KERNELS = {"ingest_kernel": "ingest.cu", "gf_ab_kernel": "gf_coeffs.cu",
-                "gf_box_kernel": "gf_coeffs.cu",
+# The first six are the bf16 chunk body's; the float32 planar kernels
+# follow (a name matches the first key it contains).
+PORT_KERNELS = {"ingest_kernel": "ingest.cu", "gf_kernel": "gf_coeffs.cu",
                 "refine_composite_kernel": "refine_composite.cu",
+                "planar_conv_kernel_mma": "planar_conv.cu",
+                "planar_conv2_kernel_mma": "planar_conv2.cu",
+                "planar_gru_kernel_mma": "planar_gru.cu",
                 "planar_conv_kernel": "planar_conv.cu",
                 "planar_conv2_kernel": "planar_conv2.cu",
                 "planar_gru_kernel": "planar_gru.cu"}

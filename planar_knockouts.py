@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Where the bf16 tensor-core planar kernels spend their time.
 
-Times planar_conv2, planar_conv_gru and planar_gru (vidmat_torch/csrc/
-planar_conv2.cu and planar_gru.cu on bf16 planes) at the 1080p main
-path's call sites (chip_smoke.py's site capture: fast_demo, s2d 2, ratio
-0.25; the unfused network's planar_gru sites), each time built from a
-copy of the vidmat_torch package whose csrc/planar_mma.cuh has one part
-knocked out:
+Times planar_conv, planar_conv2, planar_conv_gru and planar_gru
+(vidmat_torch/csrc/planar_conv.cu, planar_conv2.cu and planar_gru.cu on
+bf16 planes) at the 1080p main path's call sites (chip_smoke.py's site
+capture: fast_demo, s2d 2, ratio 0.25; the unfused network's planar_gru
+sites), each time built from a copy of the vidmat_torch package whose
+csrc/planar_mma.cuh (and planar_conv.cu) has one part knocked out:
 
   as built        the kernels as shipped
+  spread scale    the recompute's narrower error scale 2 sqrt(K) |acc| +
+                  4 S in place of K |acc| + 4 S (what the wider one
+                  costs; same-sign tiny terms then round otherwise)
   no recompute    near_tie never fires: no value is recomputed in the
                   CUDA-core order (results may differ from plain)
-  no weights      stage_w returns at once (results wrong)
-  no inputs       stage_cl returns at once (results wrong)
+  no weights      stage_w, and planar_conv's copy of its packed weights,
+                  do nothing (results wrong)
+  no inputs       stage_cl, and planar_conv's stage_rows, return at once
+                  (results wrong)
   no K loop       the mma K loop runs no step (results wrong)
 
 so each part's share is the difference to "as built". A last build counts
@@ -38,7 +43,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 COPIES = os.path.join(ROOT, "vidmat_torch", "build", "knockouts")
-LIBS = ["planar_conv2", "planar_gru"]
+LIBS = {"conv": "planar_conv", "conv2": "planar_conv2",
+        "conv_gru": "planar_gru", "gru": "planar_gru"}
 
 
 def _sub(text: str, old: str, new: str) -> str:
@@ -52,6 +58,11 @@ def _no_recompute(h):
                 "bool near_tie(float v, float dv) {\n  return false;")
 
 
+def _spread_scale(h):
+    return _sub(h, "return kU * (kf * fabsf(acc) + 4.0f * sabs);",
+                "return kU * (2.0f * sqrtf(kf) * fabsf(acc) + 4.0f * sabs);")
+
+
 def _no_weights(h):
     return _sub(h, "int kp, int split, int koff2, bf16* dst) {",
                 "int kp, int split, int koff2, bf16* dst) {\n  return;")
@@ -60,6 +71,18 @@ def _no_weights(h):
 def _no_inputs(h):
     return _sub(h, "int ps,\n                         int c0, int c1) {",
                 "int ps,\n                         int c0, int c1) {\n  return;")
+
+
+def _no_conv_weights(c):
+    return _sub(c, "for (int i = threadIdx.x; i < nv; i += kThreads) "
+                   "dst[i] = __ldg(src + i);",
+                "for (int i = threadIdx.x; i < 0; i += kThreads) "
+                "dst[i] = __ldg(src + i);")
+
+
+def _no_conv_inputs(c):
+    return _sub(c, "int vec) {\n  constexpr int kU = 4;",
+                "int vec) {\n  return;\n  constexpr int kU = 4;")
 
 
 def _no_k_loop(h):
@@ -76,8 +99,8 @@ extern "C" void vm_take_counts(unsigned long long* out) {
   cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
 }""")
     return _sub(h, "      const bool need = r < npix && !epi(r, n, v, "
-                   "err_scale(v, sv, rk));",
-                """      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, rk));
+                   "err_scale(v, sv, kf));",
+                """      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, kf));
       const unsigned queued = __ballot_sync(0xFFFFFFFFu, need);
       const unsigned valid = __ballot_sync(0xFFFFFFFFu, r < npix);
       if (lane == 0) {
@@ -86,9 +109,15 @@ extern "C" void vm_take_counts(unsigned long long* out) {
       }""")
 
 
-VARIANTS = {"as built": None, "no recompute": _no_recompute,
-            "no weights": _no_weights, "no inputs": _no_inputs,
-            "no K loop": _no_k_loop, "count": _count}
+# variant -> {csrc file: edit}
+VARIANTS = {"as built": {}, "spread scale": {"planar_mma.cuh": _spread_scale},
+            "no recompute": {"planar_mma.cuh": _no_recompute},
+            "no weights": {"planar_mma.cuh": _no_weights,
+                           "planar_conv.cu": _no_conv_weights},
+            "no inputs": {"planar_mma.cuh": _no_inputs,
+                          "planar_conv.cu": _no_conv_inputs},
+            "no K loop": {"planar_mma.cuh": _no_k_loop},
+            "count": {"planar_mma.cuh": _count}}
 
 
 def _python(copy, code):
@@ -102,23 +131,24 @@ def _python(copy, code):
 
 def make_copies():
     """{variant: directory}: one edited copy of the package per variant,
-    its two planar libraries compiled, every copy in parallel."""
+    its three planar libraries compiled, every copy in parallel."""
     copies, procs = {}, []
-    for i, (name, edit) in enumerate(VARIANTS.items()):
+    libs = sorted(set(LIBS.values()))
+    for i, (name, edits) in enumerate(VARIANTS.items()):
         d = os.path.join(COPIES, str(i))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "vidmat_torch"),
                         os.path.join(d, "vidmat_torch"),
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
-        if edit is not None:
-            hdr = os.path.join(d, "vidmat_torch", "csrc", "planar_mma.cuh")
-            with open(hdr) as f:
+        for fname, edit in edits.items():
+            path = os.path.join(d, "vidmat_torch", "csrc", fname)
+            with open(path) as f:
                 text = edit(f.read())
-            with open(hdr, "w") as f:
+            with open(path, "w") as f:
                 f.write(text)
         copies[name] = d
         procs.append((name, _python(
-            d, f"from vidmat_torch.ops import _build; _build.build({LIBS})")))
+            d, f"from vidmat_torch.ops import _build; _build.build({libs})")))
     outs = [(name, proc.communicate()[0], proc.returncode)
             for name, proc in procs]
     failed = [f"build failed for {name!r}:\n{out}"
@@ -150,16 +180,14 @@ def run_variant(name: str) -> None:
     net_u = build_network(mcfg, variables, dtype=torch.bfloat16, device=dev,
                           fuse_pairs=False)
     chunk = torch.from_numpy(cs.padded_clip(cs.CHUNK, seed=11)).to(dev)
-    sites = {k: v for k, v in cs.capture_sites(
-        net, net_u, cs.coarse_input(net, chunk)).items() if v[0] != "conv"}
+    sites = cs.capture_sites(net, net_u, cs.coarse_input(net, chunk))
     ops = cs.planar_ops()
     row = {}
     for site, (key, args) in sites.items():
         if name != "count":
-            row[site] = cs.time_cold(lambda k=key, a=args: ops[k][0](*a))
+            row[site] = cs.time_cold(cs.kernel_call(key, args))
             continue
-        take = _build.load("planar_conv2" if key == "conv2"
-                           else "planar_gru").vm_take_counts
+        take = _build.load(LIBS[key]).vm_take_counts
         take.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
         take.restype = None
         counts = (ctypes.c_ulonglong * 2)()

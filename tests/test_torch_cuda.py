@@ -50,6 +50,35 @@ def test_gf_kernel_matches_plain(dev):
         assert float((kb - pb).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("r", [1, 4])
+@pytest.mark.parametrize("n", [1, 4])
+def test_gf_kernel_bit_exact_on_ragged_grids(dev, r, n):
+    """One launch per call, equal to the plain version bit for bit on grids
+    whose sides are not multiples of the kernel's 32x16 tile."""
+    from vidmat_torch.ops.gf import (guided_filter_coeffs,
+                                     guided_filter_coeffs_plain)
+
+    g = torch.Generator().manual_seed(20 + r + n)
+    for h, w in ((37, 53), (71, 33), (5, 7), (17, 95)):
+        gi = torch.rand((n, h, w, 1), generator=g).to(dev)
+        pi = (torch.rand((n, h, w, 4), generator=g) * 1.2 - 0.1).to(dev)
+        before = guided_filter_coeffs.launches
+        ka, kb = guided_filter_coeffs(gi, pi, r, 1e-4)
+        assert guided_filter_coeffs.launches == before + 1
+        pa, pb = guided_filter_coeffs_plain(gi, pi, r, 1e-4)
+        assert torch.equal(ka, pa) and torch.equal(kb, pb), (h, w)
+
+
+def test_gf_kernel_refuses_a_radius_too_large(dev):
+    from vidmat_torch.ops.gf import MAX_RADIUS, guided_filter_coeffs
+
+    gi = torch.rand((1, 40, 60, 1), device=dev)
+    pi = torch.rand((1, 40, 60, 4), device=dev)
+    guided_filter_coeffs(gi, pi, MAX_RADIUS, 1e-4)
+    with pytest.raises(ValueError):
+        guided_filter_coeffs(gi, pi, MAX_RADIUS + 1, 1e-4)
+
+
 @pytest.mark.parametrize("bg", [None, (0.0, 1.0, 0.0)])
 def test_refine_kernel_within_one_lsb(dev, bg):
     from vidmat_torch.ops.refine import (fused_refine_composite,
@@ -390,31 +419,12 @@ def test_planar_gru_matches_plain(dev, dtype, n):
 # them (each is under half a float32 unit of the running sum) and rounds
 # the tie half to even, while the chunked order sums them first and rounds
 # the value off the tie (a near tie). The kernels must give the sequential
-# order's values exactly. The plain versions' cuDNN convolutions choose
-# their own order per shape, so on these inputs they are no reference:
-# each case prints how far they land from the sequential order.
+# order's values exactly: the plain versions with ``sequential=True``
+# (``planar.seq_conv_f32``). With cuDNN the plain versions choose their
+# own order per shape, so on these inputs they are no reference: each case
+# prints how far they land from the sequential order.
 
 _TINY = 2.0 ** -13
-
-
-def _seq_conv_f32(xs, w, stride):
-    """planar._conv_f32 summed in the CUDA-core kernels' order: input
-    channel, then ky, then kx, each product (exact in float32) added to a
-    float32 sum that starts from 0."""
-    x = torch.cat([t.float() for t in xs], 1)
-    k = w.shape[-1]
-    n, c, hh, ww = x.shape
-    oh, ow = (hh - 1) // stride + 1, (ww - 1) // stride + 1
-    xp = torch.nn.functional.pad(x, (k // 2,) * 4)
-    wf = w.float()
-    acc = torch.zeros((n, w.shape[0], oh, ow), device=x.device)
-    for ci in range(c):
-        for ky in range(k):
-            for kx in range(k):
-                win = xp[:, ci:ci + 1, ky:ky + stride * (oh - 1) + 1:stride,
-                         kx:kx + stride * (ow - 1) + 1:stride]
-                acc = acc + win * wf[:, ci, ky, kx].view(1, -1, 1, 1)
-    return acc
 
 
 def _planted_input(g, n, cins, h, w, dev):
@@ -429,8 +439,9 @@ def _planted_input(g, n, cins, h, w, dev):
                                                 list(cins), 1)]
 
 
-def _planted_conv(g, cin, small, roles, dev, signed=False):
-    """3x3 weights (len(roles), cin, 3, 3) in bf16 and float32 scale and
+def _planted_conv(g, cin, small, roles, dev, signed=False, k=3):
+    """k x k weights (len(roles), cin, k, k; centre tap for the planted
+    terms) in bf16 and float32 scale and
     bias, over inputs whose channel 0 is 1, channel 1 is 2^-8 (or 0) and
     channels ``small`` are +-2^-13 (or 0). roles[co]:
       "tie"       b * [0] + [1] + tiny terms on ``small``, scale a power
@@ -439,25 +450,26 @@ def _planted_conv(g, cin, small, roles, dev, signed=False):
                   at random if ``signed``;
       ("pass", k) a copy of channel k;
       "free"      random weights over every channel, scale and bias."""
-    cout = len(roles)
-    w = torch.zeros((cout, cin, 3, 3))
+    cout, c = len(roles), k // 2
+    w = torch.zeros((cout, cin, k, k))
     scale, bias = torch.ones(cout), torch.zeros(cout)
     for co, role in enumerate(roles):
         if role == "tie":
             s = -1.0 if signed and torch.rand((), generator=g) < 0.5 else 1.0
-            w[co, 0, 1, 1] = s * (1 + int(torch.randint(0, 128, (),
+            w[co, 0, c, c] = s * (1 + int(torch.randint(0, 128, (),
                                                         generator=g)) / 128)
-            w[co, 1, 1, 1] = s
+            w[co, 1, c, c] = s
             if torch.rand((), generator=g) < 0.75:
                 w[co, small] = _TINY * torch.randint(
-                    -1, 2, (len(small), 3, 3), generator=g).float()
+                    -1, 2, (len(small), k, k), generator=g).float()
             scale[co] = 2.0 ** int(torch.randint(-1, 3, (), generator=g))
         elif role == "free":
-            w[co] = torch.randn((cin, 3, 3), generator=g) * (9 * cin) ** -0.5
+            w[co] = torch.randn((cin, k, k), generator=g) * (
+                k * k * cin) ** -0.5
             scale[co] = float(torch.rand((), generator=g)) + 0.5
             bias[co] = float(torch.randn((), generator=g)) * 0.1
         else:
-            w[co, role[1], 1, 1] = 1.0
+            w[co, role[1], c, c] = 1.0
     return w.to(dev, torch.bfloat16), scale.to(dev), bias.to(dev)
 
 
@@ -470,6 +482,40 @@ def _midpoints(acc, scale, bias):
     return int(((v.view(torch.int32) & 0xFFFF) == 0x8000).sum())
 
 
+# (input channels, out, k, stride, H, W, batch): the stem (12 inputs,
+# stride 2), the bottleneck proj (64, 1x1), the unfused network's d3 conv
+# (64 + 40 inputs), a ragged one.
+PLANTED_CONV = [((12,), 16, 3, 2, 36, 60, 4), ((64,), 64, 1, 1, 9, 15, 4),
+                ((64, 40), 48, 3, 1, 18, 30, 1), ((5, 3), 20, 3, 2, 13, 21, 2)]
+
+
+@pytest.mark.parametrize("case", range(len(PLANTED_CONV)))
+def test_planar_conv_rounds_planted_ties_as_sequential_order(dev, case):
+    """The tensor-core planar_conv equals the sequential order exactly,
+    with its weights packed beforehand or by the wrapper."""
+    from vidmat_torch.ops import planar as P
+
+    cins, cout, k, stride, h, w, n = PLANTED_CONV[case]
+    g = torch.Generator().manual_seed(27 + case)
+    cin = sum(cins)
+    xs = _planted_input(g, n, cins, h, w, dev)
+    roles = ["tie"] * (cout // 2) + ["free"] * (cout - cout // 2)
+    wt, sc, bi = _planted_conv(g, cin, list(range(2, cin)), roles, dev,
+                               signed=True, k=k)
+    wp = P.pack_conv_weight(wt)
+    for act in ("relu", "none"):
+        got = P.planar_conv(xs, wt, sc, bi, stride, act, wp)
+        seq = P.planar_conv_plain(xs, wt, sc, bi, stride, act,
+                                  sequential=True)
+        plain = P.planar_conv_plain(xs, wt, sc, bi, stride, act)
+        assert torch.equal(P.planar_conv(xs, wt, sc, bi, stride, act), got)
+        assert torch.equal(got, seq)
+    ties = _midpoints(P.seq_conv_f32(xs, wt, stride), sc, bi)
+    print(f"planar_conv {PLANTED_CONV[case]}: {ties} midpoints; cuDNN plain "
+          f"vs sequential max |d| {float((plain - seq).abs().max())}")
+    assert ties > got.numel() // 20
+
+
 # (input channels, mid, out, stride, H, W) and (input channels, C, H, W):
 # the s2 and d0 + head sites' widths, d3's and d1's, ragged ones.
 PLANTED_CONV2 = [((16,), 24, 24, 2, 36, 60), ((12, 12, 12), 16, 16, 1, 40, 64),
@@ -479,8 +525,7 @@ PLANTED_CONV_GRU = [((64, 40), 24, 18, 30), ((16, 16, 16), 12, 36, 60),
 
 
 @pytest.mark.parametrize("case", range(len(PLANTED_CONV2)))
-def test_planar_conv2_rounds_planted_ties_as_sequential_order(
-        dev, monkeypatch, case):
+def test_planar_conv2_rounds_planted_ties_as_sequential_order(dev, case):
     from vidmat_torch.ops import planar as P
 
     cins, cmid, cout, stride, h, w = PLANTED_CONV2[case]
@@ -502,12 +547,11 @@ def test_planar_conv2_rounds_planted_ties_as_sequential_order(
 
     got = P.planar_conv2(*args)
     plain = P.planar_conv2_plain(*args)
-    with monkeypatch.context() as m:
-        m.setattr(P, "_conv_f32", _seq_conv_f32)
-        seq = P.planar_conv2_plain(*args)
-        mid = P.planar_conv_plain(xs, w1, s1, b1, stride, "relu")
-        ties = (_midpoints(_seq_conv_f32(xs, w1, stride), s1, b1)
-                + _midpoints(_seq_conv_f32([mid], w2, 1), s2, b2))
+    seq = P.planar_conv2_plain(*args, sequential=True)
+    mid = P.planar_conv_plain(xs, w1, s1, b1, stride, "relu",
+                              sequential=True)
+    ties = (_midpoints(P.seq_conv_f32(xs, w1, stride), s1, b1)
+            + _midpoints(P.seq_conv_f32([mid], w2, 1), s2, b2))
     print(f"planar_conv2 {PLANTED_CONV2[case]}: {ties} midpoints; cuDNN "
           f"plain vs sequential max |d| {float((plain - seq).abs().max())}")
     assert ties > got.numel() // 20
@@ -515,10 +559,9 @@ def test_planar_conv2_rounds_planted_ties_as_sequential_order(
 
 
 @pytest.mark.parametrize("case", range(len(PLANTED_CONV_GRU)))
-def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(
-        dev, monkeypatch, case):
-    """Also fused = unfused: planar_conv (CUDA-core, sequential order) then
-    planar_gru give the fused stage's a and h'."""
+def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(dev, case):
+    """Also fused = unfused: planar_conv then planar_gru give the fused
+    stage's a and h'."""
     from vidmat_torch.ops import planar as P
 
     cins, c, h, w = PLANTED_CONV_GRU[case]
@@ -535,11 +578,10 @@ def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(
     ua = mid[:, :c].contiguous()
     uh = P.planar_gru(mid[:, c:].contiguous(), hp, *gw)
     pa, ph = P.planar_conv_gru_plain(xs, wt, sc, bi, hp, *gw)
-    with monkeypatch.context() as m:
-        m.setattr(P, "_conv_f32", _seq_conv_f32)
-        sa, sh = P.planar_conv_gru_plain(xs, wt, sc, bi, hp, *gw)
-        smid = P.planar_conv_plain(xs, wt, sc, bi, 1, "relu")
-        ties = _midpoints(_seq_conv_f32(xs, wt, 1), sc, bi)
+    sa, sh = P.planar_conv_gru_plain(xs, wt, sc, bi, hp, *gw,
+                                     sequential=True)
+    smid = P.planar_conv_plain(xs, wt, sc, bi, 1, "relu", sequential=True)
+    ties = _midpoints(P.seq_conv_f32(xs, wt, 1), sc, bi)
     print(f"planar_conv_gru {PLANTED_CONV_GRU[case]}: {ties} midpoints; "
           f"cuDNN plain vs sequential max |d| a "
           f"{float((pa - sa).abs().max())}, h' "
@@ -550,14 +592,139 @@ def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(
     assert torch.equal(a, sa) and torch.equal(hn, sh)
 
 
+# ---- same-sign tiny terms ----
+#
+# The planted ties above draw the tiny terms' signs at random, so their sum
+# off the midpoint grows like a random walk. Here every tiny product is
+# +2^-25 (inputs 2^-12, weights 2^-13): half of float32's half-unit on
+# [1, 2), so the sequential order drops each one and rounds the tie half
+# to even, while an order that sums them first lands up to (C - 2) * 9 *
+# 2^-25 off the midpoint: linear in the number of terms K, not like sqrt(K).
+# The error of a K-term float32 sum is bounded by about K u S (u = 2^-24,
+# S = sum |x w|); each case prints that bound beside the sequential
+# order's measured distance from the exact sum, in units of u S. Cases at
+# 64 input channels and at d3's 104, for every bf16 tensor-core kernel.
+
+_SS_X, _SS_W = 2.0 ** -12, 2.0 ** -13
+
+
+def _same_sign_input(g, n, cins, h, w, dev):
+    """bf16 inputs split into ``cins``: channel 0 is 1, channel 1 is 2^-8
+    on three pixels in four, the rest 2^-12 on three pixels in four (else
+    0)."""
+    c = sum(cins)
+    x = torch.zeros((n, c, h, w))
+    x[:, 0] = 1.0
+    x[:, 1] = 2.0 ** -8 * (torch.rand((n, h, w), generator=g) < 0.75)
+    x[:, 2:] = _SS_X * (torch.rand((n, c - 2, h, w), generator=g) < 0.75)
+    return [t.contiguous() for t in torch.split(x.to(dev, torch.bfloat16),
+                                                list(cins), 1)]
+
+
+def _same_sign_conv(g, cin, roles, k, dev):
+    """(len(roles), cin, k, k) bf16 weights, float32 scale and bias.
+    roles[co]: "tie" is b * [0] + [1] at the centre tap (b = 1 + j 2^-7,
+    negative at random) plus 2^-13 on every tap of channels 2.., scale a
+    power of two, bias 0; "free" is random weights, scale and bias."""
+    cout, c = len(roles), k // 2
+    w = torch.zeros((cout, cin, k, k))
+    scale, bias = torch.ones(cout), torch.zeros(cout)
+    for co, role in enumerate(roles):
+        if role == "tie":
+            s = -1.0 if torch.rand((), generator=g) < 0.5 else 1.0
+            w[co, 0, c, c] = s * (1 + int(torch.randint(0, 128, (),
+                                                        generator=g)) / 128)
+            w[co, 1, c, c] = s
+            w[co, 2:] = _SS_W
+            scale[co] = 2.0 ** int(torch.randint(-1, 3, (), generator=g))
+        else:
+            w[co] = torch.randn((cin, k, k), generator=g) * (
+                k * k * cin) ** -0.5
+            scale[co] = float(torch.rand((), generator=g)) + 0.5
+            bias[co] = float(torch.randn((), generator=g)) * 0.1
+    return w.to(dev, torch.bfloat16), scale.to(dev), bias.to(dev)
+
+
+def _sum_error(xs, w, stride):
+    """(K, max |seq - exact| / (u S)) over the values of a conv: the
+    bound's factor K (products per value) and the sequential order's
+    distance from the exact sum (float64, exact here) in units of u S."""
+    from vidmat_torch.ops.planar import seq_conv_f32
+
+    x = torch.cat([t.double().cpu() for t in xs], 1)
+    wd = w.double().cpu()
+    pad = w.shape[-1] // 2
+    exact = torch.nn.functional.conv2d(x, wd, None, stride, pad)
+    s = torch.nn.functional.conv2d(x.abs(), wd.abs(), None, stride, pad)
+    seq = seq_conv_f32(xs, w, stride).double().cpu()
+    d = (seq - exact).abs() / (2.0 ** -24 * s).clamp_min(1e-300)
+    return w[0].numel(), float(d.max())
+
+
+# (kernel, input channels, k or C, stride, H, W)
+SAME_SIGN = [("conv", (64,), 3, 1, 18, 30), ("conv", (64, 40), 3, 2, 18, 30),
+             ("conv", (64, 40), 1, 1, 9, 15),
+             ("conv2", (64,), 16, 2, 36, 60), ("conv2", (64, 40), 16, 1, 18, 30),
+             ("conv_gru", (32, 32), 16, 1, 36, 60),
+             ("conv_gru", (64, 40), 24, 1, 18, 30)]
+
+
+@pytest.mark.parametrize("case", range(len(SAME_SIGN)))
+def test_planar_kernels_round_same_sign_tiny_terms_as_sequential_order(
+        dev, case):
+    from vidmat_torch.ops import planar as P
+
+    key, cins, kc, stride, h, w = SAME_SIGN[case]
+    g = torch.Generator().manual_seed(40 + case)
+    cin = sum(cins)
+    xs = _same_sign_input(g, 1, cins, h, w, dev)
+    if key == "conv":
+        roles = ["tie"] * 12 + ["free"] * 4
+        wt, sc, bi = _same_sign_conv(g, cin, roles, kc, dev)
+        args = (xs, wt, sc, bi, stride, "none")
+        got = (P.planar_conv(*args),)
+        seq = (P.planar_conv_plain(*args, sequential=True),)
+        plain = (P.planar_conv_plain(*args),)
+    elif key == "conv2":
+        w1, s1, b1 = _same_sign_conv(g, cin, ["tie"] * 12 + ["free"] * 12, 3,
+                                     dev)
+        w2, s2, b2 = _same_sign_conv(g, 24, ["free"] * kc, 3, dev)
+        wt, sc = w1, s1
+        args = (xs, w1, s1, b1, w2, s2, b2, stride, "relu", "none")
+        got = (P.planar_conv2(*args),)
+        seq = (P.planar_conv2_plain(*args, sequential=True),)
+        plain = (P.planar_conv2_plain(*args),)
+    else:
+        half = ["tie"] * (kc // 2) + ["free"] * (kc - kc // 2)
+        wt, sc, bi = _same_sign_conv(g, cin, half + half, 3, dev)
+        hp = _rand(g, (1, kc, h, w), dev, torch.bfloat16, 0.5)
+        args = (xs, wt, sc, bi, hp, *_gru_args(g, kc, dev, torch.bfloat16))
+        got = P.planar_conv_gru(*args)
+        seq = P.planar_conv_gru_plain(*args, sequential=True)
+        plain = P.planar_conv_gru_plain(*args)
+    acc = P.seq_conv_f32(xs, wt, stride)
+    ties = _midpoints(acc, sc, torch.zeros_like(sc))
+    k, dist = _sum_error(xs, wt, stride)
+    unequal = sum(int((a != b).sum()) for a, b in zip(got, seq))
+    print(f"same-sign {SAME_SIGN[case]}: {ties} midpoints; bound K u S with "
+          f"K = {k}, sequential order measured {dist:.1f} u S from the exact "
+          f"sum; kernel values unequal to the sequential order: {unequal}; "
+          f"cuDNN plain vs sequential max |d| "
+          f"{max(float((a - b).abs().max()) for a, b in zip(plain, seq))}")
+    assert ties > acc.numel() // 20
+    assert unequal == 0
+
+
 def test_planar_tensor_core_plans_fit_every_shipped_site(dev):
-    """Every bf16 planar_conv2 / planar_conv_gru / planar_gru site of the
+    """Every bf16 planar_conv / planar_conv2 / planar_conv_gru / planar_gru
+    site of the
     shipped configurations (fast_demo and synthetic_demo at s2d 2 and 1,
     the clean-plate family's extra input channels) gets a tile that fits
     in shared memory: the widths are the configurations' own, and shared
     memory depends on the widths only."""
     from vidmat_torch.config import ModelConfig
-    from vidmat_torch.ops.planar import planar_conv2_plan, planar_gru_plan
+    from vidmat_torch.ops.planar import (planar_conv2_plan, planar_conv_plan,
+                                         planar_gru_plan)
 
     for plate in (False, True):
         for s2d in (1, 2):
@@ -578,6 +745,21 @@ def test_planar_tensor_core_plans_fit_every_shipped_site(dev):
                 for fused in (True, False):
                     p = planar_gru_plan(fused, cin, 1, 36, 60, c)
                     assert p["tile"] > 0 and p["smem"] <= 232448, (cin, p)
+            # planar_conv: the stem and proj, and every conv of the unfused
+            # network (pairs, decoder convs, d0 and head).
+            convs = [((cfg.in_channels * s2d * s2d,), e[0], 3, 2),
+                     ((e[3],), e[3], 1, 1),
+                     ((e[0],), e[1], 3, 2), ((e[1],), e[1], 3, 1),
+                     ((e[1],), e[2], 3, 2), ((e[2],), e[2], 3, 1),
+                     ((e[2],), e[3], 3, 2), ((e[3],), e[3], 3, 1),
+                     ((e[3], e[2]), d[0], 3, 1),
+                     ((d[0] // 2, d[0] // 2, e[1]), d[1], 3, 1),
+                     ((d[1] // 2, d[1] // 2, e[0]), d[2], 3, 1),
+                     ((d[2] // 2, d[2] // 2, cond), d[3], 3, 1),
+                     ((d[3],), 4 * s2d * s2d, 3, 1)]
+            for cins, cout, k, stride in convs:
+                p = planar_conv_plan(cins, 4, 72, 120, cout, k, stride)
+                assert p["tile"][0] > 0 and p["smem"] <= 232448, (cins, p)
 
 
 def test_planar_wrappers_raise_on_bad_input(dev):

@@ -13,6 +13,9 @@ Bounds:
     another order, so a value may round the other way);
   - the network: per-frame alpha and fgr MAD <= 2e-4 in float32
     (tests/parity/test_planar_parity.py) and <= 2e-2 in bfloat16.
+The plain versions are held to the JAX package both with ``F.conv2d``
+(their CPU path) and with ``sequential=True`` (the fixed-order sum the
+bf16 kernels reproduce on the card, ``planar.seq_conv_f32``).
 """
 
 import jax
@@ -137,12 +140,13 @@ def test_planar_conv_plain_matches_jax(case, dt):
         want = from_planar(j_conv(planes, ws, taps, _jcol(sc), _jcol(bi),
                                   interior_mask(ho, wo), act=act,
                                   interpret=True), ho, wo)
-        got = P.planar_conv([_nchw(x, tdt) for x in xs], _tw(kern, tdt),
-                            torch.from_numpy(sc), torch.from_numpy(bi),
-                            stride, act)
-        assert got.dtype == tdt
-        _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
-                      jnp.asarray(want, jnp.float32), tdt, 1)
+        args = ([_nchw(x, tdt) for x in xs], _tw(kern, tdt),
+                torch.from_numpy(sc), torch.from_numpy(bi), stride, act)
+        for got in (P.planar_conv(*args),
+                    P.planar_conv_plain(*args, sequential=True)):
+            assert got.dtype == tdt
+            _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
+                          jnp.asarray(want, jnp.float32), tdt, 1)
 
 
 CONV2_CASES = {
@@ -172,12 +176,13 @@ def test_planar_conv2_plain_matches_jax(case, dt):
         conv_tap_weights(jnp.asarray(k2), jdt), conv3x3_taps(wo), _jcol(s2),
         _jcol(b2), interior_mask(ho, wo), act="relu", act2=act2,
         interpret=True), ho, wo)
-    got = P.planar_conv2([_nchw(x, tdt) for x in xs], _tw(k1, tdt),
-                         torch.from_numpy(s1), torch.from_numpy(b1),
-                         _tw(k2, tdt), torch.from_numpy(s2),
-                         torch.from_numpy(b2), stride, "relu", act2)
-    _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
-                  jnp.asarray(want, jnp.float32), tdt, 2)
+    args = ([_nchw(x, tdt) for x in xs], _tw(k1, tdt), torch.from_numpy(s1),
+            torch.from_numpy(b1), _tw(k2, tdt), torch.from_numpy(s2),
+            torch.from_numpy(b2), stride, "relu", act2)
+    for got in (P.planar_conv2(*args),
+                P.planar_conv2_plain(*args, sequential=True)):
+        _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
+                      jnp.asarray(want, jnp.float32), tdt, 2)
 
 
 def _gru_weights(rng, half, tdt, jdt):
@@ -215,13 +220,14 @@ def test_planar_conv_gru_plain_matches_jax(dt):
                         conv3x3_taps(w), _jcol(sc), _jcol(bi),
                         _jplanes([hp], jdt)[0], *jw, interior_mask(h, w),
                         interpret=True)
-    ta, th = P.planar_conv_gru([_nchw(x, tdt) for x in xs], _tw(kern, tdt),
-                               torch.from_numpy(sc), torch.from_numpy(bi),
-                               _nchw(hp, tdt), *tw)
-    for got, want in ((ta, ja), (th, jh)):
-        _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
-                      jnp.asarray(from_planar(want, h, w), jnp.float32),
-                      tdt, 2)
+    args = ([_nchw(x, tdt) for x in xs], _tw(kern, tdt), torch.from_numpy(sc),
+            torch.from_numpy(bi), _nchw(hp, tdt), *tw)
+    for ta, th in (P.planar_conv_gru(*args),
+                   P.planar_conv_gru_plain(*args, sequential=True)):
+        for got, want in ((ta, ja), (th, jh)):
+            _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
+                          jnp.asarray(from_planar(want, h, w), jnp.float32),
+                          tdt, 2)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -238,9 +244,65 @@ def test_planar_gru_plain_matches_jax(dt):
     jw, tw = _gru_weights(rng, c, tdt, jdt)
     want = j_gru(_jplanes([x], jdt)[0], _jplanes([hp], jdt)[0], *jw,
                  interior_mask(h, w), conv3x3_taps(w), interpret=True)
-    got = P.planar_gru(_nchw(x, tdt), _nchw(hp, tdt), *tw)
-    _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
-                  jnp.asarray(from_planar(want, h, w), jnp.float32), tdt, 1)
+    args = (_nchw(x, tdt), _nchw(hp, tdt), *tw)
+    for got in (P.planar_gru(*args),
+                P.planar_gru_plain(*args, sequential=True)):
+        _assert_close(got.float().permute(0, 2, 3, 1).numpy(),
+                      jnp.asarray(from_planar(want, h, w), jnp.float32),
+                      tdt, 1)
+
+
+@pytest.mark.parametrize("n_in", [1, 2, 3])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("k", [1, 3])
+def test_seq_conv_f32_matches_conv2d(k, stride, n_in):
+    """The sequential-order conv equals F.conv2d exactly where every sum
+    is exact (small integers in bfloat16), and within the float32 bound of
+    a K-term sum (K u S, u = 2^-24, S = sum |x w|) on random bfloat16
+    inputs, where the two orders may round apart."""
+    rng = np.random.RandomState(50 + 10 * k + 3 * stride + n_in)
+    cins = [3, 5, 4][:n_in]
+    h, w, cout = 11, 14, 6
+    cases = [(rng.randint(-4, 5, (2, c, h, w)) for c in cins),
+             (rng.randn(2, c, h, w) for c in cins)]
+    for exact, gen in zip((True, False), cases):
+        xs = [torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+              for x in gen]
+        wt = (rng.randint(-4, 5, (cout, sum(cins), k, k)) if exact
+              else rng.randn(cout, sum(cins), k, k) / np.sqrt(sum(cins)))
+        wt = torch.from_numpy(wt.astype(np.float32)).to(torch.bfloat16)
+        got = P.seq_conv_f32(xs, wt, stride)
+        want = P._conv_f32(xs, wt, stride)
+        assert got.shape == want.shape == (2, cout, (h - 1) // stride + 1,
+                                           (w - 1) // stride + 1)
+        if exact:
+            assert torch.equal(got, want)
+            continue
+        x64 = torch.cat([t.double() for t in xs], 1)
+        s = torch.nn.functional.conv2d(x64.abs(), wt.double().abs(), None,
+                                       stride, k // 2)
+        bound = wt[0].numel() * 2.0 ** -24 * s
+        assert bool(((got - want).abs().double() <= bound).all())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_pack_conv_weight_round_trips(k):
+    """pack_conv_weight's [n][tap][k] layout holds w[n, ci, ky, kx] at
+    column (ky * k + kx) * kp + ci and zeros everywhere else (padding
+    channels up to kp = up(C_in, 16), rows up to up(C_out, 8), the 8
+    trailing columns)."""
+    rng = np.random.RandomState(60 + k)
+    cout, cin = 12, 20
+    w = torch.from_numpy(rng.randn(cout, cin, k, k).astype(np.float32)
+                         ).to(torch.bfloat16)
+    wp = P.pack_conv_weight(w)
+    kp = 32
+    assert wp.shape == (16, k * k * kp + 8) and wp.dtype == torch.bfloat16
+    body = wp[:cout, :k * k * kp].reshape(cout, k, k, kp)
+    assert torch.equal(body[..., :cin].permute(0, 3, 1, 2), w)
+    zeros = wp.clone()
+    zeros[:cout, :k * k * kp].view(cout, k * k, kp)[:, :, :cin] = 0
+    assert not zeros.any()
 
 
 def test_folded_params_match_jax():

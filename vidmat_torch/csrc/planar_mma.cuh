@@ -1,12 +1,12 @@
-// Tensor-core building blocks of the bf16 planar kernels (planar_conv2.cu,
-// planar_gru.cu): a 3x3 conv stage as an implicit GEMM on
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate) over regions staged in
-// shared memory channels-last.
+// Tensor-core building blocks of the bf16 planar kernels (planar_conv.cu,
+// planar_conv2.cu, planar_gru.cu): a 3x3 or 1x1 conv stage as an implicit
+// GEMM on mma.sync.m16n8k16 (bf16 in, f32 accumulate) over regions staged
+// in shared memory channels-last.
 //
 // A conv stage computes out[m][n] = sum over (tap, k) of
 //   region[pixel(m) + tap][k] * w[n][tap][k]
 // for the pixels m of a rows x cols output region (M, raster order), the
-// output channels n (N, in tiles of 8) and K = 9 taps x the input
+// output channels n (N, in tiles of 8) and K = taps (9 or 1) x the input
 // channels padded to 16. One K step is one tap's 16 channels of one pixel,
 // 32 contiguous bytes; each lane hands ldmatrix its own pixel's address,
 // so the im2col gather costs nothing and an M tile of 16 pixels may cross
@@ -16,9 +16,12 @@
 //   region   [pixel][channel], pixel stride ps = up(c, 16) + 8: the 8
 //            extra channels put the 16-byte rows of 8 neighbouring pixels
 //            in distinct bank groups (conflict-free ldmatrix);
-//   weights  [n][tap][k], row stride 9 * kp + 8 for the same reason, rows
-//            padded to a multiple of 8 with zeros, k the staged channel
-//            (zero where no input channel maps).
+//   weights  [n][tap][k], row stride taps * kp + 8 for the same reason,
+//            rows padded to a multiple of 8 with zeros, k the staged
+//            channel (zero where no input channel maps). planar_conv2 and
+//            planar_gru reorder (cout, cin, 3, 3) tensors into it in each
+//            block (stage_w); planar_conv's weights come packed so once
+//            (vidmat_torch/ops/planar.py pack_conv_weight).
 // Padding channels are zero in both, so they add exact zeros.
 //
 // Work split: a warp owns one M tile (16 pixels) and a group of up to
@@ -36,17 +39,21 @@
 // later frames. So the block also sums S = sum |x * w| per output (a
 // second mma on sign-masked fragments), and every epilogue checks the
 // value it is about to round against the two orders' error scale carried
-// through its arithmetic (near_tie). The scale (err_scale) is ten times
-// the spread of a K-term f32 sum's rounding error: u sqrt(K) |acc| / 6
-// when the partial sums grow steadily to |acc|, about u S / 5 when they
-// cancel (u = 2^-24). Where the value lies that close to a midpoint or to
-// zero (a fraction of a percent of values) its (m, n) is queued and
-// recomputed in the CUDA-core order (seq_sum: input channel, then ky,
-// then kx, FMA from 0, over the operands already in shared memory), one
-// queued value per lane. Each bf16 value is then the one the sequential
-// kernel gives, unless a sum's error exceeds that scale: it is a spread,
-// not a bound, and inputs built for it (tiny terms of one sign over many
-// channels, big terms that cancel after many tiny ones) can exceed it. The
+// through its arithmetic (near_tie). The scale (err_scale) is
+// u (K |acc| + 4 S) (u = 2^-24). K |acc| bounds what either order can lose
+// while its partial sums stay below |acc|: each of the K adds rounds by at
+// most u times its partial sum, and the sequential order drops every term
+// under half a unit of its running sum, so tiny terms of one sign over K
+// products move the two orders apart linearly in K (the card test
+// test_planar_kernels_round_same_sign_tiny_terms_as_sequential_order; a
+// scale of 2 sqrt(K) |acc|, the spread of random roundings, missed it).
+// 4 S covers sums that cancel, as a spread: partial sums larger than |acc|
+// (big terms that cancel after many tiny ones) can exceed it, up to the
+// bound K u S. Where the value lies that close to a midpoint or to zero
+// (about a percent of values) its (m, n) is queued and recomputed in the
+// CUDA-core order (seq_sum: input channel, then ky, then kx, FMA from 0,
+// over the operands already in shared memory), one queued value per lane.
+// Each bf16 value is then the one the sequential kernel gives. The
 // epilogue arithmetic is unchanged.
 
 #pragma once
@@ -64,9 +71,9 @@ constexpr int kNTMax = 4;  // N tiles (of 8 channels) a warp accumulates
 constexpr float kU = 1.0f / 16777216.0f;  // 2^-24
 
 // The error scale of a sum acc of k products with S = sabs (see Numerics):
-// 2 sqrt(k) |acc| + 4 S, in units of u; rk = 2 sqrt(k).
-__device__ __forceinline__ float err_scale(float acc, float sabs, float rk) {
-  return kU * (rk * fabsf(acc) + 4.0f * sabs);
+// u (k |acc| + 4 S); kf = k.
+__device__ __forceinline__ float err_scale(float acc, float sabs, float kf) {
+  return kU * (kf * fabsf(acc) + 4.0f * sabs);
 }
 
 __host__ __device__ constexpr int up(int x, int m) {
@@ -75,10 +82,12 @@ __host__ __device__ constexpr int up(int x, int m) {
 // Pixel stride of a channels-last region of c channels.
 __host__ __device__ constexpr int pstride(int c) { return up(c, 16) + 8; }
 // Row stride of staged weights with kp channels per tap.
-__host__ __device__ constexpr int wstride(int kp) { return 9 * kp + 8; }
+__host__ __device__ constexpr int wstride(int kp, int taps = 9) {
+  return taps * kp + 8;
+}
 // Elements of staged weights for cout outputs and kp channels per tap.
-__host__ __device__ constexpr size_t welems(int cout, int kp) {
-  return (size_t)up(cout, 8) * wstride(kp);
+__host__ __device__ constexpr size_t welems(int cout, int kp, int taps = 9) {
+  return (size_t)up(cout, 8) * wstride(kp, taps);
 }
 
 // N tiles per warp task for a stage of mt M tiles and nt N tiles: the
@@ -264,8 +273,8 @@ __device__ void stage_w(const bf16* __restrict__ w, int cout, int cin,
 }
 
 // One K segment of a conv stage: a channels-last region and where the
-// stage's taps read it. Output pixel (oy, ox), tap (ky, kx) reads region
-// pixel (stride * oy + ky + shift, stride * ox + kx + shift), channels
+// stage's KS x KS taps read it. Output pixel (oy, ox), tap (ky, kx) reads
+// region pixel (stride * oy + ky + shift, stride * ox + kx + shift), channels
 // [0, 16 * chunks), against staged weight k in [koff, koff + 16 * chunks);
 // its first nch channels are the conv's inputs (seq_sum reads those).
 struct Seg {
@@ -300,35 +309,38 @@ __device__ __forceinline__ bool affine_checked(float acc, float e,
 // The sum of output pixel m (of an output region `cols` wide), channel n,
 // in the CUDA-core loop's order: over the segments in turn, input channel
 // by input channel, taps ky then kx, FMA from 0 (products of bf16 values
-// are exact, so each step is one rounding, as there).
-template <int NSEG>
+// are exact, so each step is one rounding, as there). KS: the conv's edge
+// (3 or 1).
+template <int KS = 3, int NSEG>
 __device__ __noinline__ float seq_sum(const Seg (&segs)[NSEG], int stride,
                                       int cols, int m, const bf16* w,
                                       int kp, int n) {
+  constexpr int kTaps = KS * KS;
   const int oy = m / cols, ox = m - oy * cols;
-  const bf16* wr = w + (size_t)n * wstride(kp);
+  const bf16* wr = w + (size_t)n * wstride(kp, kTaps);
   float acc = 0.0f;
   for (int s = 0; s < NSEG; ++s) {
     const Seg& sg = segs[s];
     const bf16* a = sg.base + ((size_t)(stride * oy + sg.shift) * sg.cols +
                                stride * ox + sg.shift) * sg.ps;
     const bf16* wt = wr + sg.koff;
-    int off[9];
+    int off[kTaps];
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap)
-      off[tap] = ((tap / 3) * sg.cols + tap % 3) * sg.ps;
-    // The 18 loads of a channel go out together; the FMA chain keeps the
-    // order.
+    for (int tap = 0; tap < kTaps; ++tap)
+      off[tap] = ((tap / KS) * sg.cols + tap % KS) * sg.ps;
+    // The 2 * taps loads of a channel go out together; the FMA chain keeps
+    // the order.
 #pragma unroll 2
     for (int ci = 0; ci < sg.nch; ++ci) {
-      float x[9], v[9];
+      float x[kTaps], v[kTaps];
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
+      for (int tap = 0; tap < kTaps; ++tap) {
         x[tap] = __bfloat162float(a[off[tap] + ci]);
         v[tap] = __bfloat162float(wt[tap * kp + ci]);
       }
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) acc = __fmaf_rn(x[tap], v[tap], acc);
+      for (int tap = 0; tap < kTaps; ++tap)
+        acc = __fmaf_rn(x[tap], v[tap], acc);
     }
   }
   return acc;
@@ -345,25 +357,27 @@ constexpr size_t kQueueBytes = (size_t)kWarps * kQueue * sizeof(unsigned);
 // (err_scale; the caller drops n >= n_out). Where epi returns false (the
 // value may round otherwise in the CUDA-core order) the warp queues (m, n)
 // in `queue` (kQueue entries per warp) and later calls exact(m, n), one
-// entry per lane, so the serial recomputations run side by side. w: staged weights with kp channels per tap. Every warp of the
-// block must call it; it does not synchronize.
-template <int NSEG, typename Epi, typename Exact>
+// entry per lane, so the serial recomputations run side by side. w: staged
+// weights with kp channels per tap. KS: the conv's edge (3 or 1). Every
+// warp of the block must call it; it does not synchronize.
+template <int KS = 3, int NSEG, typename Epi, typename Exact>
 __device__ __forceinline__ void conv_stage(const Seg (&segs)[NSEG],
                                            int stride, int rows, int cols,
                                            const bf16* w, int kp, int n_out,
                                            unsigned* queue, Epi&& epi,
                                            Exact&& exact) {
+  constexpr int kTaps = KS * KS;
   const int npix = rows * cols;
   const int mt = (npix + 15) / 16, nt = (n_out + 7) / 8;
   int gs = 1;
   stage_groups(mt, nt, &gs);
   const int groups = (nt + gs - 1) / gs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ws = wstride(kp);
+  const int ws = wstride(kp, kTaps);
   int k = 0;
 #pragma unroll
-  for (int s = 0; s < NSEG; ++s) k += 9 * segs[s].nch;
-  const float rk = 2.0f * sqrtf((float)k);
+  for (int s = 0; s < NSEG; ++s) k += kTaps * segs[s].nch;
+  const float kf = (float)k;
   // ldmatrix roles: A rows are pixels (lanes 0-15 at k 0, 16-31 at k 8);
   // B rows are output channels (lanes 0-7 at k 0, 8-15 at k 8, then the
   // next N tile for x4).
@@ -395,8 +409,8 @@ __device__ __forceinline__ void conv_stage(const Seg (&segs)[NSEG],
       const uint32_t b0 =
           saddr(w + (size_t)(n0 * 8 + b_row) * ws + sg.koff + b_half);
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
+      for (int tap = 0; tap < kTaps; ++tap) {
+        const int ky = tap / KS, kx = tap % KS;
         const uint32_t at = a0 + (uint32_t)((ky * sg.cols + kx) * sg.ps) * 2;
         const uint32_t bt = b0 + (uint32_t)(tap * kp) * 2;
         for (int kc = 0; kc < sg.chunks; ++kc) {
@@ -438,7 +452,7 @@ __device__ __forceinline__ void conv_stage(const Seg (&segs)[NSEG],
       qn = 0;
     };
     auto put = [&](int r, int n, float v, float sv) {
-      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, rk));
+      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, kf));
       const unsigned mask = __ballot_sync(0xFFFFFFFFu, need);
       if (mask == 0) return;
       if (qn + __popc(mask) > kQueue) flush();
@@ -495,10 +509,10 @@ inline Plan plan_tile(int n, int oh, int ow, S smem_of, W work_of) {
 
 // Critical-path estimate of one conv stage (per warp): K steps times the
 // busiest warp's cost per step.
-inline double stage_work(int npix, int n_out, int kp) {
+inline double stage_work(int npix, int n_out, int kp, int taps = 9) {
   int gs = 1;
-  return (double)stage_groups((npix + 15) / 16, (n_out + 7) / 8, &gs) * 9 *
-         (kp / 16);
+  return (double)stage_groups((npix + 15) / 16, (n_out + 7) / 8, &gs) *
+         taps * (kp / 16);
 }
 
 // Estimate of staging `elems` elements from device memory, in the units of

@@ -13,7 +13,9 @@ of the net through the four planar kernels (``vidmat_torch.ops.planar``):
   full res    d0 + head (planar_conv2, act2 none), depth-to-space, clip,
               the foreground residual
 
-BatchNorm is folded once at build time (``folded_planar_params``). The
+BatchNorm is folded once at build time (``folded_planar_params``); on
+bfloat16 planes every conv weight a planar_conv call takes is also packed
+once into its tensor-core layout (``ops.pack_conv_weight``). The
 glue (2x bilinear upsample with half-pixel centers, space-to-depth,
 depth-to-space, clip) is plain torch on NCHW tensors. The JAX package's
 upsample is two banded matmuls with a cast to the plane dtype between
@@ -122,12 +124,24 @@ class PlanarNetwork(nn.Module):
         self.fuse_pairs = fuse_pairs
         self._sites = {}
         for site, tensors in params.items():
+            tensors = dict(tensors)
+            w = tensors.get("w")
+            if dtype == torch.bfloat16 and w is not None and w.dim() == 4:
+                tensors["wp"] = ops.pack_conv_weight(w)
             self._sites[site] = tuple(tensors)
             for key, t in tensors.items():
                 self.register_buffer(f"{site}_{key}", t.contiguous())
 
     def _p(self, site: str) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, f"{site}_{k}") for k in self._sites[site]}
+
+    def _conv(self, k, xs, site: str, stride: int = 1, act: str = "relu"):
+        """planar_conv of ``site`` (the kernel with its packed weights, or
+        the plain version)."""
+        p = self._p(site)
+        extra = {"packed": p["wp"]} if k is _KERNELS and "wp" in p else {}
+        return k["conv"](xs, p["w"], p["scale"], p["bias"], stride, act,
+                         **extra)
 
     def init_state(self, batch: int, height: int, width: int) -> PlanarState:
         return planar_init_state(self.cfg, batch, height, width, self.dtype,
@@ -145,8 +159,7 @@ class PlanarNetwork(nn.Module):
         x_in = (space_to_depth(x, s) if s > 1 else x).contiguous()
 
         def cba(xs, site, stride=1, act="relu"):
-            p = self._p(site)
-            return k["conv"](xs, p["w"], p["scale"], p["bias"], stride, act)
+            return self._conv(k, xs, site, stride, act)
 
         def enc_stage(f, a, b):
             if self.fuse_pairs:
@@ -174,7 +187,7 @@ class PlanarNetwork(nn.Module):
         ups = [upsample2x(t) for t in xs] + [skip]
         p = self._p(name)
         if not self.cfg.recurrent:
-            return [k["conv"](ups, p["w"], p["scale"], p["bias"])], None
+            return [self._conv(k, ups, name)], None
         g = self._p(f"{name}_gru")
         gw = (g["wg"], g["bg"], g["wc"], g["bc"])
         half = p["w"].shape[0] // 2
@@ -186,7 +199,7 @@ class PlanarNetwork(nn.Module):
             a, h_new = k["conv_gru"](ups, p["w"], p["scale"], p["bias"],
                                      h_prev, *gw)
         else:
-            mid = k["conv"](ups, p["w"], p["scale"], p["bias"])
+            mid = self._conv(k, ups, name)
             a = mid[:, :half].contiguous()
             h_new = k["gru"](mid[:, half:].contiguous(), h_prev, *gw)
         return [a, h_new], h_new
@@ -214,8 +227,8 @@ class PlanarNetwork(nn.Module):
             out = k["conv2"](ups, d0["w"], d0["scale"], d0["bias"], hd["w"],
                              hd["scale"], hd["bias"], 1, "relu", "none")
         else:
-            y = k["conv"](ups, d0["w"], d0["scale"], d0["bias"])
-            out = k["conv"]([y], hd["w"], hd["scale"], hd["bias"], 1, "none")
+            y = self._conv(k, ups, "d0")
+            out = self._conv(k, [y], "head", 1, "none")
         og = out.float()
         if s > 1:
             og = depth_to_space(og, s)

@@ -4,9 +4,10 @@ vidmat/ops/pallas/gf_kernel.py).
 Replaces the TPU kernel ``guided_filter_coeffs``
 (vidmat/ops/pallas/gf_kernel.py:123, pallas_calls at :139 and :152 — one
 function, two variants of the same math). The CUDA kernel is
-``csrc/gf_coeffs.cu`` (two launches: statistics -> a, b; then their box
-means); it is bound by bytes. ``guided_filter_coeffs`` launches it for
-CUDA tensors and runs ``guided_filter_coeffs_plain`` for CPU tensors.
+``csrc/gf_coeffs.cu``: one launch, statistics, a and b and their box means
+in shared memory per output tile; it is bound by bytes, and bit-exact to
+the plain version. ``guided_filter_coeffs`` launches it for CUDA tensors
+and runs ``guided_filter_coeffs_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,9 +25,14 @@ from vidmat_torch.ops.guided_filter import box_mean
 def _kernel():
     fn = _build.load("gf_coeffs").vm_gf_coeffs
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     return fn
+
+
+#: The radii the kernel takes: a block's shared memory grows with the
+#: radius (csrc/gf_coeffs.cu), and every radius up to this one fits.
+MAX_RADIUS = 8
 
 
 def guided_filter_coeffs_plain(guide: torch.Tensor, p: torch.Tensor,
@@ -56,7 +62,8 @@ def guided_filter_coeffs(guide: torch.Tensor, p: torch.Tensor,
     Returns (mean_a, mean_b), each (N, H, W, 4) float32; the output at any
     resolution is ``upsample(mean_a) * guide_full + upsample(mean_b)``.
 
-    CUDA tensors launch ``csrc/gf_coeffs.cu``; CPU tensors take the plain
+    CUDA tensors launch ``csrc/gf_coeffs.cu`` (radius 0 to
+    ``MAX_RADIUS``; a larger one raises); CPU tensors take the plain
     version."""
     if guide.device.type == "cpu" and p.device.type == "cpu":
         return guided_filter_coeffs_plain(guide, p, radius, eps)
@@ -66,15 +73,19 @@ def guided_filter_coeffs(guide: torch.Tensor, p: torch.Tensor,
     if (guide.shape != (n, h, w, 1) or c != 4 or guide.dtype != torch.float32
             or p.dtype != torch.float32):
         raise ValueError("guide (N, H, W, 1) and p (N, H, W, 4), float32")
+    if not 0 <= int(radius) <= MAX_RADIUS:
+        raise ValueError(f"radius {radius}: the kernel takes 0 to "
+                         f"{MAX_RADIUS} (its block's shared memory)")
     guide = guide.contiguous()
     p = p.contiguous()
-    ab = torch.empty((n, h, w, 8), dtype=torch.float32, device=p.device)
-    mean_a = torch.empty_like(p)
-    mean_b = torch.empty_like(p)
+    if p.data_ptr() % 16:  # one float4 per pixel
+        p = p.clone()
+    mean_a = torch.empty((n, h, w, c), dtype=torch.float32, device=p.device)
+    mean_b = torch.empty_like(mean_a)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = _kernel()(guide.data_ptr(), p.data_ptr(), ab.data_ptr(),
-                    mean_a.data_ptr(), mean_b.data_ptr(), n, h, w,
-                    int(radius), float(eps), stream)
+    err = _kernel()(guide.data_ptr(), p.data_ptr(), mean_a.data_ptr(),
+                    mean_b.data_ptr(), n, h, w, int(radius), float(eps),
+                    stream)
     _build.check(err, "guided_filter_coeffs")
     guided_filter_coeffs.launches += 1
     return mean_a, mean_b

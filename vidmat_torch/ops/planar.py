@@ -27,16 +27,20 @@ Each ``planar_*`` wrapper launches its CUDA kernel (``csrc/planar_conv.cu``,
 ``csrc/planar_conv2.cu``, ``csrc/planar_gru.cu``) for CUDA tensors, raises
 on what the kernel does not take, and runs its ``*_plain`` twin for CPU
 tensors only. ``.launches`` counts kernel launches. On bfloat16 planes
-planar_conv2, planar_conv_gru and planar_gru run on the tensor cores
-(``csrc/planar_mma.cuh``); ``planar_conv2_plan`` and ``planar_gru_plan``
-report the tile edge, block count and shared memory such a launch takes.
+all four run on the tensor cores (``csrc/planar_mma.cuh``), planar_conv
+with its weights packed once into the kernel's staged layout
+(``pack_conv_weight``); ``planar_conv_plan``, ``planar_conv2_plan`` and
+``planar_gru_plan`` report the tile, block count and shared memory such a
+launch takes. The bf16 kernels give the values of one fixed summation
+order, ``seq_conv_f32``'s; the plain twins reach it with
+``sequential=True`` and otherwise sum with ``F.conv2d``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,10 +54,41 @@ _MAX_INPUTS = 3
 # ---- plain PyTorch versions (the CPU path and the kernels' reference) ----
 
 
-def _conv_f32(xs: Sequence[torch.Tensor], w: torch.Tensor, stride: int
-              ) -> torch.Tensor:
+def seq_conv_f32(xs: Sequence[torch.Tensor], w: torch.Tensor, stride: int
+                 ) -> torch.Tensor:
+    """The float32 conv of ``_conv_f32`` summed in one fixed order, the
+    CUDA-core kernels': input channel (across ``xs`` in list order), then
+    ky, then kx, each product added to a float32 sum that starts from 0.
+    k in {1, 3} (zero padding k // 2), stride 1 or 2, up to three inputs.
+    On operands in bfloat16 every product is exact in float32, so each
+    step is one rounding whether or not the multiply-add is fused, on any
+    device: this is the order the bf16 kernels must reproduce, where
+    cuDNN's summation order changes with the shape."""
+    x = torch.cat([t.float() for t in xs], dim=1) if len(xs) > 1 \
+        else xs[0].float()
+    k = w.shape[-1]
+    n, c, hh, ww = x.shape
+    oh, ow = (hh - 1) // stride + 1, (ww - 1) // stride + 1
+    xp = F.pad(x, (k // 2,) * 4)
+    wf = w.float()
+    acc = torch.zeros((n, w.shape[0], oh, ow), device=x.device)
+    for ci in range(c):
+        for ky in range(k):
+            for kx in range(k):
+                win = xp[:, ci:ci + 1, ky:ky + stride * (oh - 1) + 1:stride,
+                         kx:kx + stride * (ow - 1) + 1:stride]
+                acc.addcmul_(win, wf[:, ci, ky, kx].view(1, -1, 1, 1))
+    return acc
+
+
+def _conv_f32(xs: Sequence[torch.Tensor], w: torch.Tensor, stride: int,
+              sequential: bool = False) -> torch.Tensor:
     """float32 sum of products of a conv over the concatenated inputs
-    (operands in the plane dtype, so every product is exact in float32)."""
+    (operands in the plane dtype, so every product is exact in float32):
+    ``F.conv2d`` (cuDNN on the card, in an order of its choosing), or with
+    ``sequential`` ``seq_conv_f32``."""
+    if sequential:
+        return seq_conv_f32(xs, w, stride)
     x = torch.cat([t.float() for t in xs], dim=1) if len(xs) > 1 \
         else xs[0].float()
     return F.conv2d(x, w.float(), None, stride, w.shape[-1] // 2)
@@ -67,27 +102,34 @@ def _affine_act(acc, scale, bias, act: str) -> torch.Tensor:
 
 def planar_conv_plain(xs: Sequence[torch.Tensor], w: torch.Tensor,
                       scale: torch.Tensor, bias: torch.Tensor,
-                      stride: int = 1, act: str = "relu") -> torch.Tensor:
+                      stride: int = 1, act: str = "relu", *,
+                      sequential: bool = False) -> torch.Tensor:
     """Conv (k in {1, 3}, zero padding k//2, stride 1 or 2) over the
     channel concatenation of ``xs``, then ``acc * scale + bias``, then
     ``act``, cast to the inputs' dtype. xs: [(N, C_i, H, W)]; w: (C_out,
-    sum C_i, k, k); scale, bias: (C_out,) float32."""
-    out = _affine_act(_conv_f32(xs, w, stride), scale, bias, act)
+    sum C_i, k, k); scale, bias: (C_out,) float32. ``sequential`` sums in
+    the fixed order of ``seq_conv_f32`` (every ``*_plain`` twin takes it):
+    the bf16 kernels' oracle on the card."""
+    out = _affine_act(_conv_f32(xs, w, stride, sequential), scale, bias, act)
     return out.to(xs[0].dtype)
 
 
 def planar_conv2_plain(xs, w1, scale1, bias1, w2, scale2, bias2,
                        stride: int = 1, act: str = "relu",
-                       act2: str = "none") -> torch.Tensor:
+                       act2: str = "none", *,
+                       sequential: bool = False) -> torch.Tensor:
     """Two chained 3x3 convs: the first as planar_conv (stride 1 or 2), its
     output cast to the plane dtype and zero outside the image (the zero
     padding of the second conv), then a 3x3 stride-1 conv with its own
     affine and activation."""
-    mid = planar_conv_plain(xs, w1, scale1, bias1, stride, act)
-    return planar_conv_plain([mid], w2, scale2, bias2, 1, act2)
+    mid = planar_conv_plain(xs, w1, scale1, bias1, stride, act,
+                            sequential=sequential)
+    return planar_conv_plain([mid], w2, scale2, bias2, 1, act2,
+                             sequential=sequential)
 
 
-def planar_gru_plain(x, h, wg, bg, wc, bc) -> torch.Tensor:
+def planar_gru_plain(x, h, wg, bg, wc, bc, *,
+                     sequential: bool = False) -> torch.Tensor:
     """One ConvGRU step on (N, C, H, W) x and h (models/layers.py
     ConvGRUCell), with the JAX kernel's cast points:
 
@@ -99,23 +141,27 @@ def planar_gru_plain(x, h, wg, bg, wc, bc) -> torch.Tensor:
     wg: (2C, 2C, 3, 3), wc: (C, 2C, 3, 3) in the plane dtype; bg (2C,),
     bc (C,) float32."""
     c = h.shape[1]
-    rz = torch.sigmoid(_conv_f32([x, h], wg, 1) + bg.view(1, -1, 1, 1))
+    rz = torch.sigmoid(_conv_f32([x, h], wg, 1, sequential)
+                       + bg.view(1, -1, 1, 1))
     r, z = rz[:, :c], rz[:, c:]
     hf = h.float()
     rh = (r * hf).to(h.dtype)
-    cand = torch.tanh(_conv_f32([x, rh], wc, 1) + bc.view(1, -1, 1, 1))
+    cand = torch.tanh(_conv_f32([x, rh], wc, 1, sequential)
+                      + bc.view(1, -1, 1, 1))
     return ((1.0 - z) * hf + z * cand).to(h.dtype)
 
 
-def planar_conv_gru_plain(xs, w, scale, bias, h, wg, bg, wc, bc
+def planar_conv_gru_plain(xs, w, scale, bias, h, wg, bg, wc, bc, *,
+                          sequential: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decoder stage: 3x3 ConvBNAct(ReLU) over the inputs, cast to the
     plane dtype, split into [a | b] halves, h' = ConvGRU(b, h). Returns
     (a, h')."""
-    mid = planar_conv_plain(xs, w, scale, bias, 1, "relu")
+    mid = planar_conv_plain(xs, w, scale, bias, 1, "relu",
+                            sequential=sequential)
     half = mid.shape[1] // 2
     a, b = mid[:, :half].contiguous(), mid[:, half:].contiguous()
-    return a, planar_gru_plain(b, h, wg, bg, wc, bc)
+    return a, planar_gru_plain(b, h, wg, bg, wc, bc, sequential=sequential)
 
 
 # ---- kernel wrappers ----
@@ -195,6 +241,23 @@ def _check_launch(err: int, what: str) -> None:
     _build.check(err, what)
 
 
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """Conv weights (C_out, C_in, k, k) in the staged layout of the
+    tensor-core planar_conv (``csrc/planar_mma.cuh``): (up(C_out, 8),
+    k*k*kp + 8) with kp = up(C_in, 16), row n holding w[n, ci, ky, kx] at
+    column (ky*k + kx)*kp + ci; padding channels, padding rows and the 8
+    trailing columns are zero. Packed once (``PlanarNetwork`` does it at
+    build), each block of the kernel copies its rows in 16-byte vectors."""
+    cout, cin, k, _ = w.shape
+    kp = -(-cin // 16) * 16
+    taps = k * k
+    out = torch.zeros((-(-cout // 8) * 8, taps * kp + 8), dtype=w.dtype,
+                      device=w.device)
+    out[:cout, :taps * kp].view(cout, taps, kp)[:, :, :cin] = (
+        w.permute(0, 2, 3, 1).reshape(cout, taps, cin))
+    return out
+
+
 def _out_hw(h, w, k, stride):
     p = k // 2
     return (h + 2 * p - k) // stride + 1, (w + 2 * p - k) // stride + 1
@@ -202,24 +265,36 @@ def _out_hw(h, w, k, stride):
 
 def planar_conv(xs: Sequence[torch.Tensor], w: torch.Tensor,
                 scale: torch.Tensor, bias: torch.Tensor, stride: int = 1,
-                act: str = "relu") -> torch.Tensor:
+                act: str = "relu", packed: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """Fused multi-input conv + affine + activation (planar_conv_plain).
-    CUDA tensors launch ``csrc/planar_conv.cu``."""
+    CUDA tensors launch ``csrc/planar_conv.cu``; bfloat16 planes read the
+    weights as ``packed`` (``pack_conv_weight(w)``, packed here when not
+    given)."""
     xs = list(xs)
     if _on_cpu(*xs, w, scale, bias):
         return planar_conv_plain(xs, w, scale, bias, stride, act)
     n, h, wd, f32 = _check_planes(xs, w, scale, bias, stride)
-    cout, k = w.shape[0], w.shape[-1]
+    cout, cin, k = w.shape[0], w.shape[1], w.shape[-1]
+    wp = None
+    if not f32:
+        wp = pack_conv_weight(w) if packed is None else packed
+        kp = -(-cin // 16) * 16
+        if (wp.shape != (-(-cout // 8) * 8, k * k * kp + 8)
+                or wp.dtype != w.dtype or wp.device != w.device
+                or not wp.is_contiguous() or wp.data_ptr() % 16):
+            raise ValueError("packed weights must be pack_conv_weight(w), "
+                             "contiguous and 16-byte aligned")
     oh, ow = _out_hw(h, wd, k, stride)
     out = torch.empty((n, cout, oh, ow), dtype=xs[0].dtype,
                       device=xs[0].device)
     ptrs, cins, n_in = _inputs(xs)
-    err = _fn("planar_conv", "vm_planar_conv", (_P, _P, _I) + (_P,) * 4
+    err = _fn("planar_conv", "vm_planar_conv", (_P, _P, _I) + (_P,) * 5
               + (_I,) * 8 + (_P,))(
-        ptrs, cins, n_in, w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), n, h, wd, cout, k, stride, _ACTS[act], f32,
-        _stream(out))
-    _build.check(err, "planar_conv")
+        ptrs, cins, n_in, w.data_ptr(), None if wp is None else
+        wp.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n,
+        h, wd, cout, k, stride, _ACTS[act], f32, _stream(out))
+    _check_launch(err, "planar_conv")
     planar_conv.launches += 1
     return out
 
@@ -325,6 +400,23 @@ def planar_gru(x: torch.Tensor, h: torch.Tensor, wg: torch.Tensor,
     _check_launch(err, "planar_gru")
     planar_gru.launches += 1
     return h_new
+
+
+def planar_conv_plan(cins: Sequence[int], n: int, h: int, w: int,
+                     cout: int, k: int, stride: int) -> dict:
+    """The launch planar_conv makes for bfloat16 planes of these shapes
+    (inputs of ``cins`` channels, (n, h, w) each): {"tile": (rows, cols),
+    "nb": output channels per block, "blocks", "smem": bytes}; tile (0, 0)
+    if none fits. Needs the built kernel."""
+    cins = list(cins)
+    arr = (ctypes.c_int * _MAX_INPUTS)(*cins)
+    plan = (ctypes.c_int * 5)()
+    err = _fn("planar_conv", "vm_planar_conv_plan", (_P,) + (_I,) * 7
+              + (_P,))(ctypes.cast(arr, ctypes.c_void_p), len(cins), n, h, w,
+                       cout, k, stride, ctypes.cast(plan, ctypes.c_void_p))
+    _check_launch(err, "planar_conv_plan")
+    return {"tile": (plan[0], plan[1]), "nb": plan[2], "blocks": plan[3],
+            "smem": plan[4]}
 
 
 def planar_conv2_plan(cins: Sequence[int], n: int, h: int, w: int, cmid: int,

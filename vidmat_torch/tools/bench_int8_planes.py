@@ -7,8 +7,9 @@ store costs less than it saves. The probe times a chain of 3x3 16 -> 16
 convs at the 1080p serving net's level-0 grid (144x240) over a batch of
 8, two variants:
 
-  bf16-planes  planar_conv on bf16 planes (the port's CUDA kernel, scale 1,
-               bias 0, ReLU), the layer the planar net runs
+  bf16-planes  planar_conv on bf16 planes (the port's tensor-core CUDA
+               kernel, scale 1, bias 0, ReLU), the layer the planar net
+               runs
   int8-planes  int8_conv (csrc/int8_conv.cu): int8 in, dequantize, the
                same conv and ReLU, requantize to int8 (q = 64)
 
@@ -44,16 +45,17 @@ def variants(batch: int = 8, device="cuda"):
     """{name: (one layer as a function of its input, the chain's input)}
     on ``device``."""
     from vidmat_torch.ops.int8_planar import Q, int8_conv
-    from vidmat_torch.ops.planar import planar_conv
+    from vidmat_torch.ops.planar import pack_conv_weight, planar_conv
 
     w = _layer_weights().to(device)
+    wp = pack_conv_weight(w)
     ones = torch.ones(C, device=device)
     zeros = torch.zeros(C, device=device)
     x0 = torch.from_numpy(np.random.RandomState(1).randn(
         batch, C, H, W).astype(np.float32) * 0.5).to(device)
     return {
-        "bf16-planes": (lambda x: planar_conv([x], w, ones, zeros, 1, "relu"),
-                        x0.to(torch.bfloat16)),
+        "bf16-planes": (lambda x: planar_conv([x], w, ones, zeros, 1, "relu",
+                                              wp), x0.to(torch.bfloat16)),
         "int8-planes": (lambda x: int8_conv(x, w),
                         torch.round(x0 * Q).clamp(-127, 127).to(torch.int8)),
     }
