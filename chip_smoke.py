@@ -10,7 +10,8 @@ Phases (any failure exits nonzero and prints no result line):
   2. each kernel against its plain PyTorch version on the card, at the
      shapes and on the inputs the 1080p main path gives it (ingest
      bit-exact, guided-filter coefficients bit-exact in one launch with no
-     scratch, refine/composite bytes within +-1; the planar kernels at
+     scratch, refine/composite bytes within +-1; ingest and the packed
+     tail at one frame and at the 4-frame chunk; the planar kernels at
      their 9 call sites, and planar_gru at the 3 sites of the unfused
      network, within 1-2 bf16 units in the last place of the plain twin
      summing in the kernels' fixed order (sequential=True; float32 planes
@@ -20,7 +21,8 @@ Phases (any failure exits nonzero and prints no result line):
      composite_rgba_packed bit-exact in its four modes at 480x864 and
      1088x1920; fused_refine_composite's image and coarse modes bytes
      within +-1 at 1088x1920, on 4-frame batches with a shared and a
-     per-frame image; int8_conv within 1 int8 unit at 8x16x144x240), plus
+     per-frame image, the count of refine bytes unequal to the plain twin
+     logged per case; int8_conv within 1 int8 unit at 8x16x144x240), plus
      ragged shapes per kernel (the planar ones at the plate family's 24
      input channels too)
   3. the serving chunk body (ingest, planar encoder, per-frame decoder,
@@ -78,8 +80,13 @@ Phases (any failure exits nonzero and prints no result line):
      flushed before every launch, the card kept busy while the host
      enqueues it), beside its bound, its plain version's
      time and, for the planar kernels and int8_conv, cuDNN's F.conv2d for
-     the same convs (a yardstick the port never calls); for the tensor-core
-     planar kernels also the tile edge, block count and shared memory each
+     the same convs (a yardstick the port never calls); ingest, GF and the
+     packed tail (its three modes) at one frame and at the 4-frame chunk
+     the main path launches them on (the kernels line carries the launch
+     shape); a floor line (an empty kernel launch, and a device-to-device
+     copy_ moving the packed tail's chunk bytes: what this harness reads
+     for no work and for pure streaming); for the tensor-core planar
+     kernels also the tile edge, block count and shared memory each
      site's launch chose
   7. where a frame's time goes on the planar chunk body: host time per
      stage, the body's wall time, device time by kernel group, by kernel
@@ -224,11 +231,14 @@ def gf_one_launch(guide, p, *args):
 
 
 def phase_kernels(net, net_unfused, dev):
-    """Each kernel against its plain version at the main-path shapes."""
+    """Each kernel against its plain version at the main-path shapes: one
+    frame, and ingest and the packed tail also at the 4-frame chunk the
+    main path launches them on."""
     import torch
 
     from vidmat_torch.ops.gf import (guided_filter_coeffs,
                                      guided_filter_coeffs_plain)
+    from vidmat_torch.ops.guided_filter import gray_guide
     from vidmat_torch.ops.ingest import (ingest_pool_normalize,
                                          ingest_pool_normalize_plain)
     from vidmat_torch.ops.refine import (fused_refine_composite,
@@ -263,8 +273,34 @@ def phase_kernels(net, net_unfused, dev):
         errs["fused_refine_composite"] = max(
             errs.get("fused_refine_composite", 0.0), float(d.max()))
         log(f"    refine bg={bg}: bytes mean |d| {float(d.float().mean()):.3g}"
-            f" max {int(d.max())}")
+            f" max {int(d.max())}, {int((d > 0).sum())} of {d.numel()} "
+            "bytes unequal to the plain twin")
     assert errs["fused_refine_composite"] <= 1, errs
+
+    # The main path's launch shape: one 4-frame chunk, whose frames (and so
+    # whose coefficient grids, filtered with each frame's own guide) differ.
+    chunk = torch.from_numpy(padded_clip(CHUNK, seed=11)).to(dev)
+    x4 = ingest_pool_normalize(chunk, pool=4)
+    want4 = ingest_pool_normalize_plain(chunk, pool=4)
+    torch.cuda.synchronize()
+    assert torch.equal(x4, want4), "ingest: not bit-exact on the chunk"
+    ma4, mb4 = guided_filter_coeffs_plain(
+        gray_guide(want4.float()).contiguous(),
+        p.expand(CHUNK, -1, -1, -1).contiguous())
+    assert not torch.equal(ma4[0], ma4[-1])
+    for bg in (None, (0.0, 1.0, 0.0)):
+        k = fused_refine_composite(chunk, ma4, mb4, bg, 4)
+        q = fused_refine_composite_plain(chunk, ma4, mb4, bg, 4)
+        d = (k.view(torch.uint8).int() - q.view(torch.uint8).int()).abs()
+        errs["fused_refine_composite"] = max(
+            errs["fused_refine_composite"], float(d.max()))
+        log(f"    refine bg={bg} {CHUNK} frames: bytes mean |d| "
+            f"{float(d.float().mean()):.3g} max {int(d.max())}, "
+            f"{int((d > 0).sum())} of {d.numel()} bytes unequal to the "
+            "plain twin")
+    assert errs["fused_refine_composite"] <= 1, errs
+    log(f"    ingest bit-exact to plain at 1 frame and at the {CHUNK}-frame "
+        "chunk")
 
     # Ragged shapes: edge tiles, 4-channel ingest, f32 ingest output.
     g = torch.Generator().manual_seed(0)
@@ -288,9 +324,11 @@ def phase_kernels(net, net_unfused, dev):
     d = (fused_refine_composite(fr, a, b, (0.3, 0.2, 0.1), 4).view(
         torch.uint8).int() - fused_refine_composite_plain(
         fr, a, b, (0.3, 0.2, 0.1), 4).view(torch.uint8).int()).abs()
+    log(f"    refine ragged 2x36x300: max |d| {int(d.max())}, "
+        f"{int((d > 0).sum())} of {d.numel()} bytes unequal to the plain "
+        "twin")
     assert int(d.max()) <= 1, int(d.max())
     torch.cuda.synchronize()
-    chunk = torch.from_numpy(padded_clip(CHUNK, seed=11)).to(dev)
     sites = capture_sites(net, net_unfused, coarse_input(net, chunk))
     errs.update(planar_kernel_checks(sites, dev))
     log(f"[2] kernels vs plain on the card: {json.dumps(errs)} "
@@ -422,7 +460,9 @@ def phase_bg_kernels(inputs, dev):
                else "fused_refine_composite (image)")
         errs[row] = max(errs.get(row, 0.0), float(d.max()))
         log(f"    refine {mode} {label}: bytes mean |d| "
-            f"{float(d.float().mean()):.3g} max {int(d.max())}")
+            f"{float(d.float().mean()):.3g} max {int(d.max())}, "
+            f"{int((d > 0).sum())} of {d.numel()} bytes unequal to the "
+            "plain twin")
     assert max(errs.values()) <= 1, errs
 
     w8 = (torch.randn((16, 16, 3, 3), generator=g) * 0.2).to(
@@ -1439,11 +1479,15 @@ def library_call(key, args):
                     F.conv2d(bh, wc, None, 1, 1))
 
 
-def phase_timing(inputs, sites, tail, bg_inputs):
+def tail_rows(inputs, bg_inputs, tail):
+    """Phase 6's rows of the non-planar kernels: {row name: {"1 frame":
+    case, and where the path launches another shape, that shape's label:
+    case}}, each case a dict of kernel and plain calls, bytes (inputs read
+    once, outputs written once) and operations with their peak. The main
+    path launches ingest, GF and the packed tail on 4-frame chunks and
+    MattingSession the float tail on one frame."""
     import torch
     import torch.nn.functional as F
-
-    from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
 
     from vidmat_torch.ops.composite import (composite_rgba_packed,
                                             composite_rgba_packed_plain)
@@ -1451,6 +1495,7 @@ def phase_timing(inputs, sites, tail, bg_inputs):
                                      guided_filter_coeffs_plain)
     from vidmat_torch.ops.ingest import (ingest_pool_normalize,
                                          ingest_pool_normalize_plain)
+    from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
     from vidmat_torch.ops.refine import (fused_refine_composite,
                                          fused_refine_composite_plain,
                                          fused_refine_float,
@@ -1458,103 +1503,163 @@ def phase_timing(inputs, sites, tail, bg_inputs):
 
     frame, guide, p, ma, mb = inputs
     image, coarse_bg, x8, w8 = bg_inputs
-    x = ingest_pool_normalize(frame, pool=4)
-    packed = fused_refine_composite(frame, ma, mb, None, 4)
-    q8 = int8_conv(x8, w8)
-    x8b = x8.to(torch.bfloat16)
+    dev = frame.device
+    chunk = torch.from_numpy(padded_clip(CHUNK, seed=12)).to(dev)
+
+    def four(t):
+        return t.expand(CHUNK, *t.shape[1:]).contiguous()
+
+    shapes = {"1 frame": (frame, guide, p, ma, mb, coarse_bg),
+              f"{CHUNK} frames": (chunk, four(guide), four(p), four(ma),
+                                  four(mb), four(coarse_bg))}
     refine_ops = 8 * 9 + 6 + 16 + 9 + 12
+    r = 4
+    taps = 2 * (2 * r + 1)
+    rows = {name: {} for name in (
+        "ingest_pool_normalize", "guided_filter_coeffs",
+        "fused_refine_composite", "fused_refine_composite (image)",
+        "fused_refine_composite (coarse)")}
+    for label, (fr, gd, pp, a, b, cbg) in shapes.items():
+        x = ingest_pool_normalize(fr, pool=4)
+        packed = fused_refine_composite(fr, a, b, None, 4)
+        px = fr.shape[0] * fr.shape[1] * fr.shape[2]
+        coarse = gd.shape[0] * gd.shape[1] * gd.shape[2]
+        rows["ingest_pool_normalize"][label] = dict(
+            kernel=lambda fr=fr: ingest_pool_normalize(fr, pool=4),
+            plain=lambda fr=fr: ingest_pool_normalize_plain(fr, pool=4),
+            bytes=nbytes(fr, x),
+            # one add per input byte, 3 multiplies + 1 add per output value
+            ops=fr.numel() + 4 * x.numel(), peak=F32_FLOPS_PER_S)
+        rows["guided_filter_coeffs"][label] = dict(
+            kernel=lambda gd=gd, pp=pp: guided_filter_coeffs(gd, pp),
+            plain=lambda gd=gd, pp=pp: guided_filter_coeffs_plain(gd, pp),
+            bytes=nbytes(gd, pp, a, b),
+            # window sums of 10 statistics and 8 coefficients, 5 products,
+            # 8 + 10 scalings, ~6 ops per channel for a, b
+            ops=coarse * (18 * taps + 5 + 18 + 24), peak=F32_FLOPS_PER_S)
+        # The packed tail without a background (the main path's), with an
+        # (H, W, 3) image shared by the batch (bg_image), and with a coarse
+        # background upsampled and clipped in the kernel (bg_blur: 3
+        # channels x 3 lerps x 3 ops, 3 clips x 2).
+        for name, bg, extra, ops in (
+                ("fused_refine_composite", None, (), refine_ops),
+                ("fused_refine_composite (image)", image, (image,),
+                 refine_ops),
+                ("fused_refine_composite (coarse)", cbg, (cbg,),
+                 refine_ops + 27 + 6)):
+            rows[name][label] = dict(
+                kernel=lambda fr=fr, a=a, b=b, bg=bg: fused_refine_composite(
+                    fr, a, b, bg, 4),
+                plain=lambda fr=fr, a=a, b=b, bg=bg:
+                    fused_refine_composite_plain(fr, a, b, bg, 4),
+                bytes=nbytes(fr, a, b, *extra, packed),
+                # 8 channels x 3 lerps x 3 ops, luma 6, 4 apply x 2 +
+                # clips, composite 3 x 3, 4 quantizes x 3
+                ops=px * ops, peak=F32_FLOPS_PER_S)
+
     # composite_rgba_packed on its paths: clip_480p's 480x864 frame and
     # the defaults' 1088x1920 one, premultiplied (no background), on the
     # float tail's mattes (cropped for 480x864).
     alpha, fgr = tail
-    comp = {}
-    for label, (hh, ww) in (("480x864", (CLIP_H, CLIP_W)),
-                            ("1088x1920", (H, W))):
-        f = fgr[:, :hh, :ww].contiguous()
-        a = alpha[:, :hh, :ww].contiguous()
-        comp[label] = (f, a, composite_rgba_packed(f, a))
     px = frame.shape[1] * frame.shape[2]
-    coarse = guide.shape[1] * guide.shape[2]
-    r = 4
-    taps = 2 * (2 * r + 1)
-    rows = {
-        "ingest_pool_normalize": dict(
-            kernel=lambda: ingest_pool_normalize(frame, pool=4),
-            plain=lambda: ingest_pool_normalize_plain(frame, pool=4),
-            bytes=nbytes(frame, x),
-            # one add per input byte, 3 multiplies + 1 add per output value
-            ops=frame.numel() + 4 * x.numel(), peak=F32_FLOPS_PER_S),
-        "guided_filter_coeffs": dict(
-            kernel=lambda: guided_filter_coeffs(guide, p),
-            plain=lambda: guided_filter_coeffs_plain(guide, p),
-            bytes=nbytes(guide, p, ma, mb),
-            # window sums of 10 statistics and 8 coefficients, 5 products,
-            # 8 + 10 scalings, ~6 ops per channel for a, b
-            ops=coarse * (18 * taps + 5 + 18 + 24), peak=F32_FLOPS_PER_S),
-        "fused_refine_composite": dict(
-            kernel=lambda: fused_refine_composite(frame, ma, mb, None, 4),
-            plain=lambda: fused_refine_composite_plain(frame, ma, mb, None, 4),
-            bytes=nbytes(frame, ma, mb, packed),
-            # 8 channels x 3 lerps x 3 ops, luma 6, 4 apply x 2 + clips,
-            # composite 3 x 3, 4 quantizes x 3
-            ops=px * refine_ops, peak=F32_FLOPS_PER_S),
-        # The same with an (H, W, 3) image read per pixel (bg_image), and
-        # with a coarse background upsampled and clipped in the kernel
-        # (bg_blur: 3 channels x 3 lerps x 3 ops, 3 clips x 2).
-        "fused_refine_composite (image)": dict(
-            kernel=lambda: fused_refine_composite(frame, ma, mb, image, 4),
-            plain=lambda: fused_refine_composite_plain(frame, ma, mb, image,
-                                                       4),
-            bytes=nbytes(frame, ma, mb, image, packed),
-            ops=px * refine_ops, peak=F32_FLOPS_PER_S),
-        "fused_refine_composite (coarse)": dict(
-            kernel=lambda: fused_refine_composite(frame, ma, mb, coarse_bg,
-                                                  4),
-            plain=lambda: fused_refine_composite_plain(frame, ma, mb,
-                                                       coarse_bg, 4),
-            bytes=nbytes(frame, ma, mb, coarse_bg, packed),
-            ops=px * (refine_ops + 27 + 6), peak=F32_FLOPS_PER_S),
+    x8b = x8.to(torch.bfloat16)
+    q8 = int8_conv(x8, w8)
+    rows.update({
         # 2 ops per multiply-add against the bf16 tensor-core peak; the
         # library yardstick is cuDNN's bf16 conv without the quantization.
-        "int8_conv": dict(
+        "int8_conv": {"1 frame": dict(
             kernel=lambda: int8_conv(x8, w8),
             plain=lambda: int8_conv_plain(x8, w8),
             library=lambda: F.conv2d(x8b, w8, None, 1, 1),
             bytes=nbytes(x8, w8, q8),
-            ops=2 * x8.numel() * 16 * 9, peak=BF16_FLOPS_PER_S),
-        "fused_refine_float": dict(
+            ops=2 * x8.numel() * 16 * 9, peak=BF16_FLOPS_PER_S)},
+        "fused_refine_float": {"1 frame": dict(
             kernel=lambda: fused_refine_float(frame, ma, mb, 4),
             plain=lambda: fused_refine_float_plain(frame, ma, mb, 4),
             bytes=nbytes(frame, ma, mb, alpha, fgr),
             # 8 channels x 3 lerps x 3 ops, luma 6, 4 apply x 2 + clips
-            ops=px * (8 * 9 + 6 + 16), peak=F32_FLOPS_PER_S),
-    }
-    for label, (f, a, out) in comp.items():
+            ops=px * (8 * 9 + 6 + 16), peak=F32_FLOPS_PER_S)},
+    })
+    for label, (hh, ww) in (("480x864", (CLIP_H, CLIP_W)),
+                            ("1088x1920", (H, W))):
+        f = fgr[:, :hh, :ww].contiguous()
+        a = alpha[:, :hh, :ww].contiguous()
+        out = composite_rgba_packed(f, a)
         rows["composite_rgba_packed" + ("" if label == "480x864"
-                                        else f" {label}")] = dict(
+                                        else f" {label}")] = {"1 frame": dict(
             kernel=lambda f=f, a=a: composite_rgba_packed(f, a),
             plain=lambda f=f, a=a: composite_rgba_packed_plain(f, a),
             bytes=nbytes(f, a, out),
             # 3 products, 4 quantizes x 3 (clip, scale, round), 4 packs
-            ops=a.numel() * (3 + 12 + 4), peak=F32_FLOPS_PER_S)
+            ops=a.numel() * (3 + 12 + 4), peak=F32_FLOPS_PER_S)}
+    return rows
+
+
+def time_case(case):
+    """Cold-L2 times of one case of a row, beside its bound."""
+    ms = time_cold(case["kernel"])
+    plain_ms = time_cold(case["plain"], iters=10)
+    lib_ms = time_cold(case["library"]) if "library" in case else None
+    t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = case["ops"] / case["peak"] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=case["bytes"], ops=case["ops"])
+
+
+def floor_line(moved):
+    """What this harness reads for no work and for pure streaming: an
+    empty kernel launch, and for each {label: bytes} a device-to-device
+    copy_ that moves as many bytes (half read, half written). Not a
+    library column: a copy is not the same function."""
+    import torch
+
+    res = {"empty_ms": time_cold(lambda: torch.cuda._sleep(0))}
+    parts = [f"empty kernel launch {res['empty_ms']:.4f} ms"]
+    for label, nb in moved.items():
+        src = torch.ones(nb // 2, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        ms = time_cold(lambda: dst.copy_(src))
+        rate = 2 * src.numel() / (ms * 1e-3)
+        res[label] = dict(copy_ms=ms, copy_bytes=2 * src.numel(),
+                          copy_rate=rate)
+        parts.append(
+            f"copy_ moving {label}'s {2 * src.numel() / 1e6:.2f} MB "
+            f"{ms:.4f} ms = {rate / 1e12:.3f} TB/s "
+            f"({100 * rate / HBM_BYTES_PER_S:.1f}% of "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; bound "
+            f"{2 * src.numel() / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    log(f"[6] floor (cold L2): {'; '.join(parts)}")
+    return res
+
+
+def phase_timing(inputs, sites, tail, bg_inputs):
+    rows = tail_rows(inputs, bg_inputs, tail)
     out = {}
-    for name, row in rows.items():
-        ms = time_cold(row["kernel"])
-        plain_ms = time_cold(row["plain"], iters=10)
-        lib_ms = time_cold(row["library"]) if "library" in row else None
-        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = row["ops"] / row["peak"] * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations",
-                         bytes=row["bytes"], ops=row["ops"])
-        lib = ("none computes the same function in one PyTorch call"
-               if lib_ms is None else f"cuDNN conv {lib_ms:.4f} ms")
-        log(f"[6] {name}: {ms:.4f} ms (cold L2), plain {plain_ms:.4f} ms, "
-            f"bound {out[name]['bound_ms']:.4f} ms by "
-            f"{out[name]['bound_by']} ({row['bytes'] / 1e6:.2f} MB, "
-            f"{row['ops'] / 1e6:.1f} Mop); library call: {lib}")
+    for name, cases in rows.items():
+        res = {label: time_case(case) for label, case in cases.items()}
+        for label, t in res.items():
+            lib = ("none computes the same function in one PyTorch call"
+                   if t["library_ms"] is None
+                   else f"cuDNN conv {t['library_ms']:.4f} ms")
+            log(f"[6] {name} ({label}): {t['ms']:.4f} ms (cold L2), plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+                f"{t['bound_by']} ({t['bytes'] / 1e6:.2f} MB, "
+                f"{t['ops'] / 1e6:.1f} Mop, {100 * t['bound_ms'] / t['ms']:.0f}"
+                f"% of the bound); library call: {lib}")
+        # The kernels line carries the shape the row's path launches (the
+        # last case), and the one-frame time beside it.
+        launch = list(res)[-1]
+        out[name] = dict(res[launch], shape=launch,
+                         ms_1frame=res["1 frame"]["ms"],
+                         bound_ms_1frame=res["1 frame"]["bound_ms"])
+    chunk = f"{CHUNK} frames"
+    out["floor"] = floor_line({
+        f"fused_refine_composite ({chunk})":
+            rows["fused_refine_composite"][chunk]["bytes"],
+        f"ingest_pool_normalize ({chunk})":
+            rows["ingest_pool_normalize"][chunk]["bytes"]})
 
     # Planar kernels: per call site, with the launch the tensor-core
     # kernels chose there, then summed per kernel (one call at each of its
@@ -1831,7 +1936,9 @@ def main() -> int:
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+                     "library_ms": t["library_ms"],
+                     **{k: t[k] for k in ("shape", "ms_1frame",
+                                          "bound_ms_1frame") if k in t}})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""Where the bf16 tensor-core planar kernels spend their time.
+"""Where the hand-written kernels spend their time, and whether an edit
+changed their bytes.
 
-Times planar_conv, planar_conv2, planar_conv_gru and planar_gru
-(vidmat_torch/csrc/planar_conv.cu, planar_conv2.cu and planar_gru.cu on
-bf16 planes) at the 1080p main path's call sites (chip_smoke.py's site
-capture: fast_demo, s2d 2, ratio 0.25; the unfused network's planar_gru
-sites), each time built from a copy of the vidmat_torch package whose
-csrc/planar_mma.cuh (and planar_conv.cu) has one part knocked out:
+    python3 planar_knockouts.py                  # the bf16 planar kernels
+    python3 planar_knockouts.py --tail           # ingest and the packed tail
+    python3 planar_knockouts.py --parent DIR     # tail A/B against DIR
+
+Planar (no option): times planar_conv, planar_conv2, planar_conv_gru and
+planar_gru (vidmat_torch/csrc/planar_conv.cu, planar_conv2.cu and
+planar_gru.cu on bf16 planes) at the 1080p main path's call sites
+(chip_smoke.py's site capture: fast_demo, s2d 2, ratio 0.25; the unfused
+network's planar_gru sites), each time built from a copy of the
+vidmat_torch package whose csrc/planar_mma.cuh (and planar_conv.cu) has
+one part knocked out:
 
   as built        the kernels as shipped
   spread scale    the recompute's narrower error scale 2 sqrt(K) |acc| +
@@ -21,20 +27,45 @@ csrc/planar_mma.cuh (and planar_conv.cu) has one part knocked out:
   no K loop       the mma K loop runs no step (results wrong)
 
 so each part's share is the difference to "as built". A last build counts
-the values each site queues for recomputation. Cold-L2 medians as
-chip_smoke.py phase 6 times them.
+the values each site queues for recomputation. Table to
+chiprun_out/planar_knockouts.json.
 
-Each variant runs in a process of its own whose working directory holds
-its copy, so ``import vidmat_torch`` there builds and binds the copy's
-kernels. The copies (and their libraries) go to
-vidmat_torch/build/knockouts/, the table to
-chiprun_out/planar_knockouts.json. Needs a CUDA device and nvcc:
+--tail: the same for ingest_pool_normalize and fused_refine_composite
+(csrc/ingest.cu, refine_composite.cu) at the main path's 4-frame
+1088x1920 chunk and at 1 frame, with the knockouts of TAIL_VARIANTS.
+Table to chiprun_out/tail_knockouts.json.
 
-    python3 planar_knockouts.py
+--parent DIR: DIR holds another tree's vidmat_torch/ package, for
+example an earlier commit's (git archive <commit> vidmat_torch | tar -x
+-C DIR). Ingest and the packed tail of both trees run on the same inputs
+made from seeds, in the order parent, this tree, this tree, parent:
+
+  refine   fused_refine_composite in its five background modes (none,
+           color, image, per_frame, coarse) at the chunk and at 1 frame,
+           and at ragged shapes: pool 2 at a width that is not a
+           multiple of 4, pool 8 with an odd coarse width that does not
+           fill a tile, pool 4 with partial tiles in both directions; 2
+           frames each
+  ingest   ingest_pool_normalize at the chunk (bf16 and f32) and at
+           ragged shapes (pools 2 and 8, 4 channels, a width that is not
+           a multiple of 16)
+
+The first parent run saves every output; the first run of this tree
+counts, per case, the output bytes unequal to the parent's and to the
+plain twin. Every run times the chunk and 1-frame cases. Table to
+chiprun_out/tail_ab.json; the exit code is 1 if a packed-tail byte
+differs from the parent's.
+
+Each tree or edited copy runs in a process of its own whose working
+directory holds its package, so ``import vidmat_torch`` there builds and
+binds that package's kernels. The copies (and their libraries) go to
+vidmat_torch/build/knockouts/. Cold-L2 medians as chip_smoke.py phase 6
+times them. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -129,13 +160,13 @@ def _python(copy, code):
                             text=True)
 
 
-def make_copies():
-    """{variant: directory}: one edited copy of the package per variant,
-    its three planar libraries compiled, every copy in parallel."""
+def make_copies(variants, libs, subdir):
+    """{variant: directory}: one edited copy of the package per variant
+    under COPIES/subdir, the given libraries compiled, every copy in
+    parallel."""
     copies, procs = {}, []
-    libs = sorted(set(LIBS.values()))
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        d = os.path.join(COPIES, str(i))
+    for i, (name, edits) in enumerate(variants.items()):
+        d = os.path.join(COPIES, subdir, str(i))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "vidmat_torch"),
                         os.path.join(d, "vidmat_torch"),
@@ -200,23 +231,22 @@ def run_variant(name: str) -> None:
     print(json.dumps(row))
 
 
-def main() -> int:
-    import torch
+def _json_run(tree: str, code: str) -> dict:
+    """The JSON line that ``code``, run in ``tree`` by _python, prints
+    last."""
+    out, _ = _python(tree, code).communicate()
+    try:
+        return json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        raise RuntimeError(f"{code!r} in {tree} failed:\n{out}") from None
 
-    if not torch.cuda.is_available():
-        print("planar_knockouts: no CUDA device", file=sys.stderr)
-        return 2
-    import chip_smoke as cs
 
-    gpu = cs.gpu_line()
+def planar_main(gpu: str) -> int:
     table = {"gpu": gpu, "ms": {}, "recomputed": {}}
-    for name, d in make_copies().items():
-        out, _ = _python(d, "import planar_knockouts as k; "
-                         f"k.run_variant({name!r})").communicate()
-        try:
-            row = json.loads(out.strip().splitlines()[-1])
-        except (ValueError, IndexError):
-            raise RuntimeError(f"variant {name!r} failed:\n{out}") from None
+    copies = make_copies(VARIANTS, sorted(set(LIBS.values())), "planar")
+    for name, d in copies.items():
+        row = _json_run(d, "import planar_knockouts as k; "
+                        f"k.run_variant({name!r})")
         if name == "count":
             table["recomputed"] = row
             continue
@@ -230,6 +260,324 @@ def main() -> int:
               "w") as f:
         json.dump(table, f, indent=1)
     return 0
+
+
+# ---- ingest and the packed tail ------------------------------------------
+
+MODES = ("none", "color", "image", "per_frame", "coarse")
+# (label, n, h, w, pool) of the refine cases; the first two are timed.
+REFINE_SHAPES = [("chunk", 4, 1088, 1920, 4), ("frame", 1, 1088, 1920, 4),
+                 ("pool2 w%4=2", 2, 36, 302, 2),
+                 ("pool8 wl=37", 2, 64, 296, 8),
+                 ("pool4 partial tiles", 2, 36, 300, 4)]
+# (label, shape, pool, dtype name); the first and the last are timed.
+INGEST_CASES = [("chunk bf16", (4, 1088, 1920, 3), 4, "bfloat16"),
+                ("chunk f32", (4, 1088, 1920, 3), 4, "float32"),
+                ("pool2 c4", (2, 100, 152, 4), 2, "bfloat16"),
+                ("pool8", (2, 64, 96, 3), 8, "bfloat16"),
+                ("pool4 w%16=4", (1, 64, 100, 3), 4, "float32"),
+                ("pool4 c4", (2, 64, 96, 4), 4, "bfloat16"),
+                ("frame bf16", (1, 1088, 1920, 3), 4, "bfloat16")]
+TIMED = ("refine chunk", "refine frame", "ingest chunk bf16",
+         "ingest frame bf16")
+TAIL_SAVE = os.path.join(ROOT, "vidmat_torch", "build", "tail_ab")
+
+
+def refine_inputs(n, h, w, pool, mode, dev, seed=0):
+    """Frame, coefficient grids and background of one refine case: the
+    synthetic clip's frames where the shape is the main path's, else
+    random bytes; coefficients that drive alpha and fgr past both ends of
+    [0, 1]; backgrounds slightly outside [0, 1]."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    if (h, w) == (1088, 1920):
+        import chip_smoke as cs
+
+        frame = torch.from_numpy(cs.padded_clip(n, seed=12 + seed))
+    else:
+        frame = torch.randint(0, 256, (n, h, w, 3), generator=g,
+                              dtype=torch.uint8)
+    hl, wl = h // pool, w // pool
+    a = torch.rand((n, hl, wl, 4), generator=g) * 2 - 0.5
+    b = torch.rand((n, hl, wl, 4), generator=g) * 1.5 - 0.5
+    shape = {"image": (h, w, 3), "per_frame": (n, h, w, 3),
+             "coarse": (n, hl, wl, 3)}.get(mode)
+    if mode == "none":
+        bg = None
+    elif mode == "color":
+        bg = (0.2, 0.9, 0.4)
+    else:
+        bg = (torch.rand(shape, generator=g) * 1.2 - 0.1).to(dev)
+    return frame.to(dev), a.to(dev), b.to(dev), bg
+
+
+def tail_cases(dev, timed_only, kinds):
+    """{case name: (kernel output as bytes, plain output as bytes or None,
+    call)} of every case (or of the timed ones, without the plain output)
+    of the given kernels ("refine", "ingest") on this process's
+    package."""
+    import torch
+
+    from vidmat_torch.ops.ingest import (ingest_pool_normalize,
+                                         ingest_pool_normalize_plain)
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain)
+
+    def as_bytes(t):
+        return t.contiguous().view(torch.uint8).reshape(-1)
+
+    out = {}
+    for label, n, h, w, pool in REFINE_SHAPES:
+        timed = f"refine {label}" in TIMED
+        if "refine" not in kinds or timed_only and not timed:
+            continue
+        for mode in MODES:
+            fr, a, b, bg = refine_inputs(n, h, w, pool, mode, dev)
+            k = fused_refine_composite(fr, a, b, bg, pool)
+            p = None if timed_only else fused_refine_composite_plain(
+                fr, a, b, bg, pool)
+            call = (lambda fr=fr, a=a, b=b, bg=bg, pool=pool:
+                    fused_refine_composite(fr, a, b, bg, pool))
+            out[f"refine {mode} {label}"] = (
+                as_bytes(k), None if p is None else as_bytes(p),
+                call if timed else None)
+    for label, shape, pool, dt in INGEST_CASES:
+        timed = f"ingest {label}" in TIMED
+        if "ingest" not in kinds or timed_only and not timed:
+            continue
+        g = torch.Generator().manual_seed(100)
+        img = torch.randint(0, 256, shape, generator=g,
+                            dtype=torch.uint8).to(dev)
+        dtype = getattr(torch, dt)
+        k = ingest_pool_normalize(img, pool, out_dtype=dtype)
+        p = None if timed_only else ingest_pool_normalize_plain(
+            img, pool, out_dtype=dtype)
+        call = (lambda img=img, pool=pool, dtype=dtype:
+                ingest_pool_normalize(img, pool, out_dtype=dtype))
+        out[f"ingest {label}"] = (
+            as_bytes(k), None if p is None else as_bytes(p),
+            call if timed else None)
+    return out
+
+
+def tail_worker(action: str, kinds=("refine", "ingest")) -> None:
+    """In one tree's process: run the cases; save the outputs (action
+    "save"), or count the bytes unequal to the saved ones ("compare"),
+    or neither ("none"); time the timed cases ("time": only those, as the
+    knockouts do). Prints one JSON line."""
+    import torch
+
+    import chip_smoke as cs
+    import vidmat_torch
+
+    if not vidmat_torch.__file__.startswith(os.getcwd()):
+        raise RuntimeError(f"not the tree's package: {vidmat_torch.__file__}")
+    dev = torch.device("cuda")
+    cases = tail_cases(dev, action == "time", kinds)
+    torch.cuda.synchronize()
+    row = {"package": os.path.dirname(vidmat_torch.__file__), "cases": {}}
+    os.makedirs(TAIL_SAVE, exist_ok=True)
+    for name, (k, p, call) in cases.items():
+        res = {}
+        if p is not None:
+            res["unequal_to_plain"] = int((k != p).sum())
+            if name.startswith("refine"):
+                res["max_lsb_to_plain"] = int((k.int() - p.int()).abs()
+                                              .max())
+        path = os.path.join(TAIL_SAVE, name.replace(" ", "_")
+                            .replace("%", "") + ".pt")
+        if action == "save":
+            torch.save(k.cpu(), path)
+        elif action == "compare":
+            res["unequal_to_parent"] = int((k != torch.load(path).to(dev))
+                                           .sum())
+        if call is not None:
+            res["ms"] = cs.time_cold(call)
+        row["cases"][name] = res
+    print(json.dumps(row), flush=True)
+
+
+def _refine_no_coefficients(s):
+    return _sub(s, "    t[0] = a.ma[r0];\n    t[1] = a.ma[r1];\n"
+                   "    t[2] = a.mb[r0];\n    t[3] = a.mb[r1];\n",
+                "    t[0] = make_float4((float)r0, 1.f, 2.f, 3.f);\n"
+                "    t[1] = make_float4((float)r1, 3.f, 2.f, 1.f);\n"
+                "    t[2] = t[0];\n    t[3] = t[1];\n")
+
+
+def _refine_no_shuffles(s):
+    return _sub(s, "    const float4 ra_p = next_lane(ra), "
+                   "rb_p = next_lane(rb);\n",
+                "    const float4 ra_p = ra, rb_p = rb;\n")
+
+
+def _refine_no_frame(s):
+    return _sub(s, "fw[r][k] = full && y_first + r < g.h ? src[k] : 0u;",
+                "fw[r][k] = k + (uint32_t)(size_t)src;")
+
+
+def _refine_no_math(s):
+    return _sub(s, "  const float4 A = lerp4k<KIND>(alo, ahi, f);",
+                "  return __float_as_uint(alo.x + ahi.y + blo.z + bhi.w + f"
+                " + lum + bgc.x);\n"
+                "  const float4 A = lerp4k<KIND>(alo, ahi, f);")
+
+
+def _refine_no_stores(s):
+    return _sub(s, "      o[0] = make_uint2(word[0], word[1]);\n"
+                   "      o[1] = make_uint2(word[2], word[3]);\n",
+                "      if (word[0] == 0x12345u && word[1] == 7u) {\n"
+                "        o[0] = make_uint2(word[0], word[1]);\n"
+                "        o[1] = make_uint2(word[2], word[3]);\n      }\n")
+
+
+def _refine_no_exact_fma(s):
+    return _sub(s, "  if constexpr (KIND == 1) return __fmaf_rn(f, q, g * p);"
+                   "\n  if constexpr (KIND == 2) return __fmaf_rn(g, p, f * q);"
+                   "\n", "")
+
+
+def _refine_rows(n):
+    return lambda s: _sub(s, "constexpr int kRows = 2;",
+                          f"constexpr int kRows = {n};")
+
+
+def _refine_no_register_cap(s):
+    return _sub(s, "__global__ void __launch_bounds__(kThreads, 3)\n",
+                "__global__ void __launch_bounds__(kThreads)\n")
+
+
+def _refine_divisions(s):
+    if "kPool, &" not in s:
+        raise RuntimeError("knockout edit no longer applies: 'kPool, &'")
+    return s.replace("kPool, &", "g.pool, &")
+
+
+def _ingest_no_loads(s):
+    return _sub(s, "if (j < 3 * ng)", "if (j < 0)")
+
+
+_INGEST_STORE = ("  store12(out + (((long long)b * oh + oy) * ow + "
+                 "4 * (g0 + lane)) * 3, res);")
+
+
+def _ingest_no_stores(s):
+    return _sub(s, _INGEST_STORE,
+                "  if (res[0] == 1234.5f && res[5] == 3.0f)\n" + _INGEST_STORE)
+
+
+# variant -> {csrc file: edit}. Each but the first knocks one part out or
+# changes one choice (the outputs may then be wrong), so its share is the
+# difference to "as built".
+TAIL_VARIANTS = {
+    "as built": {},
+    "refine: no coefficient loads": {
+        "refine_composite.cu": _refine_no_coefficients},
+    "refine: no shuffles": {"refine_composite.cu": _refine_no_shuffles},
+    "refine: no frame loads": {"refine_composite.cu": _refine_no_frame},
+    "refine: no pixel math": {"refine_composite.cu": _refine_no_math},
+    "refine: no stores": {"refine_composite.cu": _refine_no_stores},
+    "refine: no exact FMAs": {"refine_composite.cu": _refine_no_exact_fma},
+    "refine: 1 row a warp": {"refine_composite.cu": _refine_rows(1)},
+    "refine: 4 rows a warp": {"refine_composite.cu": _refine_rows(4)},
+    "refine: no register cap": {
+        "refine_composite.cu": _refine_no_register_cap},
+    "refine: divisions": {"refine_composite.cu": _refine_divisions},
+    "ingest: no loads": {"ingest.cu": _ingest_no_loads},
+    "ingest: no stores": {"ingest.cu": _ingest_no_stores},
+}
+TAIL_KINDS = {"refine_composite.cu": "refine", "ingest.cu": "ingest"}
+
+
+def tail_main(gpu: str) -> int:
+    """Time every TAIL_VARIANTS copy's edited kernels."""
+    copies = make_copies(TAIL_VARIANTS, ["ingest", "refine_composite"],
+                         "tail")
+    table = {"gpu": gpu, "ms": {}}
+    for name, d in copies.items():
+        kinds = sorted({TAIL_KINDS[f] for f in TAIL_VARIANTS[name]}) or \
+            ["ingest", "refine"]
+        row = _json_run(d, "import planar_knockouts as k; "
+                        f"k.tail_worker('time', {kinds!r})")
+        table["ms"][name] = {c: e["ms"] for c, e in row["cases"].items()}
+    names = list(table["ms"]["as built"])
+    print(f"tail knockouts, cold-L2 ms ({gpu}):")
+    print(f"{'':29s} " + " ".join(f"{n[:18]:>18s}" for n in names))
+    for name, row in table["ms"].items():
+        print(f"{name:29s} " + " ".join(
+            f"{row[n]:18.4f}" if n in row else f"{'':18s}" for n in names),
+            flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "tail_knockouts.json"),
+              "w") as f:
+        json.dump(table, f, indent=1)
+    return 0
+
+
+def tail_ab(parent: str, gpu: str) -> int:
+    """This tree's ingest and packed tail against ``parent``'s."""
+    parent = os.path.abspath(parent)
+    if not os.path.isdir(os.path.join(parent, "vidmat_torch")):
+        raise SystemExit(f"{parent} holds no vidmat_torch/")
+    runs = [_json_run(tree, "import planar_knockouts as k; "
+                      f"k.tail_worker({action!r})")
+            for tree, action in ((parent, "save"), (ROOT, "compare"),
+                                 (ROOT, "none"), (parent, "none"))]
+    table = {"gpu": gpu, "cases": {}}
+    for name, res in runs[1]["cases"].items():
+        entry = dict(res)
+        entry["parent_unequal_to_plain"] = \
+            runs[0]["cases"][name]["unequal_to_plain"]
+        if "ms" in res:
+            entry["ms"] = [runs[i]["cases"][name]["ms"] for i in (1, 2)]
+            entry["parent_ms"] = [runs[i]["cases"][name]["ms"]
+                                  for i in (0, 3)]
+        table["cases"][name] = entry
+        times = ("" if "ms" not in res else
+                 f"; ms this {entry['ms'][0]:.4f} / {entry['ms'][1]:.4f}, "
+                 f"parent {entry['parent_ms'][0]:.4f} / "
+                 f"{entry['parent_ms'][1]:.4f}")
+        print(f"{name:34s} bytes unequal to parent "
+              f"{res['unequal_to_parent']}, to plain "
+              f"{res['unequal_to_plain']} (parent "
+              f"{entry['parent_unequal_to_plain']})" + times, flush=True)
+    print(gpu)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "tail_ab.json"), "w") as f:
+        json.dump(table, f, indent=1)
+    bad = [n for n, e in table["cases"].items()
+           if e["unequal_to_parent"] and n.startswith("refine")]
+    if bad:
+        print(f"refine bytes differ from the parent's: {bad}")
+        return 1
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tail", action="store_true",
+                    help="knock out parts of ingest and the packed tail in "
+                    "place of the planar kernels")
+    ap.add_argument("--parent", help="compare ingest and the packed tail "
+                    "with the vidmat_torch/ package in this directory")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("planar_knockouts: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    gpu = cs.gpu_line()
+    rc = 0
+    if args.parent:
+        rc = tail_ab(args.parent, gpu)
+    if args.tail:
+        rc = tail_main(gpu) or rc
+    if not args.parent and not args.tail:
+        rc = planar_main(gpu)
+    return rc
 
 
 if __name__ == "__main__":

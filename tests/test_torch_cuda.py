@@ -24,15 +24,28 @@ def test_ingest_kernel_bit_exact(dev):
                                          ingest_pool_normalize_plain)
 
     g = torch.Generator().manual_seed(0)
-    for shape, pool in (((1, 64, 96, 3), 4), ((2, 30, 50, 4), 2)):
-        img = torch.randint(0, 256, shape, generator=g,
+    # The main path's 4-frame chunk (the vector path), then shapes the
+    # general path takes: pools 2 and 8, 4 channels, a width that is not a
+    # multiple of 16, and a frame that starts 1 byte off alignment.
+    for shape, pool, offset in (((4, 1088, 1920, 3), 4, 0),
+                                ((1, 64, 96, 3), 4, 0),
+                                ((2, 30, 50, 4), 2, 0),
+                                ((2, 64, 96, 3), 8, 0),
+                                ((2, 64, 96, 4), 4, 0),
+                                ((1, 64, 100, 3), 4, 0),
+                                ((2, 64, 96, 3), 4, 1)):
+        n = 1
+        for d in shape:
+            n *= d
+        buf = torch.randint(0, 256, (n + offset,), generator=g,
                             dtype=torch.uint8).to(dev)
+        img = buf[offset:].view(shape)
         for dt in (torch.bfloat16, torch.float32):
             before = ingest_pool_normalize.launches
             got = ingest_pool_normalize(img, pool, out_dtype=dt)
             assert ingest_pool_normalize.launches == before + 1
             assert torch.equal(got, ingest_pool_normalize_plain(
-                img, pool, out_dtype=dt))
+                img, pool, out_dtype=dt)), (shape, pool, offset, dt)
 
 
 def test_gf_kernel_matches_plain(dev):
@@ -79,41 +92,63 @@ def test_gf_kernel_refuses_a_radius_too_large(dev):
         guided_filter_coeffs(gi, pi, MAX_RADIUS + 1, 1e-4)
 
 
+# (n, h, w, pool) of the packed tail's card tests: the main path's 4-frame
+# chunk, and shapes the tiled kernel must get right: the clamped edge
+# columns at pool 4, pool 2 at a width that is not a multiple of 4 (pixel
+# by pixel I/O), pool 8 with an odd coarse width that does not fill a
+# tile, partial tiles in both directions.
+REFINE_SHAPES = [(4, 1088, 1920, 4), (2, 64, 300, 4), (2, 36, 302, 2),
+                 (2, 64, 296, 8), (2, 36, 300, 4)]
+
+
+def _refine_case(n, h, w, pool, seed):
+    g = torch.Generator().manual_seed(seed)
+    fr = torch.randint(0, 256, (n, h, w, 3), generator=g, dtype=torch.uint8)
+    a = torch.rand((n, h // pool, w // pool, 4), generator=g) * 2 - 0.5
+    b = torch.rand((n, h // pool, w // pool, 4), generator=g) - 0.5
+    return fr, a, b, g
+
+
+@pytest.mark.parametrize("shape", REFINE_SHAPES)
 @pytest.mark.parametrize("bg", [None, (0.0, 1.0, 0.0)])
-def test_refine_kernel_within_one_lsb(dev, bg):
+def test_refine_kernel_within_one_lsb(dev, bg, shape):
     from vidmat_torch.ops.refine import (fused_refine_composite,
                                          fused_refine_composite_plain)
 
-    g = torch.Generator().manual_seed(2)
-    fr = torch.randint(0, 256, (2, 64, 300, 3), generator=g,
-                       dtype=torch.uint8).to(dev)
-    a = (torch.rand((2, 16, 75, 4), generator=g) * 2 - 0.5).to(dev)
-    b = (torch.rand((2, 16, 75, 4), generator=g) - 0.5).to(dev)
-    k = fused_refine_composite(fr, a, b, bg, 4).view(torch.uint8).int()
-    q = fused_refine_composite_plain(fr, a, b, bg, 4).view(torch.uint8).int()
+    n, h, w, pool = shape
+    fr, a, b, _ = _refine_case(n, h, w, pool, 2)
+    fr, a, b = fr.to(dev), a.to(dev), b.to(dev)
+    before = fused_refine_composite.launches
+    k = fused_refine_composite(fr, a, b, bg, pool).view(torch.uint8).int()
+    assert fused_refine_composite.launches == before + 1
+    q = fused_refine_composite_plain(fr, a, b, bg, pool).view(
+        torch.uint8).int()
     assert int((k - q).abs().max()) <= 1
+    # A frame that starts 1 byte off alignment takes the pixel-by-pixel
+    # I/O and gives the same bytes.
+    buf = torch.empty(fr.numel() + 1, dtype=torch.uint8, device=dev)
+    buf[1:].copy_(fr.reshape(-1))
+    k1 = fused_refine_composite(buf[1:].view(fr.shape), a, b, bg, pool)
+    assert torch.equal(k1.view(torch.uint8).int(), k)
 
 
 # ---- refine image / coarse modes, int8 probe, plate session (slice 4) ----
 
 
+@pytest.mark.parametrize("shape", REFINE_SHAPES)
 @pytest.mark.parametrize("mode", ["image", "per_frame", "coarse"])
-def test_refine_kernel_background_modes_within_one_lsb(dev, mode):
+def test_refine_kernel_background_modes_within_one_lsb(dev, mode, shape):
     from vidmat_torch.ops.refine import (fused_refine_composite,
                                          fused_refine_composite_plain)
 
-    g = torch.Generator().manual_seed(10)
-    n, h, w, pool = 2, 64, 300, 4
-    fr = torch.randint(0, 256, (n, h, w, 3), generator=g,
-                       dtype=torch.uint8).to(dev)
-    a = (torch.rand((n, h // pool, w // pool, 4), generator=g) * 2
-         - 0.5).to(dev)
-    b = (torch.rand((n, h // pool, w // pool, 4), generator=g) - 0.5).to(dev)
+    n, h, w, pool = shape
+    fr, a, b, g = _refine_case(n, h, w, pool, 10)
     # Images slightly outside [0, 1]: the image mode takes them unclipped,
     # the coarse mode clips after its upsample.
-    shape = {"image": (h, w, 3), "per_frame": (n, h, w, 3),
-             "coarse": (n, h // pool, w // pool, 3)}[mode]
-    bg = (torch.rand(shape, generator=g) * 1.2 - 0.1).to(dev)
+    bg_shape = {"image": (h, w, 3), "per_frame": (n, h, w, 3),
+                "coarse": (n, h // pool, w // pool, 3)}[mode]
+    bg = (torch.rand(bg_shape, generator=g) * 1.2 - 0.1).to(dev)
+    fr, a, b = fr.to(dev), a.to(dev), b.to(dev)
     before = dict(fused_refine_composite.mode_launches)
     k = fused_refine_composite(fr, a, b, bg, pool).view(torch.uint8).int()
     assert fused_refine_composite.mode_launches[mode] == before[mode] + 1

@@ -18,12 +18,18 @@ from vidmat_torch.ops.resize import (downsample_ratio_shape,
                                      resize_bilinear, upsample2x)
 
 
-@pytest.mark.parametrize("pool", [1, 2, 4])
-def test_ingest_matches_jax(pool):
+# The shapes the CUDA kernel's paths take: pool 4 with 3 channels (the
+# main path's vector path), the other pools and 4 channels (the general
+# path; 4 channels: the plate and trimap ingest).
+@pytest.mark.parametrize("pool, c", [
+    pytest.param(1, 3, id="1"), pytest.param(2, 3, id="2"),
+    pytest.param(4, 3, id="4"), pytest.param(8, 3, id="8"),
+    pytest.param(4, 4, id="4-c4"), pytest.param(2, 4, id="2-c4")])
+def test_ingest_matches_jax(pool, c):
     from vidmat.ops.pallas import ingest_pool_normalize as j_ingest
 
     rng = np.random.RandomState(1)
-    img = rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)
+    img = rng.randint(0, 256, (2, 64, 96, c)).astype(np.uint8)
     want = np.asarray(j_ingest(jnp.asarray(img), pool=pool,
                                out_dtype=jnp.float32, interpret=True))
     got = ingest_pool_normalize(torch.from_numpy(img), pool=pool,
@@ -84,13 +90,23 @@ def test_box_mean_and_gray_guide_match_jax():
         <= 1e-6
 
 
-@pytest.mark.parametrize("bg", [None, (0.0, 1.0, 0.0), (0.2, 0.4, 0.9)])
-def test_refine_composite_matches_jax(bg):
+# The shapes the tiled CUDA kernel must get right, each with n = 2: one
+# full 128-column tile at pool 4, pool 2 and pool 8 with odd coarse widths
+# (151, 37) whose tiles the width does not fill, and pool 4 with partial
+# tiles in both directions (36 rows, 300 columns, 75 coarse columns).
+@pytest.mark.parametrize("bg, shape", [
+    pytest.param(None, (64, 128, 4), id="None"),
+    pytest.param((0.0, 1.0, 0.0), (64, 128, 4), id="bg1"),
+    pytest.param((0.2, 0.4, 0.9), (64, 128, 4), id="bg2"),
+    pytest.param(None, (36, 302, 2), id="None-pool2-wl151"),
+    pytest.param((0.2, 0.4, 0.9), (64, 296, 8), id="bg2-pool8-wl37"),
+    pytest.param((0.0, 1.0, 0.0), (36, 300, 4), id="bg1-pool4-36x300")])
+def test_refine_composite_matches_jax(bg, shape):
     from vidmat.ops.pallas.composite_kernel import unpack_rgba_host
     from vidmat.ops.pallas.refine_kernel import fused_refine_composite as j_rc
 
     rng = np.random.RandomState(7)
-    n, h, w, pool = 2, 64, 128, 4
+    n, (h, w, pool) = 2, shape
     frame = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
     a_lr = rng.uniform(-0.5, 1.5, (n, h // pool, w // pool, 4)
                        ).astype(np.float32)

@@ -1,11 +1,18 @@
-// Shared prologue of the two refine tails (refine_composite.cu,
-// refine_float.cu), as the TPU kernels share _tail_prologue
+// Pieces of the two refine tails (refine_composite.cu, refine_float.cu),
+// as the TPU kernels share _tail_prologue
 // (vidmat/ops/pallas/refine_kernel.py): the half-pixel, edge-clamped
-// bilinear x pool upsample of the coarse coefficient grids, rows then
-// columns, and the luma guide of the uint8 frame. Both tails must agree on
-// these; one implementation keeps them from diverging. The quantization
-// and the color background are shared with composite.cu too, so every
-// packed word rounds the same way.
+// source index and lerps of the bilinear x pool upsample of the coarse
+// coefficient grids, rows then columns, and the luma guide of the uint8
+// frame. The float tail applies them per pixel through guided_apply. The
+// packed tail keeps its own loop (refine_composite.cu's shade, called by
+// its strip and per-pixel bodies): it row-lerps once per coarse column and
+// computes the same values in the same order with fewer instructions
+// (byte_f, add_sat, mul_sat, quant_bits, pack_rgba), so the two tails
+// agree by test, not by sharing one body: chip_smoke.py holds both to
+// their plain twins, and planar_knockouts.py --parent holds the packed
+// tail's bytes to an earlier tree's. The quantization and the color
+// background are shared with composite.cu, so every packed word rounds
+// the same way.
 //
 // Built with --fmad=false so each product and sum is rounded on its own.
 
@@ -24,6 +31,8 @@ struct Bg {
 
 // Source row (or column) of output index j for a x pool upsample of n
 // coarse samples: lower and upper tap and the weight of the upper one.
+// A constant power-of-two pool compiles the division to the (exact)
+// product with its reciprocal.
 __device__ __forceinline__ void src_index(int j, int n, float pool, int* lo,
                                           int* hi, float* frac) {
   float s = ((float)j + 0.5f) / pool - 0.5f;
@@ -54,23 +63,6 @@ __device__ __forceinline__ float lerp1(float p, float q, float f) {
   return (1.0f - f) * p + f * q;
 }
 
-// A 3-channel coarse grid (hl x wl x 3 floats, not float4-aligned) at one
-// output pixel, in upsample()'s order: the row lerp of both columns' taps,
-// then the column lerp. The coarse background of the portrait-blur tail.
-__device__ __forceinline__ void upsample3(const float* __restrict__ grid,
-                                          int wl, int y0, int y1, float fy,
-                                          int x0, int x1, float fx,
-                                          float out[3]) {
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float r0 = lerp1(grid[(y0 * wl + x0) * 3 + c],
-                           grid[(y1 * wl + x0) * 3 + c], fy);
-    const float r1 = lerp1(grid[(y0 * wl + x1) * 3 + c],
-                           grid[(y1 * wl + x1) * 3 + c], fy);
-    out[c] = lerp1(r0, r1, fx);
-  }
-}
-
 __device__ __forceinline__ float clip01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
 }
@@ -80,14 +72,60 @@ __device__ __forceinline__ uint32_t quant(float v) {
   return (uint32_t)__float2int_rn(clip01(v) * 255.0f);
 }
 
-// (0.299 R + 0.587 G + 0.114 B) / 255 of one uint8 RGB pixel.
+// (0.299 R + 0.587 G + 0.114 B) / 255 of one RGB pixel whose channels are
+// exact small integers.
+__device__ __forceinline__ float luma3(float r, float g, float b) {
+  return (0.299f * r + 0.587f * g + 0.114f * b) * (1.0f / 255.0f);
+}
+
+// The same of one uint8 RGB pixel.
 __device__ __forceinline__ float luma(const uint8_t* px) {
-  return (0.299f * (float)px[0] + 0.587f * (float)px[1] +
-          0.114f * (float)px[2]) * (1.0f / 255.0f);
+  return luma3((float)px[0], (float)px[1], (float)px[2]);
+}
+
+// Byte i (0-3, a constant) of w as a float, exactly: the byte becomes the
+// low mantissa bits of 2^23 (one byte permute), then 2^23 is subtracted.
+// Two full-rate instructions in place of a conversion at an eighth of
+// the FMA rate; the value is (float)byte either way.
+__device__ __forceinline__ float byte_f(uint32_t w, int i) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | i)) -
+         8388608.0f;
+}
+
+// clip(a + b) and clip(a * b) to [0, 1] in one instruction each: the sum
+// or product is rounded, then clamped (NaN to +0), as clip01 of the
+// rounded result. Only the sign of a zero may differ from clip01, which
+// no quantized byte sees.
+__device__ __forceinline__ float add_sat(float a, float b) {
+  float d;
+  asm("add.rn.sat.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float mul_sat(float a, float b) {
+  float d;
+  asm("mul.rn.sat.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// quant() of a value already in [0, 1], in the low byte of the result:
+// v * 255 rounded, then + 1.5 * 2^23, whose rounding to the unit in the
+// last place of that binade is round-half-to-even to an integer (1.5 *
+// 2^23 is even), so the low byte is __float2int_rn(v * 255). Two FP32
+// instructions in place of a conversion; --fmad=false keeps the two
+// roundings apart.
+__device__ __forceinline__ uint32_t quant_bits(float v01) {
+  return __float_as_uint(v01 * 255.0f + 12582912.0f);
+}
+
+// R | G << 8 | B << 16 | A << 24 from the low bytes of four words.
+__device__ __forceinline__ uint32_t pack_rgba(uint32_t r, uint32_t g,
+                                              uint32_t b, uint32_t a) {
+  return __byte_perm(__byte_perm(r, g, 0x0040u), __byte_perm(b, a, 0x0040u),
+                     0x5410u);
 }
 
 // clip(A * guide + B) for the four channels [alpha, r, g, b] of pixel
-// (y, x) of frame b: the guided apply both tails start from.
+// (y, x) of frame b: the float tail's guided apply.
 __device__ __forceinline__ float4 guided_apply(
     const uint8_t* __restrict__ frame, const float4* __restrict__ ma,
     const float4* __restrict__ mb, int b, int y, int x, int h, int w, int hl,
