@@ -17,9 +17,13 @@ Phases (any failure exits nonzero and prints no result line):
      summing in the kernels' fixed order (sequential=True; float32 planes
      against the cuDNN twin), see close(), with the count of values
      unequal to that twin and cuDNN's distance logged per site;
-     fused_refine_float at 1088x1920 pool 4 max |d| <= 1e-5;
-     composite_rgba_packed bit-exact in its four modes at 480x864 and
-     1088x1920; fused_refine_composite's image and coarse modes bytes
+     fused_refine_float max |d| <= 1e-5 at 1088x1920 pool 4 (the strip
+     body), at pools 2 and 8 and on a ragged last strip, and its
+     per-pixel body (a frame one byte off alignment) equal to the strip
+     body; composite_rgba_packed bit-exact in its four modes at 480x864,
+     at 1088x1920 on 1 and 2 frames and on a ragged 37x53, and its
+     scalar path (buffers one element off alignment) equal to its 16-byte
+     groups; fused_refine_composite's image and coarse modes bytes
      within +-1 at 1088x1920, on 4-frame batches with a shared and a
      per-frame image, the count of refine bytes unequal to the plain twin
      logged per case; int8_conv within 1 int8 unit at 8x16x144x240), plus
@@ -84,8 +88,11 @@ Phases (any failure exits nonzero and prints no result line):
      packed tail (its three modes) at one frame and at the 4-frame chunk
      the main path launches them on (the kernels line carries the launch
      shape); a floor line (an empty kernel launch, and a device-to-device
-     copy_ moving the packed tail's chunk bytes: what this harness reads
-     for no work and for pure streaming); for the tensor-core planar
+     copy_ moving the bytes of the packed tail's and ingest's chunk, of
+     the float tail's 1088x1920 frame and of composite's 480x864 and
+     1088x1920 frames: what this harness reads for no work and for pure
+     streaming), each of those rows with its ratio to its copy; for the
+     tensor-core planar
      kernels also the tile edge, block count and shared memory each
      site's launch chose
   7. where a frame's time goes on the planar chunk body: host time per
@@ -351,12 +358,30 @@ def composite_bg(mode, n, h, w, g, dev):
     return torch.rand(shape, generator=g).to(dev)
 
 
+def offset_copy(t, offset=1):
+    """t's values in a buffer ``offset`` elements past an aligned start:
+    the kernels' bodies for misaligned inputs (the float tail's per-pixel
+    body, composite's scalar path)."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_tail_kernels(inputs, dev):
     """fused_refine_float and composite_rgba_packed against their plain
-    versions: the float tail on the main-path frame and coefficient grids
-    (1088x1920, pool 4), composite in all four modes at 480x864 (random
-    mattes, alpha partly outside [0, 1]) and 1088x1920 (the float tail's
-    output), and both on ragged shapes. Returns {kernel name: max |d|}."""
+    versions. The float tail on the main-path frame and coefficient grids
+    (1088x1920, pool 4: the warp-strip body), on random grids at pool 4
+    with a ragged last strip (36x300, 1 and 2 frames), at pools 2 and 8,
+    and on the pool-4 inputs from a frame one byte off alignment (the
+    per-pixel body), whose output must equal the strip body's. Composite
+    in all four modes at 480x864 (random mattes, alpha partly outside
+    [0, 1]), at 1088x1920 on 1 and 2 frames (the float tail's output), on
+    a ragged 37x53 (a scalar tail, groups straddling frames) and from
+    buffers one element off alignment (the scalar path), whose bytes must
+    equal the aligned call's. Returns {kernel name: max |d|}."""
     import torch
 
     from vidmat_torch.ops.composite import (composite_rgba_packed,
@@ -367,23 +392,35 @@ def phase_tail_kernels(inputs, dev):
     frame, _, _, ma, mb = inputs
     g = torch.Generator().manual_seed(12)
 
-    def refine_err(fr, a, b):
-        ka, kf = fused_refine_float(fr, a, b, 4)
-        pa, pf = fused_refine_float_plain(fr, a, b, 4)
+    def refine_err(fr, a, b, pool):
+        ka, kf = fused_refine_float(fr, a, b, pool)
+        pa, pf = fused_refine_float_plain(fr, a, b, pool)
         assert ka.shape == pa.shape and kf.shape == pf.shape
         assert bool(torch.isfinite(ka).all() and torch.isfinite(kf).all())
         return float(max((ka - pa).abs().max(), (kf - pf).abs().max())), \
             (ka, kf)
 
-    err_path, (alpha, fgr) = refine_err(frame, ma, mb)
-    fr = torch.randint(0, 256, (2, 36, 300, 3), generator=g,
-                       dtype=torch.uint8).to(dev)
-    a = (torch.rand((2, 9, 75, 4), generator=g) * 2 - 0.5).to(dev)
-    b = (torch.rand((2, 9, 75, 4), generator=g) - 0.5).to(dev)
-    err_ragged, _ = refine_err(fr, a, b)
-    errs = {"fused_refine_float": max(err_path, err_ragged)}
-    log(f"    fused_refine_float 1088x1920 pool 4: max |d| {err_path:.3g}; "
-        f"ragged 36x300: {err_ragged:.3g}")
+    err_path, (alpha, fgr) = refine_err(frame, ma, mb, 4)
+    errs = {"main path 1088x1920 pool 4": err_path}
+    for label, n, h, w, pool in (("ragged 36x300 pool 4", 2, 36, 300, 4),
+                                 ("1 frame 36x300 pool 4", 1, 36, 300, 4),
+                                 ("pool 2 36x52", 2, 36, 52, 2),
+                                 ("pool 8 64x296", 2, 64, 296, 8)):
+        fr = torch.randint(0, 256, (n, h, w, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+        hl, wl = h // pool, w // pool
+        a = (torch.rand((n, hl, wl, 4), generator=g) * 2 - 0.5).to(dev)
+        b = (torch.rand((n, hl, wl, 4), generator=g) - 0.5).to(dev)
+        errs[label], strip = refine_err(fr, a, b, pool)
+        if label.startswith("ragged"):
+            # The per-pixel body on the same values equals the strip's.
+            errs["per-pixel body"], pixel = refine_err(offset_copy(fr), a,
+                                                       b, pool)
+            assert all(torch.equal(s, p) for s, p in zip(strip, pixel))
+    log("    fused_refine_float max |d| to plain: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + "; the per-pixel body equals the strip body")
+    errs = {"fused_refine_float": max(errs.values())}
     assert errs["fused_refine_float"] <= 1e-5, errs
 
     def mattes(n, h, w):
@@ -391,7 +428,8 @@ def phase_tail_kernels(inputs, dev):
                 (torch.rand((n, h, w, 1), generator=g) * 1.2 - 0.1).to(dev))
 
     cases = [("480x864", *mattes(2, CLIP_H, CLIP_W)),
-             ("1088x1920", fgr.expand(2, -1, -1, -1).contiguous(),
+             ("1 frame 1088x1920", fgr, alpha),
+             ("2 frames 1088x1920", fgr.expand(2, -1, -1, -1).contiguous(),
               alpha.expand(2, -1, -1, -1).contiguous()),
              ("ragged 37x53", *mattes(2, 37, 53))]
     worst = 0
@@ -406,10 +444,16 @@ def phase_tail_kernels(inputs, dev):
                      - p.view(torch.uint8).int()).abs().max())
             worst = max(worst, d)
             assert d == 0, (label, mode, d)
+            if label.startswith("ragged"):
+                bg_o = bg if bg is None or isinstance(bg, tuple) else \
+                    offset_copy(bg)
+                assert torch.equal(k, composite_rgba_packed(
+                    offset_copy(f), offset_copy(al), bg_o)), mode
     torch.cuda.synchronize()
     errs["composite_rgba_packed"] = float(worst)
     log(f"    composite_rgba_packed bit-exact in modes {COMPOSITE_MODES} at "
-        f"{', '.join(c[0] for c in cases)}")
+        f"{', '.join(c[0] for c in cases)}, and from misaligned buffers "
+        "(the scalar path)")
     return errs, (alpha, fgr)
 
 
@@ -1636,30 +1680,38 @@ def floor_line(moved):
 
 def phase_timing(inputs, sites, tail, bg_inputs):
     rows = tail_rows(inputs, bg_inputs, tail)
-    out = {}
+    chunk = f"{CHUNK} frames"
+    # A copy_ of the bytes of each bytes-bound tail row at its launch shape.
+    floor = floor_line({
+        f"{name} ({label})": rows[name][label]["bytes"]
+        for name, label in (("fused_refine_composite", chunk),
+                            ("ingest_pool_normalize", chunk),
+                            ("fused_refine_float", "1 frame"),
+                            ("composite_rgba_packed", "1 frame"),
+                            ("composite_rgba_packed 1088x1920", "1 frame"))})
+    out = {"floor": floor}
     for name, cases in rows.items():
         res = {label: time_case(case) for label, case in cases.items()}
         for label, t in res.items():
             lib = ("none computes the same function in one PyTorch call"
                    if t["library_ms"] is None
                    else f"cuDNN conv {t['library_ms']:.4f} ms")
+            copy = floor.get(f"{name} ({label})")
+            if copy:
+                t["copy_ratio"] = t["ms"] / copy["copy_ms"]
             log(f"[6] {name} ({label}): {t['ms']:.4f} ms (cold L2), plain "
                 f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
                 f"{t['bound_by']} ({t['bytes'] / 1e6:.2f} MB, "
                 f"{t['ops'] / 1e6:.1f} Mop, {100 * t['bound_ms'] / t['ms']:.0f}"
-                f"% of the bound); library call: {lib}")
+                f"% of the bound"
+                + (f", {t['copy_ratio']:.2f}x a copy_ of its bytes"
+                   if copy else "") + f"); library call: {lib}")
         # The kernels line carries the shape the row's path launches (the
         # last case), and the one-frame time beside it.
         launch = list(res)[-1]
         out[name] = dict(res[launch], shape=launch,
                          ms_1frame=res["1 frame"]["ms"],
                          bound_ms_1frame=res["1 frame"]["bound_ms"])
-    chunk = f"{CHUNK} frames"
-    out["floor"] = floor_line({
-        f"fused_refine_composite ({chunk})":
-            rows["fused_refine_composite"][chunk]["bytes"],
-        f"ingest_pool_normalize ({chunk})":
-            rows["ingest_pool_normalize"][chunk]["bytes"]})
 
     # Planar kernels: per call site, with the launch the tensor-core
     # kernels chose there, then summed per kernel (one call at each of its

@@ -3,7 +3,7 @@
 changed their bytes.
 
     python3 planar_knockouts.py                  # the bf16 planar kernels
-    python3 planar_knockouts.py --tail           # ingest and the packed tail
+    python3 planar_knockouts.py --tail [PREFIX]  # the tail kernels
     python3 planar_knockouts.py --parent DIR     # tail A/B against DIR
 
 Planar (no option): times planar_conv, planar_conv2, planar_conv_gru and
@@ -32,8 +32,12 @@ chiprun_out/planar_knockouts.json.
 
 --tail: the same for ingest_pool_normalize and fused_refine_composite
 (csrc/ingest.cu, refine_composite.cu) at the main path's 4-frame
-1088x1920 chunk and at 1 frame, with the knockouts of TAIL_VARIANTS.
-Table to chiprun_out/tail_knockouts.json.
+1088x1920 chunk and at 1 frame, fused_refine_float (refine_float.cu) at
+the session's 1-frame 1088x1920 launch and composite_rgba_packed
+(composite.cu) premultiplied at 1 frame of 480x864 and of 1088x1920,
+with the knockouts of TAIL_VARIANTS (those whose name starts with PREFIX,
+if given, and "as built" on their kernels). Table to
+chiprun_out/tail_knockouts.json.
 
 --parent DIR: DIR holds another tree's vidmat_torch/ package, for
 example an earlier commit's (git archive <commit> vidmat_torch | tar -x
@@ -49,12 +53,21 @@ made from seeds, in the order parent, this tree, this tree, parent:
   ingest   ingest_pool_normalize at the chunk (bf16 and f32) and at
            ragged shapes (pools 2 and 8, 4 channels, a width that is not
            a multiple of 16)
+  float    fused_refine_float at the session's 1088x1920 frame (pool 4),
+           pools 2 and 8, pool 4 with a ragged last strip on 1 and 2
+           frames, and a frame one byte off alignment (the per-pixel
+           body)
+  composite composite_rgba_packed in its four modes (none, color, image,
+           per_frame) at 1 frame of 480x864 and 1088x1920, 2 frames of
+           1088x1920, a ragged 2 x 37 x 53 and the same from buffers one
+           element off alignment (the scalar path)
 
 The first parent run saves every output; the first run of this tree
-counts, per case, the output bytes unequal to the parent's and to the
-plain twin. Every run times the chunk and 1-frame cases. Table to
-chiprun_out/tail_ab.json; the exit code is 1 if a packed-tail byte
-differs from the parent's.
+counts, per case, the outputs unequal to the parent's and to the plain
+twin: bytes, or for the float tail values (with the values equal but for
+the sign of a zero counted apart). Every run times the launch-shape
+cases (TIMED). Table to chiprun_out/tail_ab.json; the exit code is 1 if
+an output differs from the parent's.
 
 Each tree or edited copy runs in a process of its own whose working
 directory holds its package, so ``import vidmat_torch`` there builds and
@@ -68,6 +81,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -162,9 +176,9 @@ def _python(copy, code):
 
 def make_copies(variants, libs, subdir):
     """{variant: directory}: one edited copy of the package per variant
-    under COPIES/subdir, the given libraries compiled, every copy in
-    parallel."""
-    copies, procs = {}, []
+    under COPIES/subdir, the given libraries ({variant: libraries} or one
+    list for all) compiled, every copy in parallel."""
+    copies = {}
     for i, (name, edits) in enumerate(variants.items()):
         d = os.path.join(COPIES, subdir, str(i))
         shutil.rmtree(d, ignore_errors=True)
@@ -178,8 +192,12 @@ def make_copies(variants, libs, subdir):
             with open(path, "w") as f:
                 f.write(text)
         copies[name] = d
+    # Every edit applied: build the copies, all at once.
+    procs = []
+    for name, d in copies.items():
+        built = libs[name] if isinstance(libs, dict) else libs
         procs.append((name, _python(
-            d, f"from vidmat_torch.ops import _build; _build.build({libs})")))
+            d, f"from vidmat_torch.ops import _build; _build.build({built})")))
     outs = [(name, proc.communicate()[0], proc.returncode)
             for name, proc in procs]
     failed = [f"build failed for {name!r}:\n{out}"
@@ -278,8 +296,23 @@ INGEST_CASES = [("chunk bf16", (4, 1088, 1920, 3), 4, "bfloat16"),
                 ("pool4 w%16=4", (1, 64, 100, 3), 4, "float32"),
                 ("pool4 c4", (2, 64, 96, 4), 4, "bfloat16"),
                 ("frame bf16", (1, 1088, 1920, 3), 4, "bfloat16")]
+# (label, n, h, w, pool, frame offset) of the float tail's cases.
+FLOAT_CASES = [("frame", 1, 1088, 1920, 4, 0), ("pool2", 2, 36, 52, 2, 0),
+               ("pool8", 2, 64, 296, 8, 0),
+               ("pool4 36x300", 1, 36, 300, 4, 0),
+               ("pool4 2x36x300", 2, 36, 300, 4, 0),
+               ("pool4 offset frame", 2, 36, 300, 4, 1)]
+# (label, n, h, w, offset in elements) of composite's cases, each in the
+# four modes.
+COMPOSITE_CASES = [("480x864", 1, 480, 864, 0),
+                   ("1088x1920", 1, 1088, 1920, 0),
+                   ("2x1088x1920", 2, 1088, 1920, 0),
+                   ("ragged 37x53", 2, 37, 53, 0),
+                   ("offset 37x53", 2, 37, 53, 1)]
+COMPOSITE_MODES = ("none", "color", "image", "per_frame")
 TIMED = ("refine chunk", "refine frame", "ingest chunk bf16",
-         "ingest frame bf16")
+         "ingest frame bf16", "float frame", "composite none 480x864",
+         "composite none 1088x1920")
 TAIL_SAVE = os.path.join(ROOT, "vidmat_torch", "build", "tail_ab")
 
 
@@ -313,19 +346,28 @@ def refine_inputs(n, h, w, pool, mode, dev, seed=0):
 
 
 def tail_cases(dev, timed_only, kinds):
-    """{case name: (kernel output as bytes, plain output as bytes or None,
-    call)} of every case (or of the timed ones, without the plain output)
-    of the given kernels ("refine", "ingest") on this process's
-    package."""
+    """{case name: (kernel output, plain output or None, call)} of every
+    case (or of the timed ones, without the plain output) of the given
+    kernels ("refine", "ingest", "float", "composite") on this process's
+    package. Outputs are flat: bytes, or the float tail's float32 alpha
+    and fgr."""
     import torch
 
+    from chip_smoke import offset_copy
+    from vidmat_torch.ops.composite import (composite_rgba_packed,
+                                            composite_rgba_packed_plain)
     from vidmat_torch.ops.ingest import (ingest_pool_normalize,
                                          ingest_pool_normalize_plain)
     from vidmat_torch.ops.refine import (fused_refine_composite,
-                                         fused_refine_composite_plain)
+                                         fused_refine_composite_plain,
+                                         fused_refine_float,
+                                         fused_refine_float_plain)
 
     def as_bytes(t):
         return t.contiguous().view(torch.uint8).reshape(-1)
+
+    def flat(pair):
+        return torch.cat([t.reshape(-1) for t in pair])
 
     out = {}
     for label, n, h, w, pool in REFINE_SHAPES:
@@ -358,12 +400,47 @@ def tail_cases(dev, timed_only, kinds):
         out[f"ingest {label}"] = (
             as_bytes(k), None if p is None else as_bytes(p),
             call if timed else None)
+    for label, n, h, w, pool, off in FLOAT_CASES:
+        timed = f"float {label}" in TIMED
+        if "float" not in kinds or timed_only and not timed:
+            continue
+        fr, a, b, _ = refine_inputs(n, h, w, pool, "none", dev, seed=1)
+        fr = offset_copy(fr, off)
+        k = flat(fused_refine_float(fr, a, b, pool))
+        p = None if timed_only else flat(fused_refine_float_plain(fr, a, b,
+                                                                  pool))
+        call = (lambda fr=fr, a=a, b=b, pool=pool:
+                fused_refine_float(fr, a, b, pool))
+        out[f"float {label}"] = (k, p, call if timed else None)
+    for label, n, h, w, off in COMPOSITE_CASES:
+        g = torch.Generator().manual_seed(200)
+        fgr = offset_copy(torch.rand((n, h, w, 3), generator=g).to(dev), off)
+        alpha = offset_copy((torch.rand((n, h, w, 1), generator=g) * 1.2
+                             - 0.1).to(dev), off)
+        for mode in COMPOSITE_MODES:
+            timed = f"composite {mode} {label}" in TIMED
+            if "composite" not in kinds or timed_only and not timed:
+                continue
+            shape = {"image": (h, w, 3), "per_frame": (n, h, w, 3)}.get(mode)
+            bg = ((0.2, 0.9, 0.4) if mode == "color" else None
+                  if shape is None else offset_copy(
+                      (torch.rand(shape, generator=g) * 1.2 - 0.1).to(dev),
+                      off))
+            k = composite_rgba_packed(fgr, alpha, bg)
+            p = None if timed_only else composite_rgba_packed_plain(
+                fgr, alpha, bg)
+            call = (lambda fgr=fgr, alpha=alpha, bg=bg:
+                    composite_rgba_packed(fgr, alpha, bg))
+            out[f"composite {mode} {label}"] = (
+                as_bytes(k), None if p is None else as_bytes(p),
+                call if timed else None)
     return out
 
 
-def tail_worker(action: str, kinds=("refine", "ingest")) -> None:
+def tail_worker(action: str,
+                kinds=("refine", "ingest", "float", "composite")) -> None:
     """In one tree's process: run the cases; save the outputs (action
-    "save"), or count the bytes unequal to the saved ones ("compare"),
+    "save"), or count the outputs unequal to the saved ones ("compare"),
     or neither ("none"); time the timed cases ("time": only those, as the
     knockouts do). Prints one JSON line."""
     import torch
@@ -380,8 +457,11 @@ def tail_worker(action: str, kinds=("refine", "ingest")) -> None:
     os.makedirs(TAIL_SAVE, exist_ok=True)
     for name, (k, p, call) in cases.items():
         res = {}
+        is_float = k.dtype == torch.float32
         if p is not None:
             res["unequal_to_plain"] = int((k != p).sum())
+            if is_float:
+                res["max_abs_to_plain"] = float((k - p).abs().max())
             if name.startswith("refine"):
                 res["max_lsb_to_plain"] = int((k.int() - p.int()).abs()
                                               .max())
@@ -390,8 +470,12 @@ def tail_worker(action: str, kinds=("refine", "ingest")) -> None:
         if action == "save":
             torch.save(k.cpu(), path)
         elif action == "compare":
-            res["unequal_to_parent"] = int((k != torch.load(path).to(dev))
-                                           .sum())
+            par = torch.load(path).to(dev)
+            res["unequal_to_parent"] = int((k != par).sum())
+            if is_float:
+                res["signed_zeros_to_parent"] = int(
+                    ((k == par) & (k.view(torch.int32)
+                                   != par.view(torch.int32))).sum())
         if call is not None:
             res["ms"] = cs.time_cold(call)
         row["cases"][name] = res
@@ -438,9 +522,14 @@ def _refine_no_exact_fma(s):
                    "\n", "")
 
 
-def _refine_rows(n):
-    return lambda s: _sub(s, "constexpr int kRows = 2;",
-                          f"constexpr int kRows = {n};")
+def _rows(n):
+    def edit(s):
+        s, count = re.subn(r"constexpr int kRows = \d+;",
+                           f"constexpr int kRows = {n};", s)
+        if count != 1:
+            raise RuntimeError("knockout edit no longer applies: kRows")
+        return s
+    return edit
 
 
 def _refine_no_register_cap(s):
@@ -452,6 +541,45 @@ def _refine_divisions(s):
     if "kPool, &" not in s:
         raise RuntimeError("knockout edit no longer applies: 'kPool, &'")
     return s.replace("kPool, &", "g.pool, &")
+
+
+_FLOAT_STORES = ("    store_run(a.alpha + prow, sa, lo, hi, lane);\n"
+                 "    store_run(a.fgr + 3 * prow, sf, 3 * lo, 3 * hi, "
+                 "lane);\n")
+
+
+def _float_no_stores(s):
+    return _sub(s, _FLOAT_STORES, "    if (sa[lane] == 1234.5f) {\n"
+                + _FLOAT_STORES + "    }\n")
+
+
+def _float_blocks_256(s):
+    return _sub(s, "constexpr int kThreads = 128;",
+                "constexpr int kThreads = 256;")
+
+
+def _float_register_cap(s):
+    return _sub(s, "__global__ void __launch_bounds__(kThreads) "
+                   "refine_float_kernel",
+                "__global__ void __launch_bounds__(kThreads, 8) "
+                "refine_float_kernel")
+
+
+def _composite_scalar(s):
+    return _sub(s, "  const bool vec = aligned16(fgr)",
+                "  const bool vec = false && aligned16(fgr)")
+
+
+def _composite_no_stores(s):
+    s = _sub(s, "  reinterpret_cast<uint4*>(a.out)[gi] = make_uint4(",
+             "  const uint4 o = make_uint4(")
+    last = "      word(mode, f2.y, f2.z, f2.w, al.w, b2.y, b2.z, b2.w));\n"
+    return _sub(s, last, last + "  if ((o.x ^ o.y ^ o.z ^ o.w) == 0x12345u)\n"
+                "    reinterpret_cast<uint4*>(a.out)[gi] = o;\n")
+
+
+def _composite_runtime_mode(s):
+    return _sub(s, "  const int mode = MODE;", "  const int mode = a.mode;")
 
 
 def _ingest_no_loads(s):
@@ -479,25 +607,45 @@ TAIL_VARIANTS = {
     "refine: no pixel math": {"refine_composite.cu": _refine_no_math},
     "refine: no stores": {"refine_composite.cu": _refine_no_stores},
     "refine: no exact FMAs": {"refine_composite.cu": _refine_no_exact_fma},
-    "refine: 1 row a warp": {"refine_composite.cu": _refine_rows(1)},
-    "refine: 4 rows a warp": {"refine_composite.cu": _refine_rows(4)},
+    "refine: 1 row a warp": {"refine_composite.cu": _rows(1)},
+    "refine: 4 rows a warp": {"refine_composite.cu": _rows(4)},
     "refine: no register cap": {
         "refine_composite.cu": _refine_no_register_cap},
     "refine: divisions": {"refine_composite.cu": _refine_divisions},
     "ingest: no loads": {"ingest.cu": _ingest_no_loads},
     "ingest: no stores": {"ingest.cu": _ingest_no_stores},
+    "float: no coefficient loads": {"refine_float.cu":
+                                    _refine_no_coefficients},
+    "float: no stores": {"refine_float.cu": _float_no_stores},
+    "float: <= 64 registers": {"refine_float.cu": _float_register_cap},
+    "float: 256-thread blocks": {"refine_float.cu": _float_blocks_256},
+    "float: divisions": {"refine_float.cu": _refine_divisions},
+    "float: 2 rows a warp": {"refine_float.cu": _rows(2)},
+    "float: 4 rows a warp": {"refine_float.cu": _rows(4)},
+    "composite: scalar loads": {"composite.cu": _composite_scalar},
+    "composite: no stores": {"composite.cu": _composite_no_stores},
+    "composite: runtime mode": {"composite.cu": _composite_runtime_mode},
 }
-TAIL_KINDS = {"refine_composite.cu": "refine", "ingest.cu": "ingest"}
+# csrc file -> (tail_cases kind, library)
+TAIL_KINDS = {"refine_composite.cu": ("refine", "refine_composite"),
+              "ingest.cu": ("ingest", "ingest"),
+              "refine_float.cu": ("float", "refine_float"),
+              "composite.cu": ("composite", "composite")}
 
 
-def tail_main(gpu: str) -> int:
-    """Time every TAIL_VARIANTS copy's edited kernels."""
-    copies = make_copies(TAIL_VARIANTS, ["ingest", "refine_composite"],
-                         "tail")
+def tail_main(gpu: str, prefix: str = "") -> int:
+    """Time the edited kernels of every TAIL_VARIANTS copy whose name
+    starts with ``prefix`` (and "as built")."""
+    variants = {name: edits for name, edits in TAIL_VARIANTS.items()
+                if not edits or name.startswith(prefix)}
+    files = {name: list(edits) for name, edits in variants.items()}
+    files["as built"] = sorted({f for fs in files.values() for f in fs})
+    copies = make_copies(variants, {
+        name: sorted({TAIL_KINDS[f][1] for f in fs})
+        for name, fs in files.items()}, "tail")
     table = {"gpu": gpu, "ms": {}}
     for name, d in copies.items():
-        kinds = sorted({TAIL_KINDS[f] for f in TAIL_VARIANTS[name]}) or \
-            ["ingest", "refine"]
+        kinds = sorted({TAIL_KINDS[f][0] for f in files[name]})
         row = _json_run(d, "import planar_knockouts as k; "
                         f"k.tail_worker('time', {kinds!r})")
         table["ms"][name] = {c: e["ms"] for c, e in row["cases"].items()}
@@ -516,7 +664,7 @@ def tail_main(gpu: str) -> int:
 
 
 def tail_ab(parent: str, gpu: str) -> int:
-    """This tree's ingest and packed tail against ``parent``'s."""
+    """This tree's tail kernels against ``parent``'s."""
     parent = os.path.abspath(parent)
     if not os.path.isdir(os.path.join(parent, "vidmat_torch")):
         raise SystemExit(f"{parent} holds no vidmat_torch/")
@@ -538,7 +686,13 @@ def tail_ab(parent: str, gpu: str) -> int:
                  f"; ms this {entry['ms'][0]:.4f} / {entry['ms'][1]:.4f}, "
                  f"parent {entry['parent_ms'][0]:.4f} / "
                  f"{entry['parent_ms'][1]:.4f}")
-        print(f"{name:34s} bytes unequal to parent "
+        unit = "bytes"
+        if "max_abs_to_plain" in res:
+            unit = "floats"
+            times = (f"; sign-of-zero only {res['signed_zeros_to_parent']}"
+                     f", max |d| to plain {res['max_abs_to_plain']:.3g}"
+                     + times)
+        print(f"{name:34s} {unit} unequal to parent "
               f"{res['unequal_to_parent']}, to plain "
               f"{res['unequal_to_plain']} (parent "
               f"{entry['parent_unequal_to_plain']})" + times, flush=True)
@@ -546,21 +700,21 @@ def tail_ab(parent: str, gpu: str) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "tail_ab.json"), "w") as f:
         json.dump(table, f, indent=1)
-    bad = [n for n, e in table["cases"].items()
-           if e["unequal_to_parent"] and n.startswith("refine")]
+    bad = [n for n, e in table["cases"].items() if e["unequal_to_parent"]]
     if bad:
-        print(f"refine bytes differ from the parent's: {bad}")
+        print(f"outputs differ from the parent's: {bad}")
         return 1
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tail", action="store_true",
-                    help="knock out parts of ingest and the packed tail in "
-                    "place of the planar kernels")
-    ap.add_argument("--parent", help="compare ingest and the packed tail "
-                    "with the vidmat_torch/ package in this directory")
+    ap.add_argument("--tail", nargs="?", const="", metavar="PREFIX",
+                    help="knock out parts of the tail kernels in place of "
+                    "the planar kernels (only the knockouts whose name "
+                    "starts with PREFIX, e.g. 'float:')")
+    ap.add_argument("--parent", help="compare the tail kernels with the "
+                    "vidmat_torch/ package in this directory")
     args = ap.parse_args()
     import torch
 
@@ -573,9 +727,9 @@ def main() -> int:
     rc = 0
     if args.parent:
         rc = tail_ab(args.parent, gpu)
-    if args.tail:
-        rc = tail_main(gpu) or rc
-    if not args.parent and not args.tail:
+    if args.tail is not None:
+        rc = tail_main(gpu, args.tail) or rc
+    if not args.parent and args.tail is None:
         rc = planar_main(gpu)
     return rc
 

@@ -221,7 +221,11 @@ def test_refine_float_kernel_matches_plain(dev):
                                          fused_refine_float_plain)
 
     g = torch.Generator().manual_seed(7)
-    for (n, h, w), pool in (((2, 64, 300), 4), ((1, 36, 52), 2)):
+    # The session's 1080p launch (pool 4, the strip body), a ragged last
+    # strip, and pools 2 and 8 (the per-pixel body).
+    for (n, h, w), pool in (((1, 1088, 1920), 4), ((2, 64, 300), 4),
+                            ((1, 36, 300), 4), ((1, 36, 52), 2),
+                            ((2, 64, 296), 8)):
         fr = torch.randint(0, 256, (n, h, w, 3), generator=g,
                            dtype=torch.uint8).to(dev)
         hl, wl = h // pool, w // pool
@@ -242,16 +246,61 @@ def test_composite_kernel_bit_exact(dev, mode):
                                             composite_rgba_packed_plain)
 
     g = torch.Generator().manual_seed(8)
-    n, h, w = 2, 37, 53
+    # A ragged shape (h w mod 4 != 0: groups straddle frames, a scalar
+    # tail) and the launch shapes of clip_480p and the defaults.
+    for n, h, w in ((2, 37, 53), (1, 480, 864), (1, 1088, 1920)):
+        fgr = torch.rand((n, h, w, 3), generator=g).to(dev)
+        alpha = (torch.rand((n, h, w, 1), generator=g) * 1.2 - 0.1).to(dev)
+        bg = {"color": (0.2, 0.9, 0.4), "none": None,
+              "image": torch.rand((h, w, 3), generator=g).to(dev),
+              "per_frame": torch.rand((n, h, w, 3), generator=g).to(dev)
+              }[mode]
+        before = composite_rgba_packed.launches
+        k = composite_rgba_packed(fgr, alpha, bg)
+        assert composite_rgba_packed.launches == before + 1
+        assert torch.equal(k, composite_rgba_packed_plain(fgr, alpha, bg)), \
+            (n, h, w)
+
+
+def _offset(t):
+    """t's values in a buffer one element past an aligned start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["fused_refine_float",
+                                    "composite_rgba_packed"])
+def test_tail_kernel_bodies_agree(dev, kernel):
+    """The same inputs from a buffer offset by one element take the
+    other body of the kernel: fused_refine_float's per-pixel body in
+    place of its pool-4 warp strips, composite_rgba_packed's scalar path
+    in place of its 16-byte groups. Both give the same values."""
+    from vidmat_torch.ops.composite import composite_rgba_packed
+    from vidmat_torch.ops.refine import fused_refine_float
+
+    g = torch.Generator().manual_seed(10)
+    n, h, w = 2, 68, 300
+    if kernel == "fused_refine_float":
+        fr = torch.randint(0, 256, (n, h, w, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+        a = (torch.rand((n, h // 4, w // 4, 4), generator=g) * 2
+             - 0.5).to(dev)
+        b = (torch.rand((n, h // 4, w // 4, 4), generator=g) - 0.5).to(dev)
+        strip = fused_refine_float(fr, a, b, 4)
+        pixel = fused_refine_float(_offset(fr), a, b, 4)
+        for s, p in zip(strip, pixel):
+            assert torch.equal(s, p)
+        return
     fgr = torch.rand((n, h, w, 3), generator=g).to(dev)
     alpha = (torch.rand((n, h, w, 1), generator=g) * 1.2 - 0.1).to(dev)
-    bg = {"color": (0.2, 0.9, 0.4), "none": None,
-          "image": torch.rand((h, w, 3), generator=g).to(dev),
-          "per_frame": torch.rand((n, h, w, 3), generator=g).to(dev)}[mode]
-    before = composite_rgba_packed.launches
-    k = composite_rgba_packed(fgr, alpha, bg)
-    assert composite_rgba_packed.launches == before + 1
-    assert torch.equal(k, composite_rgba_packed_plain(fgr, alpha, bg))
+    img = torch.rand((h, w, 3), generator=g).to(dev)
+    for bg in (None, (0.2, 0.9, 0.4), img, img.expand(n, -1, -1, -1)):
+        bg_o = bg if bg is None or isinstance(bg, tuple) else _offset(bg)
+        assert torch.equal(composite_rgba_packed(fgr, alpha, bg),
+                           composite_rgba_packed(_offset(fgr),
+                                                 _offset(alpha), bg_o))
 
 
 def test_guided_upsample_kernel_matches_plain(dev):

@@ -30,49 +30,63 @@ def _rng(seed):
 # ---- kernels: plain versions against the Pallas kernels ----
 
 
-def test_fused_refine_float_plain_matches_jax():
+# (n, h, w, pool): the pools the session runs (4 at ratio 0.25, 2 at 0.5)
+# and 8, and one frame whose width leaves the kernel's last warp strip
+# ragged (300 = 2 x 124 + 52).
+@pytest.mark.parametrize("n,h,w,pool", [(2, 64, 128, 4), (2, 64, 128, 2),
+                                        (2, 64, 128, 8), (1, 36, 300, 4)])
+def test_fused_refine_float_plain_matches_jax(n, h, w, pool):
     from vidmat.ops.pallas.refine_kernel import fused_refine_float as j_rf
 
     from vidmat_torch.ops.refine import fused_refine_float_plain
 
     rng = _rng(0)
-    frame = rng.randint(0, 256, (2, 64, 128, 3)).astype(np.uint8)
-    a = (rng.rand(2, 16, 32, 4) * 2 - 0.5).astype(np.float32)
-    b = (rng.rand(2, 16, 32, 4) - 0.5).astype(np.float32)
+    frame = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
+    hl, wl = h // pool, w // pool
+    a = (rng.rand(n, hl, wl, 4) * 2 - 0.5).astype(np.float32)
+    b = (rng.rand(n, hl, wl, 4) - 0.5).astype(np.float32)
     ja, jf = j_rf(jnp.asarray(frame), jnp.asarray(a), jnp.asarray(b),
-                  pool=4, interpret=True)
+                  pool=pool, interpret=True)
     ta, tf = fused_refine_float_plain(torch.from_numpy(frame),
                                       torch.from_numpy(a),
-                                      torch.from_numpy(b), 4)
-    assert ta.shape == (2, 64, 128, 1) and tf.shape == (2, 64, 128, 3)
+                                      torch.from_numpy(b), pool)
+    assert ta.shape == (n, h, w, 1) and tf.shape == (n, h, w, 3)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=0, atol=1e-5)
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=0, atol=1e-5)
 
 
+# 37x53: h w mod 4 != 0, so the kernel's 4-pixel groups straddle frames.
+# The Pallas kernel computes whole 8-row tiles only (its grid is h // 8
+# there), so every row is held to the JAX package's XLA composite, the
+# function the Pallas kernel packs, and the tiled rows to the kernel.
+@pytest.mark.parametrize("h,w", [(24, 136), (37, 53)])
 @pytest.mark.parametrize("mode", ["color", "none", "image", "per_frame"])
-def test_composite_packed_plain_matches_jax(mode):
+def test_composite_packed_plain_matches_jax(mode, h, w):
+    from vidmat.ops.composite import composite_rgba as j_rgba
     from vidmat.ops.pallas import composite_rgba_packed as j_comp
 
     from vidmat_torch.ops.composite import composite_rgba_packed_plain
 
     rng = _rng(1)
-    n, h, w = 2, 24, 136
+    n = 2
     fgr = rng.rand(n, h, w, 3).astype(np.float32)
     # Alpha slightly outside [0, 1]: the RGB term takes it unclipped.
     alpha = (rng.rand(n, h, w, 1) * 1.2 - 0.1).astype(np.float32)
     bg = {"color": np.array([0.2, 0.9, 0.4], np.float32), "none": None,
           "image": rng.rand(h, w, 3).astype(np.float32),
           "per_frame": rng.rand(n, h, w, 3).astype(np.float32)}[mode]
-    want = np.asarray(j_comp(jnp.asarray(fgr), jnp.asarray(alpha),
-                             None if bg is None else jnp.asarray(bg),
-                             interpret=True))
+    jbg = None if bg is None else jnp.asarray(bg)
+    tiled = np.asarray(j_comp(jnp.asarray(fgr), jnp.asarray(alpha), jbg,
+                              interpret=True))[:, :h // 8 * 8]
+    rgba = np.asarray(j_rgba(jnp.asarray(fgr), jnp.asarray(alpha), jbg))
     got = composite_rgba_packed_plain(
         torch.from_numpy(fgr), torch.from_numpy(alpha),
         None if bg is None else torch.from_numpy(bg))
     assert got.dtype == torch.uint32 and got.shape == (n, h, w)
-    d = np.abs(got.numpy().view(np.uint8).astype(int)
-               - want.view(np.uint8).astype(int))
-    assert d.max() == 0, (d.max(), (d > 0).sum())
+    got = got.numpy().view(np.uint8).reshape(n, h, w, 4)
+    for want in (tiled.view(np.uint8).reshape(n, -1, w, 4), rgba):
+        d = np.abs(got[:, :want.shape[1]].astype(int) - want.astype(int))
+        assert d.max() == 0, (d.max(), (d > 0).sum())
 
 
 def test_guided_upsample_matches_jax():

@@ -3,16 +3,16 @@
 // (vidmat/ops/pallas/refine_kernel.py): the half-pixel, edge-clamped
 // source index and lerps of the bilinear x pool upsample of the coarse
 // coefficient grids, rows then columns, and the luma guide of the uint8
-// frame. The float tail applies them per pixel through guided_apply. The
-// packed tail keeps its own loop (refine_composite.cu's shade, called by
-// its strip and per-pixel bodies): it row-lerps once per coarse column and
-// computes the same values in the same order with fewer instructions
-// (byte_f, add_sat, mul_sat, quant_bits, pack_rgba), so the two tails
-// agree by test, not by sharing one body: chip_smoke.py holds both to
-// their plain twins, and planar_knockouts.py --parent holds the packed
-// tail's bytes to an earlier tree's. The quantization and the color
+// frame. Both tails have a warp-strip body at pool 4 (a lane row-lerps one
+// coarse column and takes the next from its neighbour: next_lane; its
+// frame bytes come as 32-bit words: strip_luma) and a per-pixel body for
+// every other pool, width and alignment (the float tail's is
+// guided_apply). Each computes the same values in the same order, so the
+// bodies agree by test, not by sharing one: chip_smoke.py holds both
+// tails to their plain twins, and planar_knockouts.py --parent holds
+// their outputs to an earlier tree's. The quantization and the color
 // background are shared with composite.cu, so every packed word rounds
-// the same way.
+// the same way (byte_f, add_sat, mul_sat, quant_bits, pack_rgba).
 //
 // Built with --fmad=false so each product and sum is rounded on its own.
 
@@ -90,6 +90,21 @@ __device__ __forceinline__ float luma(const uint8_t* px) {
 __device__ __forceinline__ float byte_f(uint32_t w, int i) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | i)) -
          8388608.0f;
+}
+
+// The luma of pixel q (0-3, a constant) of four consecutive RGB pixels
+// whose 12 bytes are bytes 2-13 of the words fw[0..3].
+__device__ __forceinline__ float strip_luma(const uint32_t* fw, int q) {
+  return luma3(byte_f(fw[(2 + 3 * q) / 4], (2 + 3 * q) % 4),
+               byte_f(fw[(3 + 3 * q) / 4], (3 + 3 * q) % 4),
+               byte_f(fw[(4 + 3 * q) / 4], (4 + 3 * q) % 4));
+}
+
+// Lane + 1's v (lane 31 gets its own).
+__device__ __forceinline__ float4 next_lane(float4 v) {
+  const unsigned m = 0xFFFFFFFFu;
+  return make_float4(__shfl_down_sync(m, v.x, 1), __shfl_down_sync(m, v.y, 1),
+                     __shfl_down_sync(m, v.z, 1), __shfl_down_sync(m, v.w, 1));
 }
 
 // clip(a + b) and clip(a * b) to [0, 1] in one instruction each: the sum

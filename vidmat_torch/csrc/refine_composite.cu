@@ -64,6 +64,7 @@
 namespace {
 
 using refine::Bg;
+using refine::next_lane;
 
 // The background mode is a template parameter, so each mode carries none
 // of the other modes' code or registers.
@@ -159,13 +160,6 @@ __device__ __forceinline__ float4 tap3(const float* __restrict__ grid,
                                        int wl, int y, int x) {
   const float* p = grid + ((long long)y * wl + x) * 3;
   return make_float4(p[0], p[1], p[2], 0.0f);
-}
-
-// Lane + 1's v (lane 31 gets its own).
-__device__ __forceinline__ float4 next_lane(float4 v) {
-  const unsigned m = 0xFFFFFFFFu;
-  return make_float4(__shfl_down_sync(m, v.x, 1), __shfl_down_sync(m, v.y, 1),
-                     __shfl_down_sync(m, v.z, 1), __shfl_down_sync(m, v.w, 1));
 }
 
 // Pool 4, w % 4 == 0, frame 4-byte and out and bg_img 16-byte aligned.
@@ -266,10 +260,7 @@ __device__ __forceinline__ void strip_body(const Geom& g, const Args& a) {
       float lum[kPx];
 #pragma unroll
       for (int q = 0; q < kPx; ++q)
-        lum[q] = refine::luma3(
-            refine::byte_f(fw[r][(2 + 3 * q) / 4], (2 + 3 * q) % 4),
-            refine::byte_f(fw[r][(3 + 3 * q) / 4], (3 + 3 * q) % 4),
-            refine::byte_f(fw[r][(4 + 3 * q) / 4], (4 + 3 * q) % 4));
+        lum[q] = refine::strip_luma(fw[r], q);
       float im[3 * kPx];
       if constexpr (MODE == kImage) {
         // 8-byte aligned: x = 4 j + 2
