@@ -26,9 +26,12 @@ Phases (any failure exits nonzero and prints no result line):
      groups; fused_refine_composite's image and coarse modes bytes
      within +-1 at 1088x1920, on 4-frame batches with a shared and a
      per-frame image, the count of refine bytes unequal to the plain twin
-     logged per case; int8_conv within 1 int8 unit at 8x16x144x240), plus
-     ragged shapes per kernel (the planar ones at the plate family's 24
-     input channels too)
+     logged per case; int8_conv within 1 int8 unit, fewer than 1e-3 of its
+     values unequal to the plain twin (the count logged per case), at
+     8x16x144x240, on a ragged 37x53 and 20x72 (W not a multiple of 16)
+     and on 2x16x144x240 one byte off alignment: the scalar staging
+     path), plus ragged shapes per kernel (the planar ones at the plate
+     family's 24 input channels too)
   3. the serving chunk body (ingest, planar encoder, per-frame decoder,
      guided-filter coefficients, fused tail) at 1920x1088 on fast_demo in
      bf16, kernel path against the same body on the plain versions, over
@@ -79,7 +82,8 @@ Phases (any failure exits nonzero and prints no result line):
      LSB, max <= 2)
   Q. the int8 planes probe (vidmat_torch/tools/bench_int8_planes.py):
      bf16-planes (planar_conv) and int8-planes (int8_conv) ms per
-     layer-batch beside their bytes bounds
+     layer-batch beside their bytes bounds; after phase 6, the int8 leg's
+     ratio to the bf16 leg and to phase 6's cuDNN bf16 conv
   6. each kernel timed with CUDA events at the main-path shapes (L2
      flushed before every launch, the card kept busy while the host
      enqueues it), beside its bound, its plain version's
@@ -89,8 +93,9 @@ Phases (any failure exits nonzero and prints no result line):
      the main path launches them on (the kernels line carries the launch
      shape); a floor line (an empty kernel launch, and a device-to-device
      copy_ moving the bytes of the packed tail's and ingest's chunk, of
-     the float tail's 1088x1920 frame and of composite's 480x864 and
-     1088x1920 frames: what this harness reads for no work and for pure
+     the float tail's 1088x1920 frame, of composite's 480x864 and
+     1088x1920 frames and of int8_conv's 8x16x144x240 layer-batch: what
+     this harness reads for no work and for pure
      streaming), each of those rows with its ratio to its copy; for the
      tensor-core planar
      kernels also the tile edge, block count and shared memory each
@@ -463,13 +468,15 @@ def phase_bg_kernels(inputs, dev):
     coefficient grids (1088x1920, pool 4; the coarse background is the
     portrait blur of the ingested frame), an image shared by a 4-frame
     batch and one image per frame, and a ragged shape; int8_conv at the
-    probe's 8x16x144x240 and a ragged shape. Returns ({row name: max
-    |d|}, the timing inputs)."""
+    probe's 8x16x144x240, two shapes whose W is not a multiple of 16 and
+    an input one byte off alignment. Returns ({row name: max |d|}, the
+    timing inputs)."""
     import torch
 
     from vidmat_torch.ops.guided_filter import box_blur
     from vidmat_torch.ops.ingest import ingest_pool_normalize_plain
     from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
+    from vidmat_torch.ops.planar import pack_conv_weight
     from vidmat_torch.ops.refine import (fused_refine_composite,
                                          fused_refine_composite_plain)
 
@@ -511,21 +518,31 @@ def phase_bg_kernels(inputs, dev):
 
     w8 = (torch.randn((16, 16, 3, 3), generator=g) * 0.2).to(
         dev, torch.bfloat16)
-    x8 = torch.randint(-127, 128, (8, 16, 144, 240), generator=g,
-                       dtype=torch.int8).to(dev)
+    w8p = pack_conv_weight(w8)
+
+    def int8_input(shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(dev)
+
+    x8 = int8_input((8, 16, 144, 240))
     worst = 0
-    for x in (x8, torch.randint(-127, 128, (1, 16, 37, 53), generator=g,
-                                dtype=torch.int8).to(dev)):
-        d = (int8_conv(x, w8).int() - int8_conv_plain(x, w8).int()).abs()
+    for label, x in (("8x16x144x240", x8),
+                     ("ragged 1x16x37x53", int8_input((1, 16, 37, 53))),
+                     ("ragged 2x16x20x72", int8_input((2, 16, 20, 72))),
+                     ("2x16x144x240 one byte off alignment",
+                      offset_copy(int8_input((2, 16, 144, 240))))):
+        d = (int8_conv(x, w8, packed=w8p).int()
+             - int8_conv_plain(x, w8).int()).abs()
         worst = max(worst, int(d.max()))
-        log(f"    int8_conv {tuple(x.shape)}: max |d| {int(d.max())} "
-            f"int8 unit, {float((d > 0).float().mean()):.3g} of the "
-            "elements differ")
+        unequal = int((d > 0).sum())
+        log(f"    int8_conv {label}: max |d| {int(d.max())} int8 unit, "
+            f"{unequal} of {d.numel()} values unequal to the plain twin")
+        assert unequal < 1e-3 * d.numel(), (label, unequal)
     assert worst <= 1, worst
     errs["int8_conv"] = float(worst)
     torch.cuda.synchronize()
     log(f"[2] background modes and int8_conv vs plain: {json.dumps(errs)}")
-    return errs, (image, coarse, x8, w8)
+    return errs, (image, coarse, x8, w8, w8p)
 
 
 def planar_ops():
@@ -1546,7 +1563,7 @@ def tail_rows(inputs, bg_inputs, tail):
                                          fused_refine_float_plain)
 
     frame, guide, p, ma, mb = inputs
-    image, coarse_bg, x8, w8 = bg_inputs
+    image, coarse_bg, x8, w8, w8p = bg_inputs
     dev = frame.device
     chunk = torch.from_numpy(padded_clip(CHUNK, seed=12)).to(dev)
 
@@ -1612,7 +1629,7 @@ def tail_rows(inputs, bg_inputs, tail):
         # 2 ops per multiply-add against the bf16 tensor-core peak; the
         # library yardstick is cuDNN's bf16 conv without the quantization.
         "int8_conv": {"1 frame": dict(
-            kernel=lambda: int8_conv(x8, w8),
+            kernel=lambda: int8_conv(x8, w8, packed=w8p),
             plain=lambda: int8_conv_plain(x8, w8),
             library=lambda: F.conv2d(x8b, w8, None, 1, 1),
             bytes=nbytes(x8, w8, q8),
@@ -1688,7 +1705,8 @@ def phase_timing(inputs, sites, tail, bg_inputs):
                             ("ingest_pool_normalize", chunk),
                             ("fused_refine_float", "1 frame"),
                             ("composite_rgba_packed", "1 frame"),
-                            ("composite_rgba_packed 1088x1920", "1 frame"))})
+                            ("composite_rgba_packed 1088x1920", "1 frame"),
+                            ("int8_conv", "1 frame"))})
     out = {"floor": floor}
     for name, cases in rows.items():
         res = {label: time_case(case) for label, case in cases.items()}
@@ -1924,8 +1942,15 @@ def main() -> int:
     bgs = phase_backgrounds(kernels, gpu, dev)
     for name, e in bgs["e: plate_demo, planar"]["errs"].items():
         errs[name] = max(errs[name], e)
-    _, int8_launches = phase_int8_probe(kernels)
+    probe, int8_launches = phase_int8_probe(kernels)
     times = phase_timing(inputs, sites, tail, bg_inputs)
+    int8_ms = probe["int8-planes"]["ms"]
+    log(f"[Q] int8 leg {int8_ms:.4f} ms = "
+        f"{int8_ms / probe['bf16-planes']['ms']:.3f}x the bf16 leg "
+        f"({probe['bf16-planes']['ms']:.4f}), "
+        f"{int8_ms / times['int8_conv']['library_ms']:.3f}x phase 6's cuDNN "
+        f"bf16 conv of the layer ({times['int8_conv']['library_ms']:.4f}, "
+        "cold L2)")
     phase_profile(net, dev)
 
     main_path = f"convert_video, planar preset, {N_FRAMES} frames"

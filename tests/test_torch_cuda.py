@@ -169,22 +169,91 @@ def test_refine_kernel_refuses_backgrounds_it_cannot_take(dev):
             fused_refine_composite(fr, a, a, bg, 4)
 
 
+def _offset_int8(x, offset):
+    """x's values in a buffer ``offset`` bytes past an aligned start."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def test_int8_conv_kernel_matches_plain(dev):
+    """The probe's layer-batch shape, a W that is not a multiple of 16 (the
+    scalar staging path), one whose tiles are partial in both directions,
+    and an input one byte off alignment (scalar staging at the probe's
+    width)."""
     from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
+    from vidmat_torch.ops.planar import pack_conv_weight
 
     g = torch.Generator().manual_seed(11)
     w = (torch.randn((16, 16, 3, 3), generator=g) * 0.2).to(dev,
                                                              torch.bfloat16)
-    for shape in ((2, 16, 144, 240), (1, 16, 13, 37)):
-        x = torch.randint(-127, 128, shape, generator=g,
-                          dtype=torch.int8).to(dev)
-        before = int8_conv.launches
+    wp = pack_conv_weight(w)
+    for shape, offset in (((2, 16, 144, 240), 0), ((1, 16, 13, 37), 0),
+                          ((2, 16, 20, 72), 0), ((2, 16, 144, 240), 1)):
+        x = _offset_int8(torch.randint(-127, 128, shape, generator=g,
+                                       dtype=torch.int8).to(dev), offset)
+        for packed in (None, wp):
+            before = int8_conv.launches
+            k = int8_conv(x, w, packed=packed)
+            assert int8_conv.launches == before + 1
+            d = (k.int() - int8_conv_plain(x, w).int()).abs()
+            # The two sum the same exact products in another order: a tie
+            # of the requantization may round the other way.
+            assert int(d.max()) <= 1, (shape, offset)
+            assert float((d > 0).float().mean()) < 1e-3, (shape, offset)
+
+
+def _planted_int8_weights(dev):
+    """Weights whose sums are exact in every order (powers of two times
+    int8 / 64 span a few bits), so the kernel must equal the plain twin
+    bit for bit: output channels 0-1 the half-to-even pattern of
+    tests/test_torch_int8.py (1 and 0.5 at the centre of channel 0), 2
+    doubles channel 0 (the clamp at 127), 3 negates it (ReLU's zero),
+    4-12 one tap each of channel 1 (the zero padding on every border and
+    corner), 13 a quarter of channel 2's 3x3 sum (ties on sums), 14-15
+    random dyadic weights over every channel and tap."""
+    g = torch.Generator().manual_seed(5)
+    w = torch.zeros((16, 16, 3, 3))
+    w[0, 0, 1, 1] = 1.0
+    w[1, 0, 1, 1] = 0.5
+    w[2, 0, 1, 1] = 2.0
+    w[3, 0, 1, 1] = -1.0
+    for t in range(9):
+        w[4 + t, 1, t // 3, t % 3] = 1.0
+    w[13, 2] = 0.25
+    choice = torch.tensor([0.0, 1.0, -1.0, 0.5, -0.5, 0.25, -0.125])
+    w[14:] = choice[torch.randint(0, len(choice), (2, 16, 3, 3),
+                                  generator=g)]
+    return w.to(dev, torch.bfloat16)
+
+
+def test_int8_conv_kernel_bit_equal_on_planted_cases(dev):
+    """Half-to-even ties at x.5, the clamp at 127, ReLU's zero and the zero
+    padding on all four borders, where every sum is exact: equal to the
+    plain twin on both staging paths."""
+    from vidmat_torch.ops.int8_planar import int8_conv, int8_conv_plain
+
+    w = _planted_int8_weights(dev)
+    g = torch.Generator().manual_seed(6)
+    for shape, offset in (((1, 16, 37, 53), 0), ((1, 16, 40, 128), 0),
+                          ((1, 16, 40, 128), 1)):
+        x = _offset_int8(torch.randint(-127, 128, shape, generator=g,
+                                       dtype=torch.int8).to(dev), offset)
         k = int8_conv(x, w)
-        assert int8_conv.launches == before + 1
-        d = (k.int() - int8_conv_plain(x, w).int()).abs()
-        # The two sum the same exact products in another order: a tie of
-        # the requantization may round the other way.
-        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+        p = int8_conv_plain(x, w)
+        assert torch.equal(k, p), (shape, offset, int((k != p).sum()))
+        # The planted cases occur: ties, clamped values, ReLU's zeros and
+        # shifted copies whose border rows and columns are the padding.
+        x0 = x[0, 0].int()
+        assert int(((x0 % 2) != 0).sum()) > 100  # odd x: 0.5 x is a tie
+        assert int((p[0, 2] == 127).sum()) > 100
+        assert int((p[0, 3] == 0).sum()) > 100
+        x1 = torch.relu(x[0, 1].int())
+        assert torch.equal(p[0, 4, 1:, 1:].int(), x1[:-1, :-1])
+        assert int(p[0, 4, 0].abs().sum() + p[0, 4, :, 0].abs().sum()) == 0
+        assert int(p[0, 12, -1].abs().sum()
+                   + p[0, 12, :, -1].abs().sum()) == 0
 
 
 def test_plate_session_kernels_match_plain(dev):

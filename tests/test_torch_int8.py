@@ -43,7 +43,7 @@ def _jax_int8_layer(xq, taps):
     return np.stack(outs)
 
 
-@pytest.mark.parametrize("shape", [(2, 20, 36), (1, 13, 37)])
+@pytest.mark.parametrize("shape", [(2, 20, 36), (1, 13, 37), (1, 24, 240)])
 def test_int8_conv_plain_matches_probe_math(shape):
     n, h, w = shape
     rng = np.random.RandomState(0)
@@ -85,6 +85,41 @@ def test_int8_conv_wrapper_takes_the_plain_version_on_cpu():
     before = int8_conv.launches
     assert torch.equal(int8_conv(x, w), int8_conv_plain(x, w))
     assert int8_conv.launches == before
+
+
+def test_int8_conv_packed_route_matches_unpacked_on_cpu():
+    """The packed weights the kernel reads (pack_conv_weight's layout) give
+    the layer the (16, 16, 3, 3) weights give: on the CPU the wrapper
+    unpacks them, and weights of another layer change the result."""
+    from vidmat_torch.ops.int8_planar import unpack_conv_weight
+    from vidmat_torch.ops.planar import pack_conv_weight
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(-127, 128, (2, 16, 11, 32), generator=g,
+                      dtype=torch.int8)
+    w = (torch.randn((16, 16, 3, 3), generator=g) * 0.2).to(torch.bfloat16)
+    packed = pack_conv_weight(w)
+    assert torch.equal(unpack_conv_weight(packed), w)
+    want = int8_conv(x, w)
+    assert torch.equal(int8_conv(x, w, packed=packed), want)
+    other = pack_conv_weight(w.flip(-1).contiguous())
+    assert not torch.equal(int8_conv(x, w, packed=other), want)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "offset"])
+def test_int8_conv_refuses_packed_weights_it_cannot_read(bad):
+    from vidmat_torch.ops.planar import pack_conv_weight
+
+    w = torch.zeros((16, 16, 3, 3), dtype=torch.bfloat16)
+    packed = pack_conv_weight(w)
+    packed = {"shape": packed[:, :144].contiguous(),
+              "dtype": packed.float(),
+              "offset": torch.zeros(packed.numel() + 1,
+                                    dtype=torch.bfloat16)[1:].view(
+                                        packed.shape)}[bad]
+    x = torch.zeros((1, 16, 4, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="pack_conv_weight"):
+        int8_conv(x, w, packed=packed)
 
 
 def test_probe_layers_and_weights():

@@ -10,8 +10,9 @@ convs at the 1080p serving net's level-0 grid (144x240) over a batch of
   bf16-planes  planar_conv on bf16 planes (the port's tensor-core CUDA
                kernel, scale 1, bias 0, ReLU), the layer the planar net
                runs
-  int8-planes  int8_conv (csrc/int8_conv.cu): int8 in, dequantize, the
-               same conv and ReLU, requantize to int8 (q = 64)
+  int8-planes  int8_conv (csrc/int8_conv.cu, the same bf16 tensor-core
+               implicit GEMM): int8 in, dequantize, the same conv and
+               ReLU, requantize to int8 (q = 64)
 
 Per-layer time = (time of the long chain - time of the short chain) /
 (long - short), timed with CUDA events, the variants' samples interleaved
@@ -56,7 +57,7 @@ def variants(batch: int = 8, device="cuda"):
     return {
         "bf16-planes": (lambda x: planar_conv([x], w, ones, zeros, 1, "relu",
                                               wp), x0.to(torch.bfloat16)),
-        "int8-planes": (lambda x: int8_conv(x, w),
+        "int8-planes": (lambda x: int8_conv(x, w, packed=wp),
                         torch.round(x0 * Q).clamp(-127, 127).to(torch.int8)),
     }
 
