@@ -38,12 +38,15 @@ Phases (any failure exits nonzero and prints no result line):
      8 recurrent frames (alpha bytes: mean |d| <= 0.5 LSB, max <= 2); then
      the fp32 body on the card against the CPU at 128x192
   4. the main path: convert_video on 64 synthetic 1920x1080 frames on the
-     planar preset (chunk 4); launch counts are set to 0 just before and
-     read just after (planar_conv 32, planar_conv2 112, planar_conv_gru
-     192, ingest / GF / refine 16 each); alpha MAD against the fixture's
-     ground truth held within 5e-3 of the JAX package's MAD on the same
-     clip. Then the conv_impl="xla" path on 16 frames (its three kernels
-     launch, the planar ones do not)
+     planar preset (chunk 4: the first chunk through the eager chunk
+     body, then one CUDA graph launch per chunk); launch counts are set to
+     0 just before and read just after (planar_conv 32, planar_conv2 112,
+     planar_conv_gru 192, ingest / GF / refine 16 each: the graph's
+     replays count the launches they make); alpha MAD against the
+     fixture's ground truth held within 5e-3 of the JAX package's MAD on
+     the same clip; every alpha byte equal to the eager chunk body's on
+     the same frames. Then the conv_impl="xla" path on 16 frames (its
+     three kernels launch, the planar ones do not)
   5. the unfused planar network (fuse_pairs=False: planar_conv pairs,
      planar_conv + planar_gru stages) at 1080p over 4 frames against the
      fused one; planar_gru launches
@@ -101,10 +104,23 @@ Phases (any failure exits nonzero and prints no result line):
      kernels also the tile edge, block count and shared memory each
      site's launch chose
   7. where a frame's time goes on the planar chunk body: host time per
-     stage, the body's wall time, device time by kernel group, by kernel
-     (the body's six: ingest, GF, refine and the three tensor-core planar
-     kernels, each required) and by kernel file (torch.profiler); checks
-     that the planar body launches no library convolution or GEMM
+     stage (pad and stage, H2D, body or replay enqueue, D2H wait) for the
+     eager body with the old staging (numpy pad and concatenation, a
+     pinned copy and a pinned output per chunk) and for the graph with the
+     pipeline's staging, in turns; the body's wall time, eager and
+     replayed; device time by kernel group, by kernel (the body's six:
+     ingest, GF, refine and the three tensor-core planar kernels, each
+     required) and by kernel file (torch.profiler); checks that the planar
+     body launches no library convolution or GEMM; fps of the old loop
+     against convert_video on 64 frames in turns; the device's busy share
+     under VideoPipeline.run and under the old loop (profiler device time
+     over the run's wall time)
+  I. matte_image at 512x512 (preset_pr1_image) for the base, trimap and
+     plate families and a mask, card against CPU (MAD <= 1e-4) under
+     PyTorch's default flags, ms per image; the fp32 repair (the session's
+     parity mode card against CPU, max |d| <= 1e-4, with TF32 left
+     allowed logged beside it)
+  T. bench_torch.py's 1080p, 480p and e2e records
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -146,6 +162,7 @@ JAX_REFERENCE_MAD_480P = 0.00030
 CLIP_MAD_TOL = 1e-4
 SESSION_FRAMES = 16
 CHUNK = 4
+IMAGE_SIZE = 512  # the preset_pr1_image rung
 # The planar kernels' call sites on the main path, in call order: the
 # encoder per 4-frame chunk, the decoder and full-res stage per frame.
 SITES = [("stem", "conv"), ("s2", "conv2"), ("s3", "conv2"), ("s4", "conv2"),
@@ -793,9 +810,36 @@ MAIN_PATH_LAUNCHES = {
     "planar_conv_gru": 192, "planar_gru": 0}
 
 
-def phase_main_path(kernels):
+def eager_chunk_alphas(net, frames):
+    """Alpha bytes of the eager chunk body (alpha-only, the main path's
+    plan) over ``frames`` (a multiple of 4) on the card, cropped to the
+    source frame: what the graph's replays are held to."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch.config import preset_video_1080p
+    from vidmat_torch.io.reader import pad_frame
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+    mcfg, pcfg = preset_video_1080p()
+    _, plan = build_serving_body(net, mcfg, pcfg.refine, H, W, RATIO,
+                                 alpha_only=True)
+    st = plan.make_state(1)
+    outs = []
+    for c in range(0, len(frames), CHUNK):
+        x = torch.from_numpy(np.concatenate(
+            [pad_frame(f, H, W) for f in frames[c:c + CHUNK]])).to(
+                torch.device("cuda"))
+        o, st = plan.chunk_body(x, st)
+        outs.append(o[:, :FRAME_H, :FRAME_W].cpu().numpy())
+    return np.concatenate(outs)
+
+
+def phase_main_path(kernels, net):
     """convert_video on 64 synthetic 1920x1080 frames: the main path
-    (planar preset, chunk 4); then the conv_impl="xla" path on 16."""
+    (planar preset, chunk 4: the first chunk eager, then one CUDA graph
+    launch per chunk); every alpha byte against the eager chunk body's;
+    then the conv_impl="xla" path on 16."""
     import numpy as np
 
     from vidmat_torch import convert_video, preset_video_1080p
@@ -808,24 +852,30 @@ def phase_main_path(kernels):
                   **preset)  # warm-up
     alphas = []
     zero_counts(kernels)
-    m = convert_video(frames, output_alpha=lambda a: alphas.append(a.copy()),
-                      **preset)
+    m = convert_video(frames, output_alpha=alphas.append, **preset)
     launches = counts(kernels)
     bench = convert_video(frames, **preset)  # packed words D2H
     assert m["frames"] == N_FRAMES and len(alphas) == N_FRAMES, m
     assert alphas[0].shape == (FRAME_H, FRAME_W)
+    assert m["graph_capture_ms"] > 0, m
     alpha_mad = float(np.mean([mad(a.astype(np.float32) / 255.0, g)
                                for a, g in zip(alphas, gt)]))
+    eager = eager_chunk_alphas(net, frames)
+    unequal = int((np.stack(alphas) != eager).sum())
     log(f"[4] convert_video {N_FRAMES}x{FRAME_W}x{FRAME_H} alpha-only, "
-        f"planar preset: fps {m['fps']:.2f}, p50 {m['p50_ms']:.3f} ms "
-        f"({m.get('latency_granularity', 'per-frame')}), "
-        f"alpha MAD vs ground truth {alpha_mad:.5f} (JAX reference "
-        f"{JAX_REFERENCE_MAD}); launches {launches}")
+        f"planar preset (graph replays): fps {m['fps']:.2f}, p50 "
+        f"{m['p50_ms']:.3f} ms ({m.get('latency_granularity', 'per-frame')})"
+        f", set-up {m['setup_ms']:.1f} ms of which graph capture "
+        f"{m['graph_capture_ms']:.1f} ms (both in the first observation, "
+        f"so in fps), alpha MAD vs ground truth {alpha_mad:.5f} (JAX reference "
+        f"{JAX_REFERENCE_MAD}); launches {launches}; alpha bytes unequal "
+        f"to the eager chunk body's: {unequal} of {eager.size}")
     log(f"    benchmark mode (packed RGBA D2H): fps {bench['fps']:.2f}, "
         f"p50 {bench['p50_ms']:.3f} ms")
     assert launches == dict(MAIN_PATH_LAUNCHES, fused_refine_float=0,
                             composite_rgba_packed=0, int8_conv=0), launches
     assert abs(alpha_mad - JAX_REFERENCE_MAD) <= 5e-3, alpha_mad
+    assert unequal == 0, unequal
 
     # Slice 1's configuration: the net as F.conv2d, the three other
     # kernels still on the path.
@@ -1260,7 +1310,7 @@ def phase_backgrounds(kernels, gpu, dev):
     from vidmat_torch.models.weights import (build_network,
                                              default_variables,
                                              plate_default_config)
-    from vidmat_torch.pipeline.video import _Transfers
+    from vidmat_torch.pipeline.video import Uploads
     from vidmat_torch.utils.metrics import mad
 
     refine = next(fn for fn in kernels
@@ -1308,13 +1358,14 @@ def phase_backgrounds(kernels, gpu, dev):
         bg_video=video)
     assert res["b: bg_video"]["modes"] == {"image": n}
     # H2D of one float32 background (the JAX package sends float32 too)
-    # against the frame time of the bg_video run.
-    xfer = _Transfers(dev)
-    xfer.to_device(bgs[0])
+    # through the pipeline's staging, against the frame time of the
+    # bg_video run.
+    up = Uploads((1, H, W, 3), torch.float32, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b in bgs:
-        xfer.to_device(b)
+        up.slot().copy_(torch.from_numpy(b))
+        up.send(1)
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3 / n
     frame_ms = 1e3 / res["b: bg_video"]["fps"]
@@ -1787,42 +1838,245 @@ PORT_KERNELS = {"ingest_kernel": "ingest.cu", "gf_kernel": "gf_coeffs.cu",
                 "planar_conv_kernel": "planar_conv.cu",
                 "planar_conv2_kernel": "planar_conv2.cu",
                 "planar_gru_kernel": "planar_gru.cu"}
+# The kernel each wrapper of the chunk body launches (one per call).
+WRAPPER_KERNEL = {"ingest_pool_normalize": "ingest_kernel",
+                  "guided_filter_coeffs": "gf_kernel",
+                  "fused_refine_composite": "refine_composite_kernel",
+                  "planar_conv": "planar_conv_kernel_mma",
+                  "planar_conv2": "planar_conv2_kernel_mma",
+                  "planar_conv_gru": "planar_gru_kernel_mma"}
 LIBRARY_CONV = ("conv", "cudnn", "xmma", "gemm", "implicit", "wgrad",
                 "dgrad", "nchwtonhwc", "nhwctonchw", "cutlass")
 
 
-def phase_profile(net, dev):
-    """Where a frame's time goes on the planar chunk body: host time of
-    each pipeline stage, wall time of the body alone, device time by
-    kernel group from torch.profiler (full table in
-    chiprun_out/chip_smoke/profile.txt). Fails if the planar body launches
-    a library convolution or GEMM (the port's net runs on its own
-    kernels)."""
+class OldTransfers:
+    """The pipeline's staging before its host side was rebuilt (its
+    former ``_Transfers``): each chunk copied into freshly pinned memory
+    and a pinned output allocated per call. Phase 7's yardstick only."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def to_device(self, arr):
+        import numpy as np
+        import torch
+
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def to_host(out):
+        import torch
+
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    @staticmethod
+    def wait(handle):
+        host, ev = handle
+        ev.synchronize()
+        return host.numpy()
+
+
+def old_convert(make_net, make_plan, frames, dev):
+    """The loop convert_video ran before the native staging and the chunk
+    graph, on the chunk body, alpha-only: numpy edge pad per frame, a
+    concatenation and a pinned copy per chunk, the eager chunk body, a
+    pinned output per chunk waited one chunk later, each frame's alpha
+    handed to a sink that drops it. make_net() builds the network (what
+    VideoPipeline.__init__ does), make_plan(net) the bucket's plan (what
+    run() does before its first chunk). Returns fps over run()'s window
+    (from before the plan is built to the last chunk's observation, as
+    convert_video's fps) and over the whole call (``wall_fps``)."""
+    import numpy as np
+
+    from vidmat_torch.io.reader import pad_frame
+
+    def flush(handle):
+        for a in xfer.wait(handle):
+            sink(a[:FRAME_H, :FRAME_W])
+
+    def sink(a):
+        pass
+
+    xfer = OldTransfers(dev)
+    t0 = time.perf_counter()
+    net = make_net()
+    t1 = t_last = time.perf_counter()
+    plan = None
+    pending = None
+    buf = []
+    for f in frames:
+        if plan is None:
+            plan = make_plan(net)
+            st = plan.make_state(1)
+        buf.append(pad_frame(f, H, W))
+        if len(buf) < CHUNK:
+            continue
+        out, st = plan.chunk_body(xfer.to_device(np.concatenate(buf)), st)
+        buf = []
+        handle = xfer.to_host(out)
+        if pending is not None:
+            flush(pending)
+        pending = handle
+        t_last = time.perf_counter()
+    flush(pending)
+    t_end = time.perf_counter()
+    return dict(fps=len(frames) / (t_last - t1),
+                wall_fps=len(frames) / (t_end - t0))
+
+
+def device_ms(prof, by_kernel=None):
+    """Device time (ms) in a profiler window: kernels, and copies (the
+    memcpy and memset events), summed over the window."""
+    import torch
+
+    kern = copy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
+            copy += ms
+        else:
+            kern += ms
+            ours = next((o for o in PORT_KERNELS if o in ev.key), None)
+            if by_kernel is not None and ours:
+                by_kernel[ours] = by_kernel.get(ours, 0.0) + ms
+    return kern, copy
+
+
+def settle():
+    """Wait for the device, then 50 ms more. Inside a profiler window,
+    before and after the work it reads: device events near the window's
+    edges can go unrecorded (phase 7 once lost the first 1.3 of 4 graph
+    replays' kernels from a window opened right before them)."""
+    import torch
+
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+def kernel_invocations(prof):
+    """Invocations of each port kernel (PORT_KERNELS' keys) in a profiler
+    window, as the device recorded them."""
+    import torch
+
+    seen = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ours = next((o for o in PORT_KERNELS if o in ev.key), None)
+        if ours:
+            seen[ours] = seen.get(ours, 0) + ev.count
+    return seen
+
+
+def staging_rates():
+    """Host copy rates behind the pipeline's staging on this machine: one
+    1080p frame (6.2 MB) edge-padded by pad_into into a pinned and into a
+    pageable (1088, 1920, 3) buffer; the same frame copied by numpy (one
+    thread) and by PyTorch (its intra-op threads) into each, and by
+    PyTorch with its 8 edge rows filled by a second copy_ (the same
+    padding as pad_into at this size); an owned copy of one 2.1 MB alpha
+    frame by numpy and by PyTorch. Median ms of 20 calls."""
     import numpy as np
     import torch
 
+    from vidmat_torch.io.native import pad_into
+
+    frame = clip(1, seed=9)[0][0]
+    alpha = np.ascontiguousarray(frame[..., 0])
+    pinned = torch.empty((H, W, 3), dtype=torch.uint8, pin_memory=True)
+    bufs = {"pinned": pinned, "pageable": torch.empty((H, W, 3),
+                                                      dtype=torch.uint8)}
+    src = torch.from_numpy(frame)
+
+    def ms(fn):
+        fn()
+        t = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            t.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(t))
+
+    rows = {}
+    for name, buf in bufs.items():
+        arr = buf.numpy()
+        rows[f"pad_into {name}"] = ms(lambda: pad_into(frame, arr))
+        rows[f"numpy copy {name}"] = ms(
+            lambda: np.copyto(arr[:FRAME_H], frame))
+        rows[f"torch copy_ {name}"] = ms(lambda: buf[:FRAME_H].copy_(src))
+        rows[f"torch copy_ + edge rows {name}"] = ms(lambda: (
+            buf[:FRAME_H].copy_(src),
+            buf[FRAME_H:].copy_(buf[FRAME_H - 1:FRAME_H].expand(
+                H - FRAME_H, W, 3))))
+    rows["owned alpha copy numpy"] = ms(lambda: np.array(alpha))
+    rows["owned alpha copy torch"] = ms(
+        lambda: torch.from_numpy(alpha).clone())
+    log(f"    staging rates (1080p frame {frame.nbytes / 1e6:.1f} MB; "
+        f"torch intra-op threads {torch.get_num_threads()}, os.cpu_count "
+        f"{os.cpu_count()}), median ms: " + "; ".join(
+            f"{k} {v:.3f}" for k, v in rows.items()))
+    return rows
+
+
+def phase_profile(net, dev):
+    """Where a frame's time goes on the planar chunk body. (a) Host time of
+    each stage, each waited, over 8 chunks: the eager chunk body with the
+    old staging (numpy pad and concatenation, a pinned copy and a pinned
+    output per chunk) against the graph with the pipeline's staging
+    (pad_into into a reused pinned chunk, one H2D, one replay, D2H into a
+    reused pinned buffer). (b) Wall time of the body alone on
+    device-resident chunks, eager and as graph replays, and device time by
+    kernel group and kernel from torch.profiler (full table in
+    chiprun_out/chip_smoke/profile.txt); fails if the planar body launches
+    a library convolution or GEMM, or if the port kernels the device ran
+    in 4 graph replays differ from the launches the wrappers book for
+    them. (c) fps of the old loop against convert_video over the same 64
+    frames, in turns (old, new, new, old), each building its network and
+    bucket (and the new one capturing its graph) in the call: over run()'s
+    window and over the whole call.
+    (d) The device's busy share under VideoPipeline.run (what
+    convert_video runs, its graph captured by a warm run) and under the
+    old loop: device time from the profiler over the run / the run's
+    wall time."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch import convert_video
     from vidmat_torch.config import preset_video_1080p
+    from vidmat_torch.io.native import pad_into
     from vidmat_torch.io.reader import pad_frame
+    from vidmat_torch.models.weights import build_network, default_variables
+    from vidmat_torch.pipeline.graph import ChunkGraph
     from vidmat_torch.pipeline.stepfactory import build_serving_body
-    from vidmat_torch.pipeline.video import _Transfers
+    from vidmat_torch.pipeline.video import Downloads, Uploads, VideoPipeline
 
     mcfg, pcfg = preset_video_1080p()
     _, plan = build_serving_body(net, mcfg, pcfg.refine, H, W, RATIO,
                                  alpha_only=True)
     body = plan.chunk_body
     frames = clip(CHUNK, seed=3)[0]
-    xfer = _Transfers(dev)
+    xfer = OldTransfers(dev)
     n = 8  # chunks
     st = plan.make_state(1)
     host = np.concatenate([pad_frame(f, H, W) for f in frames])
     dev_chunk = xfer.to_device(host)
     for _ in range(2):
         _, st = body(dev_chunk, st)
+    up, outs = Uploads((CHUNK, H, W, 3), torch.uint8, dev), Downloads(
+        CHUNK, dev)
+    up.dev.copy_(dev_chunk)
+    graph = ChunkGraph(body, up.dev, plan.make_state(1))
     torch.cuda.synchronize()
 
-    t = {"pad": 0.0, "h2d": 0.0, "body": 0.0, "d2h": 0.0}
-    t0 = time.perf_counter()
-    for _ in range(n):
+    def old_chunk(t):
+        nonlocal st
         a = time.perf_counter()
         hc = np.concatenate([pad_frame(f, H, W) for f in frames])
         b = time.perf_counter()
@@ -1832,24 +2086,82 @@ def phase_profile(net, dev):
         d = time.perf_counter()
         xfer.wait(xfer.to_host(out))
         e = time.perf_counter()
-        t["pad"] += b - a
-        t["h2d"] += c - b
-        t["body"] += d - c
-        t["d2h"] += e - d
+        for k, v in zip(t, (b - a, c - b, d - c, e - d)):
+            t[k] += v
+
+    gst = graph.state
+
+    def new_chunk(t):
+        nonlocal gst
+        a = time.perf_counter()
+        slot = up.slot().numpy()
+        for i, f in enumerate(frames):
+            pad_into(f, slot[i])
+        b = time.perf_counter()
+        up.send(CHUNK)
+        c = time.perf_counter()
+        out, gst = graph(gst)
+        d = time.perf_counter()
+        i = outs.open(out)
+        outs.put(i, 0, out)
+        handle = outs.close(i, CHUNK, False)
+        outs.read(handle)
+        outs.release(handle)
+        e = time.perf_counter()
+        for k, v in zip(t, (b - a, c - b, d - c, e - d)):
+            t[k] += v
+
+    rates = staging_rates()
     per = 1e3 / (n * CHUNK)
-    seq = (time.perf_counter() - t0) * per
+    split = {}
+    for name, fn in (("old", old_chunk), ("new", new_chunk),
+                     ("new ", new_chunk), ("old ", old_chunk)):
+        t = {"pad": 0.0, "h2d": 0.0, "body": 0.0, "d2h": 0.0}
+        fn(dict(t))  # one unrecorded chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(t)
+        seq = (time.perf_counter() - t0) * per
+        split.setdefault(name.strip(), []).append(
+            dict({k: v * per for k, v in t.items()}, seq=seq))
+    for name, label, stages in (
+            ("old", "eager body, old staging", ("numpy pad + concatenate",
+                                                "H2D enqueue (pin + copy)",
+                                                "body enqueue",
+                                                "D2H wait")),
+            ("new", "graph, pipeline staging", ("pad_into pinned slots",
+                                                "H2D enqueue",
+                                                "replay enqueue",
+                                                "D2H wait"))):
+        for r in split[name]:
+            log(f"[7] per frame, chunk {CHUNK}, {label}, sequential (each "
+                f"stage waited): {r['seq']:.3f} ms = " + " + ".join(
+                    f"{lab} {r[k]:.3f}" for lab, k in zip(
+                        stages, ("pad", "h2d", "body", "d2h"))))
+
+    # (b) the body alone on a device-resident chunk
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         _, st = body(dev_chunk, st)
     torch.cuda.synchronize()
     body_only = (time.perf_counter() - t0) * per
+    up.dev.copy_(dev_chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _, gst = graph(gst)
+    torch.cuda.synchronize()
+    graph_only = (time.perf_counter() - t0) * per
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        settle()
         for _ in range(4):
             _, st = body(dev_chunk, st)
-        torch.cuda.synchronize()
+        settle()
     avgs = prof.key_averages()
     with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
         f.write(avgs.table(sort_by="cuda_time_total", row_limit=60))
@@ -1873,14 +2185,29 @@ def phase_profile(net, dev):
         else:
             groups["other"] += ms
     dev_ms = sum(groups.values())
-    log(f"[7] per frame, chunk {CHUNK}, sequential (pad, H2D, body, D2H "
-        f"each waited): {seq:.3f} ms = pad {t['pad'] * per:.3f} + H2D "
-        f"enqueue {t['h2d'] * per:.3f} + body enqueue "
-        f"{t['body'] * per:.3f} + D2H wait {t['d2h'] * per:.3f}")
-    log(f"    body alone on device-resident chunks: {body_only:.3f} "
-        f"ms/frame wall; device kernels {dev_ms:.3f} ms/frame (busy "
-        f"{100 * dev_ms / body_only:.1f}% of the body's wall): "
+    with torch.profiler.profile(activities=acts) as gprof:
+        settle()
+        for _ in range(4):
+            _, gst = graph(gst)
+        settle()
+    g_kernels = {}
+    g_kern, _ = device_ms(gprof, g_kernels)
+    g_kern /= 4 * CHUNK
+    # The launch counts the wrappers book per replay, held to the kernels
+    # the device ran in the 4 replays.
+    booked = {WRAPPER_KERNEL[fn.__name__]: 4 * k
+              for fn, k, _ in graph.per_replay}
+    ran = kernel_invocations(gprof)
+    log(f"    body alone on device-resident chunks: eager {body_only:.3f} "
+        f"ms/frame wall, graph replays {graph_only:.3f} ms/frame wall; "
+        f"device kernels (eager) {dev_ms:.3f} ms/frame (busy "
+        f"{100 * dev_ms / body_only:.1f}% of the eager body's wall, "
+        f"{100 * dev_ms / graph_only:.1f}% of the replays'): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+    log(f"    graph replays under the profiler: device kernels "
+        f"{g_kern:.3f} ms/frame; port kernel invocations in 4 replays "
+        f"{dict(sorted(ran.items()))}, booked by the wrappers "
+        f"{dict(sorted(booked.items()))}")
     log("    port kernels per frame: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in sorted(by_kernel.items())))
     log("    port kernels per frame by file: " + ", ".join(
@@ -1888,9 +2215,214 @@ def phase_profile(net, dev):
     assert dev_ms > 0, "the profiler saw no device time"
     assert not library, f"library convolutions on the planar body: {library}"
     assert all(k in by_kernel for k in list(PORT_KERNELS)[:6]), by_kernel
+    assert set(booked) == set(list(PORT_KERNELS)[:6]), booked
+    assert ran == booked, (ran, booked)
+
+    # (c) the old loop against convert_video, in turns. Both build their
+    # network and bucket in the call: fps over run()'s window (set-up, and
+    # on the new side the graph capture, in the first observation) and
+    # over the whole call.
+    clip64 = clip(N_FRAMES, seed=0)[0]
+    preset = dict(zip(("model_cfg", "pipe_cfg"), preset_video_1080p()))
+
+    def make_net():
+        return build_network(mcfg, default_variables(mcfg),
+                             dtype=torch.bfloat16, device=dev)
+
+    def make_plan(net_):
+        return build_serving_body(net_, mcfg, pcfg.refine, H, W, RATIO,
+                                  alpha_only=True)[1]
+
+    old_convert(lambda: net, lambda _: plan, clip64[:8], dev)  # warm-up
+    fps = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        if name == "old":
+            fps[name].append(old_convert(make_net, make_plan, clip64, dev))
+        else:
+            t0 = time.perf_counter()
+            m = convert_video(clip64, output_alpha=lambda a: None, **preset)
+            fps[name].append(dict(
+                fps=m["fps"], wall_fps=N_FRAMES / (time.perf_counter() - t0),
+                setup_ms=m["setup_ms"],
+                graph_capture_ms=m["graph_capture_ms"]))
+    ratio = {k: float(np.median([r[k] for r in fps["new"]])
+                      / np.median([r[k] for r in fps["old"]]))
+             for k in ("fps", "wall_fps")}
+    log(f"    {N_FRAMES} frames alpha-only, in turns old/new/new/old, fps "
+        f"(run()'s window, set-up in it) / fps of the whole call: old loop "
+        f"(eager body, old staging) " + ", ".join(
+            f"{r['fps']:.2f} / {r['wall_fps']:.2f}" for r in fps["old"])
+        + "; convert_video (graph, pipeline staging) " + ", ".join(
+            f"{r['fps']:.2f} / {r['wall_fps']:.2f} (set-up "
+            f"{r['setup_ms']:.1f} ms, of which capture "
+            f"{r['graph_capture_ms']:.1f})" for r in fps["new"])
+        + f"; ratio of medians {ratio['fps']:.2f}x (window), "
+        f"{ratio['wall_fps']:.2f}x (whole call)")
+
+    # (d) the device's busy share under the run
+    pipe = VideoPipeline(**preset, device=dev)
+    pipe.run(clip64[:8], output_alpha=lambda a: None)  # builds, captures
+    busy = {}
+    for name, run in (
+            ("convert_video", lambda: pipe.run(clip64,
+                                               output_alpha=lambda a: None)),
+            ("old loop", lambda: old_convert(lambda: net, lambda _: plan,
+                                             clip64, dev))):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as rprof:
+            settle()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            settle()
+        kern, copy = device_ms(rprof)
+        busy[name] = dict(wall_ms=wall, kernels_ms=kern, copies_ms=copy,
+                          busy=(kern + copy) / wall)
+        log(f"    busy share under {name} ({N_FRAMES} frames, profiler "
+            f"on): wall {wall:.1f} ms, device kernels {kern:.1f} ms + "
+            f"copies {copy:.1f} ms = {100 * (kern + copy) / wall:.1f}% "
+            f"busy ({100 * kern / wall:.1f}% in kernels)")
     with open(os.path.join(OUT_DIR, "profile_by_file.json"), "w") as f:
         json.dump(dict(by_file=by_file, groups=groups, body_ms=body_only,
-                       seq_ms=seq), f, indent=1)
+                       graph_body_ms=graph_only, split=split, fps=fps,
+                       busy=busy, staging_rates=rates), f, indent=1)
+
+
+def phase_image(dev):
+    """matte_image at 512x512 (the preset_pr1_image rung: float32, full
+    resolution, no refinement) on the card for the base, trimap and plate
+    families and a rough mask, each against the same call on the CPU
+    (alpha and fgr MAD <= 1e-4), under PyTorch's default flags (cuDNN may
+    take TF32; the port scopes its fp32 paths to full float32); ms per
+    image through matte_image (weights loaded and the net built per call)
+    and through a built ImageStepper. Then the fp32 repair:
+    MattingSession(128, 192, dtype="float32") on the card against the CPU
+    over 4 frames (max |d| <= 1e-4), with the port's scope and, logged
+    beside it, with the scope removed (TF32 allowed)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vidmat_torch import (MattingSession, ModelConfig, matte_image,
+                              preset_pr1_image)
+    from vidmat_torch import _device
+    from vidmat_torch.io.fixtures import (synthetic_frame,
+                                          synthetic_frames_only,
+                                          synthetic_plate_frame)
+    from vidmat_torch.models.weights import plate_default_config
+    from vidmat_torch.pipeline.stepper import ImageStepper
+    from vidmat_torch.pipeline.trimap import trimap_from_mask
+
+    _, pcfg = preset_pr1_image()
+    assert pcfg.dtype == "float32" and pcfg.refine.mode == "none"
+    s = IMAGE_SIZE
+    frame, gt = synthetic_frame(s, s, 0.3, seed=21)
+    mask = np.where(gt[..., 0] > 0.5, 255, 0).astype(np.uint8)
+    pframe, _, plate = synthetic_plate_frame(s, s, 0.2, seed=22)
+    tri_cfg = ModelConfig(recurrent=False, use_trimap=True)
+    cases = {
+        "synthetic_demo": (frame, {}, ModelConfig()),
+        "trimap_demo, trimap": (frame, dict(trimap=trimap_from_mask(mask)),
+                                tri_cfg),
+        "trimap_demo, mask": (frame, dict(mask=mask), tri_cfg),
+        "plate_demo": (pframe, dict(bg_plate=plate), plate_default_config()),
+    }
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False  # PyTorch's defaults
+    res = {}
+    try:
+        for name, (img, kw, cfg) in cases.items():
+            ca, cf = matte_image(img, device="cpu", **kw)
+            ga, gf = matte_image(img, **kw)
+            stepper = ImageStepper(cfg, device=dev)
+            step_kw = dict(kw)
+            if "mask" in step_kw:
+                step_kw = dict(trimap=trimap_from_mask(step_kw.pop("mask")))
+            stepper(img, **step_kw)
+            t_call, t_step = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                matte_image(img, **kw)
+                t1 = time.perf_counter()
+                stepper(img, **step_kw)
+                t_step.append(time.perf_counter() - t1)
+                t_call.append(t1 - t0)
+            d_a, d_f = np.abs(ga - ca), np.abs(gf - cf)
+            res[name] = dict(mad_alpha=float(d_a.mean()),
+                             mad_fgr=float(d_f.mean()),
+                             max_alpha=float(d_a.max()),
+                             max_fgr=float(d_f.max()),
+                             ms_call=1e3 * float(np.median(t_call)),
+                             ms_stepper=1e3 * float(np.median(t_step)))
+            r = res[name]
+            log(f"[I] matte_image {s}x{s} {name}: card vs CPU alpha MAD "
+                f"{r['mad_alpha']:.3g} (max {r['max_alpha']:.3g}), fgr MAD "
+                f"{r['mad_fgr']:.3g} (max {r['max_fgr']:.3g}); "
+                f"{r['ms_call']:.2f} ms per call, {r['ms_stepper']:.2f} ms "
+                "per image on a built ImageStepper (H2D, forward, D2H)")
+            assert ga.shape == (s, s, 1) and gf.shape == (s, s, 3)
+            assert r["mad_alpha"] <= 1e-4 and r["mad_fgr"] <= 1e-4, (name, r)
+            if "trimap" in name:
+                tri = trimap_from_mask(mask)
+                assert (ga[tri >= 0.75] == 1).all() and (
+                    ga[tri <= 0.25] == 0).all()
+
+        frames = list(synthetic_frames_only(128, 192, 4, seed=23))
+        ref = MattingSession(128, 192, dtype="float32", device="cpu")
+        want = [ref.step(f) for f in frames]
+
+        def worst():
+            sess = MattingSession(128, 192, dtype="float32", device=dev)
+            d = [0.0, 0.0]
+            for f, w in zip(frames, want):
+                for j, (a, b) in enumerate(zip(sess.step(f), w)):
+                    d[j] = max(d[j], float(np.abs(a - b).max()))
+            return d
+
+        scoped = worst()
+        full_fp32 = _device.full_fp32
+        _device.full_fp32 = contextlib.nullcontext
+        try:
+            tf32 = worst()
+        finally:
+            _device.full_fp32 = full_fp32
+        log(f"    fp32 repair: MattingSession(128, 192, float32) card vs "
+            f"CPU, 4 frames, max |d| alpha / fgr: full float32 (the port's "
+            f"scope) {scoped[0]:.3g} / {scoped[1]:.3g}; TF32 allowed (scope "
+            f"removed) {tf32[0]:.3g} / {tf32[1]:.3g}; process flags after: "
+            f"cudnn.allow_tf32={cudnn.allow_tf32}, "
+            f"matmul.allow_tf32={matmul.allow_tf32}")
+        assert max(scoped) <= 1e-4, scoped
+        assert cudnn.allow_tf32 and not matmul.allow_tf32
+        res["fp32 repair"] = dict(scoped=scoped, tf32=tf32)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    return res
+
+
+def phase_bench():
+    """bench_torch.py's 1080p, 480p and e2e records, each on its own line
+    (the port's bench run in this process)."""
+    import contextlib
+    import io
+
+    import bench_torch
+
+    recs = {}
+    for mode in ("1080p", "480p", "e2e"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert bench_torch.main(["--mode", mode]) == 0
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"[T] bench_torch.py --mode {mode}: {json.dumps(rec)}")
+        assert rec["value"] > 0 and rec["device"] != "cpu", rec
+        recs[mode] = rec
+    return recs
 
 
 def main() -> int:
@@ -1905,13 +2437,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from vidmat_torch.config import preset_video_1080p
     from vidmat_torch.models.weights import build_network, default_variables
-    from vidmat_torch.ops import planar as P
-    from vidmat_torch.ops.composite import composite_rgba_packed
-    from vidmat_torch.ops.gf import guided_filter_coeffs
-    from vidmat_torch.ops.ingest import ingest_pool_normalize
-    from vidmat_torch.ops.int8_planar import int8_conv
-    from vidmat_torch.ops.refine import (fused_refine_composite,
-                                         fused_refine_float)
+    from vidmat_torch.pipeline.graph import kernel_wrappers
 
     t_start = time.perf_counter()
     gpu = gpu_line()
@@ -1929,11 +2455,8 @@ def main() -> int:
     bg_errs, bg_inputs = phase_bg_kernels(inputs, dev)
     errs.update(bg_errs)
     phase_body(net, dev)
-    kernels = [ingest_pool_normalize, guided_filter_coeffs,
-               fused_refine_composite, P.planar_conv, P.planar_conv2,
-               P.planar_conv_gru, P.planar_gru, fused_refine_float,
-               composite_rgba_packed, int8_conv]
-    _, _, launches, _ = phase_main_path(kernels)
+    kernels = kernel_wrappers()
+    _, _, launches, _ = phase_main_path(kernels, net)
     gru_launches = phase_unfused(net, net_u, dev)
     session = phase_session(kernels, dev)
     clip480, clip_errs = phase_clip_480p(kernels, dev)
@@ -1952,6 +2475,8 @@ def main() -> int:
         f"bf16 conv of the layer ({times['int8_conv']['library_ms']:.4f}, "
         "cold L2)")
     phase_profile(net, dev)
+    phase_image(dev)
+    phase_bench()
 
     main_path = f"convert_video, planar preset, {N_FRAMES} frames"
     # Each kernel's launches on the path that runs it (the counts of that

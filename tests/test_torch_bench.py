@@ -1,0 +1,50 @@
+"""``bench_torch.py`` on the CPU (``--quick --device cpu``): each mode
+prints one JSON line with ``bench.py``'s keys; the unported modes raise
+naming their ROADMAP item; without a card it raises unless given
+``--device cpu``."""
+
+import json
+
+import pytest
+import torch
+
+import bench_torch
+
+RING_KEYS = {"metric", "value", "unit", "vs_baseline", "p50_ms", "fps_min",
+             "fps_max", "device", "resolution", "downsample_ratio", "dtype",
+             "conv_impl", "preset", "p50_ms_per_frame"}
+E2E_KEYS = {"metric", "value", "unit", "vs_baseline", "p50_ms",
+            "h2d_ms_per_frame", "device", "resolution", "frames"}
+
+
+@pytest.mark.parametrize("mode", ["1080p", "e2e"])
+def test_bench_prints_one_record(mode, capsys):
+    assert bench_torch.main(["--mode", mode, "--quick", "--device",
+                             "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert (RING_KEYS if mode == "1080p" else E2E_KEYS) <= set(rec), rec
+    assert rec["device"] == "cpu" and rec["value"] > 0
+    assert rec["resolution"] == "512x256"
+    if mode == "1080p":
+        assert rec["preset"].startswith("video_1080p")
+        assert rec["conv_impl"] == "planar" and rec["dtype"] == "bfloat16"
+        assert rec["chunk"] == 4 and rec["dispatch"] == "eager chunk body"
+        assert rec["downsample_ratio"] == 0.25
+    else:
+        assert rec["frames"] == 24
+
+
+@pytest.mark.parametrize("mode,item", [("4k", "A.8"), ("4k_tiled", "A.8"),
+                                       ("multistream", "A.12")])
+def test_unported_modes_raise(mode, item):
+    with pytest.raises(NotImplementedError, match=item):
+        bench_torch.main(["--mode", mode, "--device", "cpu"])
+
+
+def test_bench_needs_a_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_torch.main(["--quick"])
+    assert bench_torch.main(["--mode", "smoke"]) == 2

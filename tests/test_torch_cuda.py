@@ -925,3 +925,176 @@ def test_planar_wrappers_raise_on_bad_input(dev):
         planar_conv([x], w, s, s)  # weights not in the plane dtype
     with pytest.raises(ValueError):
         planar_conv([x.transpose(2, 3)], w.bfloat16(), s, s)
+
+
+# ---- host side of the pipeline, the chunk graph and fp32 (slice 10) ----
+
+
+def _launch_counts():
+    from vidmat_torch.pipeline.graph import kernel_wrappers
+
+    return {fn.__name__: (fn.launches, dict(getattr(fn, "mode_launches",
+                                                    {})))
+            for fn in kernel_wrappers()}
+
+
+def _delta(after, before):
+    return {k: (after[k][0] - before[k][0],
+                {m: after[k][1][m] - before[k][1][m] for m in after[k][1]})
+            for k in after}
+
+
+def test_chunk_graph_replays_equal_eager_chunk_body(dev):
+    """The video_1080p chunk body at 1088x1920 captured once and replayed
+    over 8 chunks: every packed byte and the recurrent state equal to the
+    eager body's on the same chunks, and each replay counts the launches an
+    eager chunk counts (the capture itself counts none)."""
+    from vidmat_torch.config import preset_video_1080p
+    from vidmat_torch.models.weights import build_network, default_variables
+    from vidmat_torch.pipeline.graph import ChunkGraph
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+    mcfg, pcfg = preset_video_1080p()
+    net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
+                        device=dev)
+    _, plan = build_serving_body(net, mcfg, pcfg.refine, 1088, 1920, 0.25)
+    g = torch.Generator().manual_seed(10)
+    chunks = [torch.randint(0, 256, (4, 1088, 1920, 3), generator=g,
+                            dtype=torch.uint8).to(dev) for _ in range(8)]
+    st = plan.make_state(1)
+    eager, eager_counts = [], []
+    for c in chunks:
+        before = _launch_counts()
+        out, st = plan.chunk_body(c, st)
+        eager_counts.append(_delta(_launch_counts(), before))
+        eager.append(out.clone())
+    eager_state = st
+
+    static_in = torch.empty_like(chunks[0])
+    before = _launch_counts()
+    graph = ChunkGraph(plan.chunk_body, static_in, plan.make_state(1))
+    assert _launch_counts() == before  # a capture launches nothing
+    st = plan.make_state(1)
+    for i, c in enumerate(chunks):
+        static_in.copy_(c)
+        before = _launch_counts()
+        out, st = graph(st)
+        assert _delta(_launch_counts(), before) == eager_counts[i]
+        assert torch.equal(out, eager[i]), i
+    assert st is graph.state
+    for a, b in zip(st, eager_state):
+        assert torch.equal(a, b)
+    assert eager_counts[0]["planar_conv_gru"][0] == 12
+    assert eager_counts[0]["fused_refine_composite"] == (1, {
+        "color": 0, "none": 1, "image": 0, "per_frame": 0, "coarse": 0})
+
+
+def test_convert_video_graph_path_equals_eager_bodies(dev):
+    """convert_video on the card with the chunk graph (5 chunks and a
+    drained frame at 256x512, pool 4): alpha bytes and launch counts equal
+    to the eager bodies' on the same padded frames."""
+    import numpy as np
+
+    from vidmat_torch import convert_video, preset_video_1080p
+    from vidmat_torch.io.fixtures import synthetic_frames_only
+    from vidmat_torch.models.weights import build_network, default_variables
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+    mcfg, pcfg = preset_video_1080p()
+    frames = list(synthetic_frames_only(250, 500, 21, seed=12))
+    before = _launch_counts()
+    alphas = []
+    m = convert_video(frames, output_alpha=alphas.append, model_cfg=mcfg,
+                      pipe_cfg=pcfg)
+    graph_counts = _delta(_launch_counts(), before)
+    assert m["frames"] == 21 and m["graph_capture_ms"] > 0, m
+
+    net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
+                        device=dev)
+    body, plan = build_serving_body(net, mcfg, pcfg.refine, 256, 512, 0.25,
+                                    alpha_only=True)
+    padded = torch.from_numpy(np.stack([
+        np.pad(f, ((0, 6), (0, 12), (0, 0)), mode="edge")
+        for f in frames])).to(dev)
+    st = plan.make_state(1)
+    outs = []
+    before = _launch_counts()
+    for c in range(0, 20, 4):
+        o, st = plan.chunk_body(padded[c:c + 4], st)
+        outs.append(o)
+    o, st = body(padded[20:21], st)
+    outs.append(o)
+    assert _delta(_launch_counts(), before) == graph_counts
+    want = torch.cat(outs)[:, :250, :500].cpu().numpy()
+    np.testing.assert_array_equal(np.stack(alphas), want)
+
+
+def test_pad_into_pinned_then_h2d_equals_np_pad(dev):
+    import numpy as np
+
+    from vidmat_torch.io.native import pad_into
+
+    rng = np.random.RandomState(13)
+    frame = rng.randint(0, 256, (1080, 1920, 3), np.uint8)
+    host = torch.empty((2, 1088, 1920, 3), dtype=torch.uint8,
+                       pin_memory=True)
+    pad_into(frame, host.numpy()[1])
+    got = torch.empty((2, 1088, 1920, 3), dtype=torch.uint8, device=dev)
+    got[1:].copy_(host[1:], non_blocking=True)
+    torch.cuda.synchronize()
+    want = np.pad(frame, ((0, 8), (0, 0), (0, 0)), mode="edge")
+    assert np.array_equal(got[1].cpu().numpy(), want)
+
+
+def test_fp32_paths_run_full_fp32_under_default_flags(monkeypatch):
+    """Under PyTorch's default flags (cuDNN may take TF32 for float32
+    convolutions), MattingSession(dtype="float32") on the card against the
+    same session on the CPU over 4 frames: with the scope the port puts
+    around its fp32 paths, alpha and fgr max |d| <= 1e-4 (float32 against
+    float32 in another summation order). The same run with the scope
+    removed (TF32 allowed) is logged beside it. matte_image is held the
+    same way. The process-wide flags are left as they were."""
+    import contextlib
+
+    import numpy as np
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vidmat_torch import MattingSession, matte_image
+    from vidmat_torch import _device
+    from vidmat_torch.io.fixtures import synthetic_frames_only
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False  # PyTorch's defaults
+    try:
+        frames = list(synthetic_frames_only(128, 192, 4, seed=14))
+        ref = MattingSession(128, 192, dtype="float32", device="cpu")
+        want = [ref.step(f) for f in frames]
+
+        def worst():
+            sess = MattingSession(128, 192, dtype="float32", device="cuda")
+            d = [0.0, 0.0]
+            for f, w in zip(frames, want):
+                for j, (a, b) in enumerate(zip(sess.step(f), w)):
+                    d[j] = max(d[j], float(np.abs(a - b).max()))
+            return d
+
+        scoped = worst()
+        assert cudnn.allow_tf32 and not matmul.allow_tf32
+        with monkeypatch.context() as mp:
+            mp.setattr(_device, "full_fp32", contextlib.nullcontext)
+            tf32 = worst()
+        img = frames[0][:100, :150]
+        ia, if_ = matte_image(img)
+        ca, cf = matte_image(img, device="cpu")
+        image = [float(np.abs(ia - ca).max()), float(np.abs(if_ - cf).max())]
+        print(f"fp32 session card vs CPU, max |d| alpha / fgr: full fp32 "
+              f"{scoped[0]:.3g} / {scoped[1]:.3g}; TF32 allowed "
+              f"{tf32[0]:.3g} / {tf32[1]:.3g}; matte_image full fp32 "
+              f"{image[0]:.3g} / {image[1]:.3g}")
+        assert max(scoped) <= 1e-4, scoped
+        assert max(image) <= 1e-4, image
+        assert cudnn.allow_tf32 and not matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -111,8 +111,22 @@ def test_space_to_depth_matches_jax():
 
 
 def test_unported_model_options_raise():
+    # The per-image trimap net is ported (matte_image: known regions
+    # pinned); trimap-conditioned serving is not (A.10).
+    from vidmat_torch.config import RefineConfig
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+    tcfg = ModelConfig(use_trimap=True, recurrent=False)
+    tnet = MattingNetwork(tcfg)
+    x = torch.rand(1, 32, 32, 4)
+    x[..., 3] = torch.tensor([0.0, 0.5, 1.0]).repeat(352)[:1024].view(32, 32)
+    with torch.inference_mode():
+        alpha, _, _ = tnet(x)
+    assert (alpha[0, ..., 0][x[0, ..., 3] == 1.0] == 1.0).all()
+    assert (alpha[0, ..., 0][x[0, ..., 3] == 0.0] == 0.0).all()
     with pytest.raises(NotImplementedError, match="A.10"):
-        MattingNetwork(ModelConfig(use_trimap=True))
+        build_serving_body(tnet, tcfg, RefineConfig(), 32, 32, 1.0,
+                           cdtype=torch.float32)
     # conv_impl="planar" builds the planar-kernel network.
     from vidmat_torch.models.planar import PlanarNetwork
 

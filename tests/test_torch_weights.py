@@ -1,10 +1,10 @@
 """The port's weight bridge and its shipped checkpoints.
 
-``vidmat_torch/checkpoints/fast_demo.npz``, ``synthetic_demo.npz`` and
-``plate_demo.npz`` are the JAX package's ``checkpoints/fast_demo``,
-``checkpoints/synthetic_demo`` and ``checkpoints/plate_demo`` flattened to
-one npz entry per leaf, so the port loads them with numpy alone. Running
-this file as a script rewrites the named ones (all by default):
+``vidmat_torch/checkpoints/<name>.npz`` for fast_demo, synthetic_demo,
+plate_demo, trimap_demo and trimap_prop_demo are the JAX package's
+``checkpoints/<name>`` flattened to one npz entry per leaf, so the port
+loads them with numpy alone. Running this file as a script rewrites the
+named ones (all by default):
 
     python tests/test_torch_weights.py [name ...]
 """
@@ -27,7 +27,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: shipped checkpoint -> the ModelConfig fields that select it
 CHECKPOINTS = {"fast_demo": dict(space_to_depth=2),
                "synthetic_demo": dict(space_to_depth=1),
-               "plate_demo": dict(use_bg_plate=True, space_to_depth=2)}
+               "plate_demo": dict(use_bg_plate=True, space_to_depth=2),
+               "trimap_demo": dict(use_trimap=True, recurrent=False),
+               "trimap_prop_demo": dict(use_trimap=True, space_to_depth=2)}
 
 
 def _npz(name):
@@ -60,7 +62,9 @@ def test_committed_npz_equals_checkpoint(name):
     want = flatten_variables(_restore(name))
     got = flatten_variables(load_npz(_npz(name)))
     assert sorted(got) == sorted(want)
-    assert len(got) == 76
+    # 76 leaves; the non-recurrent trimap_demo has no GRU (4 leaves per
+    # decoder stage).
+    assert len(got) == (64 if name == "trimap_demo" else 76)
     for k, v in want.items():
         assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
@@ -118,6 +122,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "bench_torch.py")
 
 
 def test_port_imports_neither_jax_nor_vidmat():
@@ -131,13 +136,15 @@ def test_port_imports_neither_jax_nor_vidmat():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from vidmat_torch import MattingSession, convert_video
+    from vidmat_torch import MattingSession, convert_video, matte_image
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert_video([np.zeros((64, 64, 3), np.uint8)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MattingSession(64, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        matte_image(np.zeros((64, 64, 3), np.uint8))
 
 
 if __name__ == "__main__":

@@ -1,14 +1,17 @@
-"""Public API of the port: video in -> per-frame alpha matte out
-(counterpart of vidmat/api.py ``convert_video`` and ``MattingSession``).
+"""Public API of the port (counterpart of vidmat/api.py ``matte_image``,
+``convert_video`` and ``MattingSession``).
 
+``matte_image`` mattes one image in float32: the recurrent base model for
+one frame from a zero state, the trimap model (``trimap_demo``) given a
+trimap or a rough mask, or the clean-plate model given a plate.
 ``convert_video`` serves the JAX package's defaults (``ModelConfig()``,
 ``PipelineConfig()``) when given no configuration, and the presets
 (``preset_video_1080p``, ``preset_clip_480p``) when given theirs.
 ``MattingSession`` streams float mattes one frame at a time. Both take
 the clean-plate family (``bg_plate``, shipped ``plate_demo``);
 ``convert_video`` composites over a color, an image, a background video
-or a blur of the source frame. ``matte_image``, tiling and the trimap and
-segmentation families are not ported yet (ROADMAP queue A).
+or a blur of the source frame. Tiling, trimap video and segmentation
+output are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -21,6 +24,58 @@ import torch
 from vidmat_torch.config import ModelConfig, PipelineConfig
 
 Target = Union[str, Callable[[np.ndarray], None]]
+
+
+def matte_image(image: np.ndarray, trimap: Optional[np.ndarray] = None,
+                variables=None, cfg: Optional[ModelConfig] = None,
+                mask: Optional[np.ndarray] = None,
+                mask_band: float = 0.04,
+                bg_plate: Optional[np.ndarray] = None,
+                device: Union[str, torch.device] = "cuda",
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-image matting in float32 (the ``preset_pr1_image`` rung).
+
+    image:  (H, W, 3) float [0, 1] or uint8 RGB; H and W need not be
+            multiples of 16 (padded inside).
+    trimap: optional (H, W[, 1]) trimap {0, 0.5, 1}.
+    mask:   optional rough binary mask (H, W); turned into a trimap with an
+            unknown band of half-width ``mask_band`` across its boundary
+            (``pipeline.trimap.trimap_from_mask``) and matted with the
+            trimap family. Exclusive with trimap.
+    bg_plate: optional clean background plate (H, W, 3): selects the
+            plate-conditioned family (shipped plate_demo).
+    device: "cuda" (default; raises without a CUDA device) or "cpu".
+    Returns (alpha (H, W, 1), fgr (H, W, 3)) float32 in [0, 1] on the
+    host.
+
+    With ``variables=None`` the shipped checkpoint is loaded: synthetic_demo
+    (the recurrent base model, run for one frame from a zero state),
+    trimap_demo with a trimap or mask, plate_demo with a plate. The
+    signature and the choice are the JAX package's, plus ``device``."""
+    from vidmat_torch.pipeline.stepper import ImageStepper
+
+    if mask is not None:
+        if trimap is not None:
+            raise ValueError("pass either trimap or mask, not both")
+        from vidmat_torch.pipeline.trimap import trimap_from_mask
+
+        trimap = trimap_from_mask(mask, band=mask_band)
+    if cfg is None:
+        if bg_plate is not None:
+            if trimap is not None:
+                raise ValueError(
+                    "no shipped checkpoint combines trimap AND plate "
+                    "conditioning: pass cfg/variables explicitly for a "
+                    "custom-trained combined model")
+            from vidmat_torch.models.weights import plate_default_config
+
+            cfg = plate_default_config()
+        elif variables is None and trimap is None:
+            cfg = ModelConfig()  # recurrent base: shipped synthetic_demo
+        else:
+            cfg = ModelConfig(recurrent=False, use_trimap=trimap is not None)
+    stepper = ImageStepper(cfg, variables=variables, device=device)
+    return stepper(image, trimap, bg_plate=bg_plate)
 
 
 def convert_video(input_source: Union[str, Iterable[np.ndarray]],
@@ -111,8 +166,9 @@ class MattingSession:
     kernels); dtype="bfloat16" the serving mode (see
     ``pipeline.stepper.VideoStepper``). bg_plate: the clean plate of the
     plate-conditioned family, fixed for the session (with model_cfg=None
-    it selects ``plate_default_config()``, shipped plate_demo). Tiling and
-    segmentation output are not ported yet and raise."""
+    it selects ``plate_default_config()``, shipped plate_demo). Tiling,
+    trimap-conditioned steps and segmentation output are not ported yet
+    and raise; ``matte_image`` takes a trimap for single images."""
 
     def __init__(self, height: int, width: int,
                  variables=None, model_cfg: Optional[ModelConfig] = None,

@@ -10,8 +10,9 @@ The defaults are the JAX package's: ``ModelConfig()`` (s2d=1, the net as
 (auto ratio, chunk 1, bfloat16, guided refinement) are what
 ``convert_video`` serves when given no configuration. The presets, as the
 JAX package ships them: ``preset_video_1080p`` (``fast_demo``, s2d=2,
-pool 4) and ``preset_clip_480p`` (``synthetic_demo`` at full
-resolution). ``conv_impl="planar"`` runs the net through the four planar
+pool 4), ``preset_clip_480p`` (``synthetic_demo`` at full resolution) and
+``preset_pr1_image`` (the single-image rung); ``PRESETS`` names the ones
+the port serves. ``conv_impl="planar"`` runs the net through the four planar
 conv kernels (``vidmat_torch/models/planar.py``); ``conv_impl="xla"`` runs
 the same variables as ``F.conv2d`` (``vidmat_torch/models/matting_net.py``).
 """
@@ -82,6 +83,15 @@ class PipelineConfig:
     static_skip_eps: Optional[float] = None
 
 
+def preset_pr1_image() -> tuple[ModelConfig, PipelineConfig]:
+    """512x512 single-image matting, optional trimap (the rung
+    ``matte_image`` serves): float32, full resolution, no refinement
+    (vidmat/config.py ``preset_pr1_image``)."""
+    return ModelConfig(recurrent=False), PipelineConfig(
+        downsample_ratio=1.0, dtype="float32",
+        refine=RefineConfig(mode="none"))
+
+
 def preset_video_1080p() -> tuple[ModelConfig, PipelineConfig]:
     """1080p recurrent serving with guided-filter refinement.
 
@@ -108,3 +118,11 @@ def preset_clip_480p() -> tuple[ModelConfig, PipelineConfig]:
     ``preset_clip_480p``)."""
     return ModelConfig(conv_impl="planar"), PipelineConfig(
         downsample_ratio=1.0, chunk_size=10, refine=RefineConfig(mode="none"))
+
+
+#: the presets the port serves, by the JAX package's names
+PRESETS = {
+    "pr1_image": preset_pr1_image,
+    "clip_480p": preset_clip_480p,
+    "video_1080p": preset_video_1080p,
+}

@@ -1,0 +1,88 @@
+"""The port's native host staging tier (counterpart of vidmat/io/native.py).
+
+``csrc/framestage.cpp`` is host C++ with a plain C interface, compiled
+with ``g++ -O3 -fopenmp`` at first use into ``vidmat_torch/build/`` and
+loaded with ``ctypes`` (which releases the GIL for each call), as
+``ops/_build.py`` loads the kernels. The library's name carries a hash of
+the source and the flags. There is no numpy fallback: a failed build
+raises. ``pad_frame`` (``io/reader.py``) is the numpy version the tests
+hold ``pad_into`` to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+
+import numpy as np
+
+from vidmat_torch.ops._build import BUILD_DIR, CSRC_DIR
+
+SOURCE = os.path.join(CSRC_DIR, "framestage.cpp")
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp"]
+
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+def library_path() -> str:
+    h = hashlib.sha1()
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"framestage-{h.hexdigest()[:12]}.so")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The bound library, built on first use; raises with the compiler's
+    output when the build fails."""
+    path = library_path()
+    if not os.path.isfile(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, SOURCE],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"g++ failed for {SOURCE}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    lib.vm_pad_into.restype = _I
+    lib.vm_pad_into.argtypes = [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64]
+    lib.vm_unpack_rgba.restype = _I
+    lib.vm_unpack_rgba.argtypes = [_P, _I64, _P]
+    return lib
+
+
+def pad_into(frame: np.ndarray, out: np.ndarray) -> None:
+    """Edge-pad an (H, W, 3) uint8 frame (any strides with a 1-byte channel
+    step) at the bottom and right into ``out``, a C-contiguous
+    (out_h, out_w, 3) uint8 buffer with out_h >= H and out_w >= W, as
+    ``np.pad(frame, ..., mode="edge")`` does. Rows are split over up to 4
+    OpenMP threads."""
+    if (frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3
+            or frame.strides[2] != 1):
+        raise ValueError("frame must be (H, W, 3) uint8 with contiguous "
+                         f"channels; got {frame.dtype} {frame.shape}")
+    if (out.dtype != np.uint8 or out.ndim != 3 or out.shape[2] != 3
+            or not out.flags.c_contiguous or not out.flags.writeable):
+        raise ValueError("out must be a writable C-contiguous "
+                         "(out_h, out_w, 3) uint8 array")
+    h, w = frame.shape[:2]
+    err = _lib().vm_pad_into(frame.ctypes.data, h, w, frame.strides[0],
+                             frame.strides[1], out.ctypes.data,
+                             out.shape[0], out.shape[1])
+    if err:
+        raise ValueError(f"cannot pad a {h}x{w} frame into "
+                         f"{out.shape[0]}x{out.shape[1]}")
+
+
+def unpack_rgba(packed: np.ndarray) -> np.ndarray:
+    """(...) uint32 packed RGBA -> an owned (..., 4) uint8 copy."""
+    packed = np.ascontiguousarray(packed, dtype=np.uint32)
+    out = np.empty((*packed.shape, 4), np.uint8)
+    _lib().vm_unpack_rgba(packed.ctypes.data, packed.size, out.ctypes.data)
+    return out

@@ -136,18 +136,15 @@ class MattingNetwork(nn.Module):
     same variables run through the planar conv kernels as
     ``vidmat_torch.models.planar.PlanarNetwork``, which ``build_network``
     returns for ``conv_impl="planar"``; this module computes the same
-    function whatever ``conv_impl`` says. The trimap pin and the
-    segmentation pass of the JAX network are not ported yet (ROADMAP
-    A.10): trimap-conditioned configurations raise.
+    function whatever ``conv_impl`` says. With ``cfg.use_trimap`` the
+    fourth input channel is the trimap in [0, 1]: where it is >= 0.75 the
+    alpha is pinned to 1, where <= 0.25 to 0, as in the JAX network. The
+    segmentation pass is not ported yet (ROADMAP A.10).
     """
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.use_trimap:
-            raise NotImplementedError(
-                "trimap-conditioned matting is not ported yet "
-                "(ROADMAP A.10)")
         self.cfg = cfg
         # Compute dtype: None = float32 (parity path); torch.bfloat16 for
         # serving (parameters stay float32 and are cast per layer).
@@ -196,4 +193,10 @@ class MattingNetwork(nn.Module):
         out = out.float()
         alpha = out[:, 0:1].clamp(0.0, 1.0)
         fgr = (out[:, 1:4] + rgb.float()).clamp(0.0, 1.0)
+        if cfg.use_trimap and frame.shape[-1] >= 4:
+            # Known foreground and background are pinned; only the
+            # unknown band is predicted (vidmat/models/matting_net.py).
+            tri = x[:, 3:4]
+            alpha = torch.where(tri >= 0.75, 1.0,
+                                torch.where(tri <= 0.25, 0.0, alpha))
         return alpha.permute(0, 2, 3, 1), fgr.permute(0, 2, 3, 1), new_state

@@ -7,13 +7,15 @@ The Flax tree and the port's module tree carry the same names:
   flax  BatchNorm {scale, bias} + batch_stats {mean, var}
   torch bn.{weight, bias, running_mean, running_var}
 
-The shipped checkpoints the port serves (``checkpoints/fast_demo.npz``,
-the s2d=2 serving model, ``checkpoints/synthetic_demo.npz``, the s2d=1
-default model, and ``checkpoints/plate_demo.npz``, the clean-plate
-conditioned s2d=2 model, in this package) are flattened Flax trees, one
-npz entry per leaf keyed by its path (``params/encoder/stem/conv/kernel``),
-so they load with numpy alone. Unlike the JAX package's oracle bridge this
-one keeps the ``seg_head`` subtree.
+The shipped checkpoints the port serves (in ``checkpoints/`` of this
+package: ``fast_demo``, the s2d=2 serving model; ``synthetic_demo``, the
+s2d=1 default model; ``plate_demo``, the clean-plate conditioned s2d=2
+model; ``trimap_demo``, the per-image trimap model, non-recurrent;
+``trimap_prop_demo``, the recurrent s2d=2 trimap-propagation model) are
+flattened Flax trees, one npz entry per leaf keyed by its path
+(``params/encoder/stem/conv/kernel``), so they load with numpy alone.
+Unlike the JAX package's oracle bridge this one keeps the ``seg_head``
+subtree.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ _CKPT_DIR = os.path.join(os.path.dirname(os.path.dirname(
 _DEFAULT_CKPTS = {
     (False, False, 1, True): "synthetic_demo",
     (False, False, 2, True): "fast_demo",
+    (True, False, 1, False): "trimap_demo",
+    (True, False, 2, True): "trimap_prop_demo",
     (False, True, 2, True): "plate_demo",
 }
 
@@ -112,9 +116,8 @@ def load_npz(path: str) -> Dict[str, Any]:
 
 def default_checkpoint_path(cfg: ModelConfig) -> Optional[str]:
     """Path of the shipped checkpoint matching ``cfg`` in this package, or
-    None. ``synthetic_demo`` (s2d=1), ``fast_demo`` (s2d=2) and
-    ``plate_demo`` (plate-conditioned, s2d=2) ship with the port so far
-    (ROADMAP A.1 lists the others)."""
+    None: the JAX package's five entries (``_DEFAULT_CKPTS``). Only the
+    base channel plan has shipped weights."""
     base = ModelConfig()
     if (cfg.enc_channels, cfg.dec_channels) != (base.enc_channels,
                                                 base.dec_channels):
@@ -136,7 +139,9 @@ def default_variables(cfg: ModelConfig) -> Dict[str, Any]:
             f"no shipped checkpoint in the port matches {cfg!r}: pass "
             "variables=... (a nested dict of numpy arrays in the JAX "
             "package's layout). The port ships synthetic_demo (s2d=1), "
-            "fast_demo (s2d=2) and plate_demo (use_bg_plate, s2d=2) only.")
+            "fast_demo (s2d=2), plate_demo (use_bg_plate, s2d=2), "
+            "trimap_demo (use_trimap, recurrent=False) and "
+            "trimap_prop_demo (use_trimap, s2d=2) only.")
     return load_npz(path)
 
 

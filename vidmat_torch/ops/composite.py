@@ -43,12 +43,6 @@ def pack_rgba(rgba_u8: torch.Tensor) -> torch.Tensor:
     return rgba_u8.contiguous().view(torch.uint32)[..., 0]
 
 
-def unpack_rgba_host(packed: np.ndarray) -> np.ndarray:
-    """Zero-copy host view of packed words as (..., 4) uint8 RGBA."""
-    arr = np.ascontiguousarray(packed)
-    return arr.view(np.uint8).reshape(*arr.shape, 4)
-
-
 def _bg_tensor(bg: Background, like: torch.Tensor) -> torch.Tensor:
     """The background as a float32 tensor on ``like``'s device: (3,),
     (H, W, 3) or (N, H, W, 3)."""

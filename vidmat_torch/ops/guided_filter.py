@@ -13,15 +13,23 @@ All arrays NHWC float32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 
+@functools.lru_cache(maxsize=None)
+def _luma_weights(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # Made once per device: a host-to-device copy inside a captured CUDA
+    # graph (the pipeline's chunk body) is not allowed.
+    return torch.tensor([0.299, 0.587, 0.114], dtype=dtype, device=device)
+
+
 def gray_guide(rgb: torch.Tensor) -> torch.Tensor:
     """Luma projection used as the guide. NHWC (..., 3) -> (..., 1)."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype,
-                     device=rgb.device)
-    return (rgb * w).sum(dim=-1, keepdim=True)
+    return (rgb * _luma_weights(rgb.dtype, rgb.device)).sum(dim=-1,
+                                                            keepdim=True)
 
 
 def box_sum(x: torch.Tensor, r: int) -> torch.Tensor:

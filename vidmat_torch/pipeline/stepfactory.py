@@ -54,6 +54,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from vidmat_torch._device import in_full_fp32
 from vidmat_torch.config import ModelConfig, RefineConfig
 from vidmat_torch.models.planar import PlanarNetwork
 from vidmat_torch.ops.composite import (composite_rgba,
@@ -438,6 +439,12 @@ def build_serving_body(
                              bg_from_x(x) if use_bg_blur else bg), state
 
     impl = body_static if use_static_skip else body_impl
+    if cdtype == torch.float32:
+        # fp32 serving and the session's parity mode: no TF32 convolutions
+        # on the card (the JAX package pins float32).
+        impl = in_full_fp32(impl)
+        if chunk_body is not None:
+            chunk_body = in_full_fp32(chunk_body)
     if bg_dynamic:
         def body(frame, state, bg_frame):
             # bg_frame: (N, h, w, 3) float32 in [0, 1]; the tails take one

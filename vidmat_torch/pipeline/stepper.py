@@ -1,8 +1,11 @@
-"""Streaming recurrent stepper (counterpart of vidmat/pipeline/stepper.py
-``VideoStepper``).
+"""Inference steppers (counterpart of vidmat/pipeline/stepper.py).
 
-One frame per ``step``; the recurrent state stays on the device between
-calls. The body comes from ``build_serving_body`` in float-output mode.
+``ImageStepper``: one image per call, padded, one float32 forward from a
+zero state, cropped (``matte_image``).
+
+``VideoStepper``: one frame per ``step``; the recurrent state stays on
+the device between calls. The body comes from ``build_serving_body`` in
+float-output mode.
 
 dtype="float32" (the default) is the parity mode: float frames in,
 float32 compute, the net as F.conv2d and every stage on its plain PyTorch
@@ -23,7 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from vidmat_torch._device import resolve_device
+from vidmat_torch._device import full_fp32, resolve_device
 from vidmat_torch.config import ModelConfig, RefineConfig
 from vidmat_torch.io.backgrounds import prepare_plate_u8
 from vidmat_torch.models.weights import build_network, default_variables
@@ -46,6 +49,65 @@ def to_float_rgb(image: np.ndarray) -> np.ndarray:
     if image.dtype == np.uint8:
         return image.astype(np.float32) / 255.0
     return image.astype(np.float32)
+
+
+class ImageStepper:
+    """Single-image matting: pad -> one float32 forward -> crop.
+
+    The net runs as plain convolutions (``conv_impl="xla"``, as the JAX
+    ``ImageStepper`` does) in full float32: TF32 is off for the forward
+    (``_device.full_fp32``). A recurrent configuration runs one frame from
+    a zero state."""
+
+    def __init__(self, cfg: ModelConfig, variables=None, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        if variables is None:
+            variables = default_variables(cfg)
+        self.net = build_network(dataclasses.replace(cfg, conv_impl="xla"),
+                                 variables, device=self.device)
+
+    def __call__(self, image: np.ndarray,
+                 trimap: Optional[np.ndarray] = None,
+                 bg_plate: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """image: (H, W, 3) uint8 or float RGB; trimap: (H, W[, 1]) in
+        [0, 1] (uint8 scaled by 1/255), for a trimap configuration;
+        bg_plate: (H, W, 3), for a plate-conditioned one. Returns host
+        alpha (H, W, 1) and fgr (H, W, 3), float32 in [0, 1]."""
+        img = to_float_rgb(image)
+        if self.cfg.use_trimap:
+            if trimap is None:
+                raise ValueError("model config requires a trimap input")
+            tri = to_float_rgb(trimap)
+            if tri.ndim == 2:
+                tri = tri[..., None]
+            img = np.concatenate([img, tri], axis=-1)
+        if self.cfg.use_bg_plate:
+            if bg_plate is None:
+                raise ValueError(
+                    "model config requires the clean background plate "
+                    "(use_bg_plate=True): pass bg_plate=<(H, W, 3) image "
+                    "of the scene without the subject>")
+            plate = to_float_rgb(bg_plate)
+            if plate.shape[:2] != img.shape[:2]:
+                raise ValueError(
+                    f"bg_plate {plate.shape[:2]} must match the image "
+                    f"{img.shape[:2]}")
+            img = np.concatenate([img, plate[..., :3]], axis=-1)
+        elif bg_plate is not None:
+            raise ValueError(
+                "bg_plate given but the model is not plate-conditioned "
+                "(use_bg_plate=False); build with "
+                "ModelConfig(use_bg_plate=True, space_to_depth=2)")
+        # space-to-depth models need the padded grid divisible by 16*s2d.
+        padded, h, w = pad_to_multiple(img, 16 * self.cfg.space_to_depth)
+        x = torch.from_numpy(np.ascontiguousarray(padded))[None].to(
+            self.device)
+        with torch.inference_mode(), full_fp32():
+            alpha, fgr, _ = self.net(x, None)
+        return (alpha[0, :h, :w].cpu().numpy(),
+                fgr[0, :h, :w].cpu().numpy())
 
 
 #: recurrent carry fields, as the JAX package names them

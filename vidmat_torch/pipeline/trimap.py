@@ -1,0 +1,44 @@
+"""Trimaps from rough masks (counterpart of ``trimap_from_mask`` and
+``_box_dilate`` in vidmat/train/data.py; numpy only)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _box_dilate(mask: np.ndarray, r: int) -> np.ndarray:
+    """Binary box dilation with radius r via an integral image (O(HW))."""
+    h, w = mask.shape
+    pad = np.pad(mask.astype(np.int32), r)
+    ii = pad.cumsum(0).cumsum(1)
+    ii = np.pad(ii, ((1, 0), (1, 0)))
+    s = (ii[2 * r + 1:, 2 * r + 1:] - ii[:-2 * r - 1, 2 * r + 1:]
+         - ii[2 * r + 1:, :-2 * r - 1] + ii[:-2 * r - 1, :-2 * r - 1])
+    return s[:h, :w] > 0
+
+
+def trimap_from_mask(mask: np.ndarray, band=0.04) -> np.ndarray:
+    """A {0, 0.5, 1} trimap from a rough segmentation mask.
+
+    The unknown band straddles the mask's boundary: pixels within ``band``
+    of both classes become 0.5, the eroded interior stays 1, the far
+    exterior 0 (erode / dilate trimap generation).
+
+    mask: (H, W), (H, W, 1) or (H, W, 3); uint8 (>= 128 is foreground) or
+    float (>= 0.5). band: the unknown half-width, a float as a fraction of
+    the short side or an int in pixels. Returns (H, W, 1) float32."""
+    m = np.asarray(mask)
+    if m.ndim == 3:
+        m = m[..., 0]
+    fg = (m >= 128) if m.dtype == np.uint8 else (
+        m.astype(np.float32) >= 0.5)
+    h, w = fg.shape
+    r = int(band) if isinstance(band, (int, np.integer)) else max(
+        1, int(band * min(h, w)))
+    if r < 1:
+        raise ValueError(f"band radius resolves to {r} px; it must be >= 1")
+    near_fg = _box_dilate(fg, r)
+    near_bg = _box_dilate(~fg, r)
+    tri = np.where(fg & ~near_bg, 1.0, 0.0).astype(np.float32)
+    tri[near_fg & near_bg] = 0.5
+    return tri[..., None]

@@ -1,20 +1,32 @@
 """Video pipeline (counterpart of vidmat/pipeline/video.py).
 
   - a host thread decodes into a bounded prefetch queue (FrameSource)
-  - each frame is edge-padded to the /16 bucket on the host, copied to
-    the device from pinned memory, and run through the serving body;
-    the recurrent state never leaves the device
-  - a one-frame software pipeline: the device-to-host copy of frame t is
-    enqueued behind its compute and only waited for after frame t+1 has
-    been enqueued, so the host writes frame t while the device computes
-    frame t+1
+  - staging (per bucket, allocated once and reused by every run): each
+    frame is edge-padded by the native ``pad_into`` (``io/native.py``)
+    straight into its slot of one of two pinned (K, h, w, 3) host chunks;
+    a full chunk goes to one device input chunk as one asynchronous copy,
+    and a host chunk is refilled only after the event recorded behind its
+    copy has completed. Outputs come back into a small ring of pinned
+    buffers, each refilled only after the host has read it; every frame
+    handed to a writer is an owned copy. The partial last chunk and the
+    per-frame bodies use the same buffers
+  - a one-chunk software pipeline: the device-to-host copy of chunk t is
+    enqueued behind its compute and only waited for after chunk t+1 has
+    been enqueued, so the host writes chunk t while the device computes
+    chunk t+1
   - chunk_size K groups K frames per dispatch and records one latency
     observation per group. Where the plan has a chunk body (the planar
-    net on the fused packed tail), a full chunk is one call: the K frames
-    go to the device as one copy, the stateless stages run once over them
-    and the recurrent decoder per frame, and the K outputs come back as
-    one copy. Otherwise (e.g. ``clip_480p``'s full-resolution tail) the
-    per-frame body runs K times. A partial last chunk drains per frame.
+    net on the fused packed tail), a full chunk is one call: the
+    stateless stages run once over the K frames and the recurrent decoder
+    per frame. On CUDA the first full chunk runs it eagerly (the warm-up)
+    and the body is then captured as a CUDA graph (``graph.ChunkGraph``):
+    each later chunk is one copy in, one graph launch and one copy out,
+    on one stream. Otherwise (e.g. ``clip_480p``'s full-resolution tail)
+    the per-frame body runs K times. A partial last chunk drains per
+    frame. Set-up (building a bucket's body, pinning its buffers,
+    capturing its graph) falls in the first latency observation, as in
+    the JAX package's loop, and is also reported as ``setup_ms`` (the
+    capture also as ``graph_capture_ms``)
   - output_foreground takes the body's uint8 tuple (alpha, fgr, rgba);
     otherwise one packed RGBA word (or the alpha byte) per pixel comes
     back
@@ -29,6 +41,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Iterable, Optional, Tuple, Union
 
@@ -39,11 +52,12 @@ from vidmat_torch._device import resolve_device
 from vidmat_torch.config import ModelConfig, PipelineConfig
 from vidmat_torch.io.backgrounds import (BgFrameSource, prepare_bg_image,
                                          prepare_plate_u8)
-from vidmat_torch.io.reader import FrameSource, pad_frame
+from vidmat_torch.io.native import pad_into, unpack_rgba
+from vidmat_torch.io.reader import FrameSource
 from vidmat_torch.io.writer import open_sink
 from vidmat_torch.models.weights import build_network, default_variables
-from vidmat_torch.ops.composite import unpack_rgba_host
-from vidmat_torch.pipeline.stepfactory import build_serving_body
+from vidmat_torch.pipeline.graph import ChunkGraph
+from vidmat_torch.pipeline.stepfactory import ServingPlan, build_serving_body
 from vidmat_torch.utils.metrics import RunMetrics
 
 Target = Union[str, Callable[[np.ndarray], None]]
@@ -58,43 +72,102 @@ def auto_downsample_ratio(h: int, w: int) -> float:
     return max(0.125, 512.0 / short)
 
 
-class _Transfers:
-    """Host<->device copies for one device. On CUDA they go through pinned
-    memory and are asynchronous on the current stream; a device-to-host
-    copy returns a handle that ``wait`` turns into a numpy array."""
+class Uploads:
+    """Two host buffers of one shape (pinned on CUDA) and one device buffer.
+    ``slot`` gives the host buffer to fill next, waiting first for the
+    copy last made out of it; ``send`` copies its first n entries to the
+    device buffer (asynchronously on CUDA, on the current stream)."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
         self.cuda = device.type == "cuda"
+        self.host = [torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
+                     for _ in range(2)]
+        self.events = ([torch.cuda.Event() for _ in range(2)]
+                       if self.cuda else None)
+        self.dev = torch.empty(shape, dtype=dtype, device=device)
+        self.i = 0
 
-    def to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if not self.cuda:
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def slot(self) -> torch.Tensor:
+        if self.cuda:
+            self.events[self.i].synchronize()
+        return self.host[self.i]
 
-    def to_host(self, out):
-        """Enqueue the copy of a tensor (or a tuple of tensors)."""
+    def send(self, n: int) -> torch.Tensor:
+        i, self.i = self.i, self.i ^ 1
+        self.dev[:n].copy_(self.host[i][:n], non_blocking=True)
+        if self.cuda:
+            self.events[i].record()
+        return self.dev[:n]
+
+
+class Downloads:
+    """A ring of host buffers (pinned on CUDA) for the body's outputs, each
+    K frames deep, allocated at the first output. A handle covers the
+    frames copied into one buffer; ``read`` waits for the copies and
+    returns numpy views, and a buffer is given out again only after
+    ``release`` (the host has read it). Two are enough for the pipeline,
+    which holds one group's handle while the next group's copy goes
+    out."""
+
+    DEPTH = 2
+
+    def __init__(self, k: int, device: torch.device):
+        self.k = k
+        self.cuda = device.type == "cuda"
+        self.bufs = [None] * self.DEPTH
+        self.free = [True] * self.DEPTH
+        self.events = ([torch.cuda.Event() for _ in range(self.DEPTH)]
+                       if self.cuda else None)
+        self.i = 0
+
+    def open(self, out) -> int:
+        """The next buffer, for outputs shaped like ``out``."""
+        i = self.i
+        if not self.free[i]:
+            raise RuntimeError("output buffer reused before it was read")
+        self.i = (i + 1) % len(self.bufs)
         ts = out if isinstance(out, tuple) else (out,)
-        if not self.cuda:
-            return ts, None, isinstance(out, tuple)
-        hosts = []
-        for t in ts:
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            hosts.append(host)
-        ev = torch.cuda.Event()
-        ev.record()
-        return tuple(hosts), ev, isinstance(out, tuple)
+        if self.bufs[i] is None:
+            self.bufs[i] = tuple(
+                torch.empty((self.k, *t.shape[1:]), dtype=t.dtype,
+                            pin_memory=self.cuda) for t in ts)
+        self.free[i] = False
+        return i
 
-    @staticmethod
-    def wait(handle):
-        """numpy array(s) of a copy enqueued by ``to_host``."""
-        hosts, ev, is_tuple = handle
-        if ev is not None:
-            ev.synchronize()
-        arrs = tuple(t.numpy() for t in hosts)
+    def put(self, i: int, at: int, out) -> None:
+        """Enqueue the copy of ``out`` (N frames) to frames at.. of
+        buffer i."""
+        ts = out if isinstance(out, tuple) else (out,)
+        for buf, t in zip(self.bufs[i], ts):
+            buf[at:at + t.shape[0]].copy_(t, non_blocking=True)
+
+    def close(self, i: int, n: int, is_tuple: bool):
+        if self.cuda:
+            self.events[i].record()
+        return i, n, is_tuple
+
+    def read(self, handle):
+        i, n, is_tuple = handle
+        if self.cuda:
+            self.events[i].synchronize()
+        arrs = tuple(t[:n].numpy() for t in self.bufs[i])
         return arrs if is_tuple else arrs[0]
+
+    def release(self, handle) -> None:
+        self.free[handle[0]] = True
+
+
+@dataclasses.dataclass
+class Bucket:
+    """The serving body of one (h, w, ratio, outputs) bucket and the
+    buffers it reuses across runs."""
+
+    body: Callable
+    plan: ServingPlan
+    frames: Uploads
+    outs: Downloads
+    bgs: Optional[Uploads] = None
+    graph: Optional[ChunkGraph] = None
 
 
 class VideoPipeline:
@@ -157,9 +230,10 @@ class VideoPipeline:
         self._step_cache = {}
 
     def _build_step(self, h: int, w: int, ratio: float,
-                    need_fgr: bool = False, alpha_only: bool = False):
-        """The serving body for a (h, w) bucket at a coarse ratio, cached
-        per (h, w, ratio, need_fgr, alpha_only)."""
+                    need_fgr: bool = False, alpha_only: bool = False
+                    ) -> Bucket:
+        """The serving body for a (h, w) bucket at a coarse ratio and its
+        staging buffers, cached per (h, w, ratio, need_fgr, alpha_only)."""
         key = (h, w, ratio, need_fgr, alpha_only)
         if key not in self._step_cache:
             cfg = self.pipe_cfg
@@ -169,12 +243,18 @@ class VideoPipeline:
                       if self.bg_image is not None else self.bg_color)
             plate = (prepare_plate_u8(self.bg_plate, h, w)
                      if self.bg_plate is not None else None)
-            self._step_cache[key] = build_serving_body(
+            body, plan = build_serving_body(
                 self.net, self.model_cfg, cfg.refine, h, w, ratio,
                 cdtype=self.cdtype, bg=bg, bg_dynamic=self._bg_dynamic,
                 bg_blur=self.bg_blur, bg_plate=plate, need_fgr=need_fgr,
                 alpha_only=alpha_only, tile_size=cfg.tile_size,
                 static_skip_eps=cfg.static_skip_eps)
+            k = max(1, cfg.chunk_size)
+            self._step_cache[key] = Bucket(
+                body, plan, Uploads((k, h, w, 3), torch.uint8, self.device),
+                Downloads(k, self.device),
+                bgs=(Uploads((1, h, w, 3), torch.float32, self.device)
+                     if self._bg_dynamic else None))
         return self._step_cache[key]
 
     @property
@@ -191,21 +271,26 @@ class VideoPipeline:
             start_frame: int = 0,
             max_frames: Optional[int] = None) -> dict:
         """Matte a frame stream. Each output target is a video path or a
-        callable that receives every (H, W[, C]) uint8 frame. Without
-        outputs the frames are processed and only metrics are returned
-        (benchmark mode). Returns the metrics dict."""
+        callable that receives every (H, W[, C]) uint8 frame (an owned
+        array). Without outputs the frames are processed and only metrics
+        are returned (benchmark mode). Frames the source drops are counted
+        as ``dropped_frames``. Returns the metrics dict."""
         source = FrameSource(input_source, start=start_frame,
                              count=max_frames)
-        xfer = _Transfers(self.device)
         metrics = RunMetrics()
         writers = {}
-        body = plan = state = bg_src = None
-        crop = pad = None
-        pending = None  # device-to-host handle of the previous frame
+        b: Optional[Bucket] = None
+        state = bg_src = crop = host = None
+        pending = None  # device-to-host handle of the previous group
+        capture_ms = None
 
         def flush(handle):
-            """Write every frame of one device-to-host copy."""
-            out = xfer.wait(handle)
+            """Write every frame of one device-to-host copy (owned copies:
+            the buffer is refilled after this returns). The copies are
+            numpy's, on this thread: PyTorch's intra-op threads, spinning
+            after each copy, would take the cores the staging threads and
+            this loop run on."""
+            out = b.outs.read(handle)
             fh, fw = crop  # drop the bucket padding before encode
             if isinstance(out, tuple):  # raw foreground: uint8 tuple
                 alpha_u8, fgr_u8, rgba = out
@@ -213,37 +298,73 @@ class VideoPipeline:
                     for name, arr in (("alpha", alpha_u8[i, ..., 0]),
                                       ("fgr", fgr_u8[i]), ("comp", rgba[i])):
                         if name in writers:
-                            writers[name].write(arr[:fh, :fw])
-                return
-            for i in range(out.shape[0]):
-                if plan.alpha_only:
-                    writers["alpha"].write(out[i, :fh, :fw])
-                    continue
-                rgba = unpack_rgba_host(out[i:i + 1])[0, :fh, :fw]
-                if "alpha" in writers:
-                    writers["alpha"].write(rgba[..., 3])
-                if "fgr" in writers:
-                    writers["fgr"].write(rgba[..., :3])
-                if "comp" in writers:
-                    writers["comp"].write(rgba)
+                            writers[name].write(np.array(arr[:fh, :fw]))
+            else:
+                for i in range(out.shape[0]):
+                    if b.plan.alpha_only:
+                        writers["alpha"].write(np.array(out[i, :fh, :fw]))
+                        continue
+                    if not writers:
+                        continue
+                    rgba = unpack_rgba(out[i, :fh, :fw])
+                    if "alpha" in writers:
+                        writers["alpha"].write(rgba[..., 3])
+                    if "fgr" in writers:
+                        writers["fgr"].write(rgba[..., :3])
+                    if "comp" in writers:
+                        writers["comp"].write(rgba)
+            b.outs.release(handle)
 
-        def step(host_frames, fn=None):
-            """Run (N, h, w, 3) host frames through ``fn`` (the per-frame
-            body by default; with a background video, with the next
-            background); returns the output's device-to-host handle."""
+        def frame_body(frames):
+            """Run the per-frame body over the (N, h, w, 3) device frames
+            in order; returns their device-to-host handle."""
             nonlocal state
-            args = (xfer.to_device(host_frames), state)
-            if bg_src is not None:
-                args += (xfer.to_device(bg_src.next()),)
-            out, state = (fn or body)(*args)
-            return xfer.to_host(out)
+            i = None
+            for j in range(frames.shape[0]):
+                args = (frames[j:j + 1], state)
+                if bg_src is not None:
+                    b.bgs.slot().copy_(torch.from_numpy(bg_src.next()))
+                    args += (b.bgs.send(1),)
+                out, state = b.body(*args)
+                if i is None:
+                    i = b.outs.open(out)
+                b.outs.put(i, j, out)
+            return b.outs.close(i, frames.shape[0], isinstance(out, tuple))
 
-        k = self.pipe_cfg.chunk_size
-        chunk_buf = []
-        n = 0
+        def chunk_body(frames):
+            """One full chunk through the chunk body: the graph's replay
+            once captured; eagerly (and then captured, on CUDA) before."""
+            nonlocal state, capture_ms
+            if b.graph is not None:
+                out, state = b.graph(state)
+            else:
+                out, state = b.plan.chunk_body(frames, state)
+            i = b.outs.open(out)
+            b.outs.put(i, 0, out)
+            handle = b.outs.close(i, frames.shape[0], False)
+            if b.graph is None and self.device.type == "cuda":
+                t0 = time.perf_counter()
+                b.graph = ChunkGraph(b.plan.chunk_body, b.frames.dev, state)
+                state = b.graph.state
+                capture_ms = (time.perf_counter() - t0) * 1e3
+            return handle
+
+        def observe(k):
+            nonlocal t_prev
+            t_now = time.perf_counter()
+            if k > 1:
+                metrics.record_chunk(t_now - t_prev, k)
+            else:
+                metrics.record_frame(t_now - t_prev)
+            t_prev = t_now
+
+        k = max(1, self.pipe_cfg.chunk_size)
+        staged = n = 0
+        setup_ms = 0.0
         t_prev = time.perf_counter()
         for frame in source:
-            if body is None:
+            if b is None:
+                t0 = time.perf_counter()
                 fh, fw = frame.shape[:2]
                 # Ratio: explicit argument > PipelineConfig > heuristic.
                 ratio = self.downsample_ratio
@@ -252,11 +373,11 @@ class VideoPipeline:
                 if ratio is None:
                     ratio = auto_downsample_ratio(fh, fw)
                 ph, pw = fh + ((-fh) % 16), fw + ((-fw) % 16)
-                body, plan = self._build_step(
+                b = self._build_step(
                     ph, pw, ratio, need_fgr=bool(output_foreground),
                     alpha_only=bool(output_alpha)
                     and not output_foreground and not output_composition)
-                state = plan.make_state(1)
+                state = b.plan.make_state(1)
                 if self._bg_dynamic:
                     bg_src = BgFrameSource(self.bg_video, ph, pw)
                 for name, target in (("alpha", output_alpha),
@@ -265,58 +386,50 @@ class VideoPipeline:
                     if target:
                         writers[name] = open_sink(target, source.fps)
                 crop = (fh, fw)
-                pad = (ph, pw)
-            host_frame = (pad_frame(frame, *pad)
-                          if frame.shape[:2] != pad else frame[None])
-            if k > 1:
-                chunk_buf.append(host_frame)
-                if len(chunk_buf) < k:
-                    continue
-                if plan.chunk_body is not None:
-                    handles = [step(np.concatenate(chunk_buf),
-                                    plan.chunk_body)]
-                else:
-                    handles = [step(f) for f in chunk_buf]
-                chunk_buf = []
-                if pending is not None:
-                    flush(pending)
-                for hd in handles[:-1]:
-                    flush(hd)
-                pending = handles[-1]  # overlap the last copy
-                n += k
-                t_now = time.perf_counter()
-                metrics.record_chunk(t_now - t_prev, k)
-                t_prev = t_now
+                # Set-up (the body, the staging buffers' pinning) stays in
+                # the first observation and is also reported apart.
+                setup_ms = (time.perf_counter() - t0) * 1e3
+            if staged == 0:
+                host = b.frames.slot().numpy()
+            pad_into(frame, host[staged])
+            staged += 1
+            if staged < k:
                 continue
-            handle = step(host_frame)
+            frames = b.frames.send(k)
+            staged = 0
+            use_chunk = k > 1 and b.plan.chunk_body is not None
+            handle = chunk_body(frames) if use_chunk else frame_body(frames)
             if pending is not None:
-                flush(pending)  # host writes frame t-1 while t computes
+                flush(pending)  # the host writes group t-1 while t computes
             pending = handle
-            n += 1
-            t_now = time.perf_counter()
-            metrics.record_frame(t_now - t_prev)
-            t_prev = t_now
-            if progress and n % 50 == 0:
+            n += k
+            observe(k)
+            if progress and n % 50 < k:
                 print(f"frame {n}", flush=True)
 
         # Drain a partial last chunk per frame; each drained frame records
         # its time so the fps denominator includes the tail.
-        for host_frame in chunk_buf:
-            handle = step(host_frame)
-            if pending is not None:
-                flush(pending)
-            pending = handle
-            n += 1
-            t_now = time.perf_counter()
-            metrics.record_frame(t_now - t_prev)
-            t_prev = t_now
+        if staged:
+            frames = b.frames.send(staged)
+            for j in range(staged):
+                handle = frame_body(frames[j:j + 1])
+                if pending is not None:
+                    flush(pending)
+                pending = handle
+                n += 1
+                observe(1)
         if pending is not None:
             flush(pending)
         for wtr in writers.values():
             wtr.close()
         out = metrics.summary()
         out["frames"] = n
-        if plan is not None and plan.static_skip:
+        out["dropped_frames"] = source.dropped
+        out["setup_ms"] = setup_ms
+        if capture_ms is not None:
+            out["graph_capture_ms"] = capture_ms
+            out["setup_ms"] += capture_ms
+        if b is not None and b.plan.static_skip:
             out["static_skipped"] = state[1][3]
         out["device"] = (torch.cuda.get_device_name(self.device)
                          if self.device.type == "cuda" else "cpu")
