@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Benchmark of the PyTorch port (vidmat_torch) on one CUDA card.
 
-    python3 bench_torch.py [--mode 1080p|480p|e2e] [--quick] [--chunk K]
+    python3 bench_torch.py [--mode 1080p|4k|4k_tiled|480p|e2e] [--quick]
+                           [--chunk K]
                            [--net planar|xla] [--bg-blur RADIUS]
                            [--device cuda|cpu]
 
@@ -22,15 +23,22 @@ Modes:
       ``p50_ms_per_frame``, the same timing through the per-frame body.
   480p  the ``clip_480p`` preset at 480x864 (chunk 10: its per-frame
       body ten times a dispatch, as the pipeline runs it).
+  4k_tiled  the ``video_4k`` preset at 2176x3840 (``bench.py``'s 4K
+      shape; ratio 0.125, pool 8, tiles of 1024 with an overlap of 128,
+      chunk 1: the per-frame body, tiled guided-filter statistics and the
+      whole-frame fused tail), 120 timed frames.
+  4k    the same with tiling dropped (labelled "(tile_size=None
+      variant)", as ``bench.py`` labels it).
   e2e   ``VideoPipeline.run`` (what ``convert_video`` runs) on 120
       1920x1080 frames fed from the host, with an alpha sink that drops
       the frames: staging, H2D, the graph, D2H and the sink, no video
       encode (the card's machine has no cv2); ``h2d_ms_per_frame`` is the
       median of 5 pinned copies of one frame.
-  4k, 4k_tiled, multistream  not ported yet (ROADMAP A.8, A.12); smoke:
-      ``python3 chip_smoke.py``.
+  multistream  not ported yet (ROADMAP A.12); smoke: ``python3
+      chip_smoke.py``.
 
---quick runs 256x512 frames (pool 4 at the 1080p ratio) and short
+--quick runs 256x512 frames (pool 4 at the 1080p ratio, pool 8 in the 4K
+modes, whose tiles shrink to 128 with an overlap of 32) and short
 chains. Prints one JSON line with ``bench.py``'s keys. ``vs_baseline`` is
 against the repository's 200 fps target for 1080p (a target, not a
 measurement of any device).
@@ -156,14 +164,25 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
     from vidmat_torch.models.weights import build_network, default_variables
     from vidmat_torch.pipeline.stepfactory import build_serving_body
 
-    preset_name = {"1080p": "video_1080p", "480p": "clip_480p"}[mode]
+    preset_name = {"1080p": "video_1080p", "480p": "clip_480p",
+                   "4k": "video_4k", "4k_tiled": "video_4k"}[mode]
     cfg, pcfg = PRESETS[preset_name]()
     label = preset_name
+    tile = {}
+    if mode == "4k_tiled":
+        tile = dict(tile_size=pcfg.tile_size, tile_overlap=pcfg.tile_overlap)
+    elif mode == "4k":
+        label += " (tile_size=None variant)"
     if args.quick:
         h, w, frames_timed, max_pairs = 256, 512, 8, 2
         label += " (256x512 quick shapes)"
+        if tile:
+            tile = dict(tile_size=128, tile_overlap=32)
+            label += " (tile 128, overlap 32)"
     elif mode == "480p":
         h, w, frames_timed, max_pairs = 480, 864, 240, 21
+    elif mode in ("4k", "4k_tiled"):
+        h, w, frames_timed, max_pairs = 2176, 3840, 120, 21
     else:
         h, w, frames_timed, max_pairs = 1088, 1920, 240, 21
     ratio = pcfg.downsample_ratio
@@ -178,7 +197,7 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
                         device=dev)
     body, plan = build_serving_body(net, cfg, pcfg.refine, h, w, ratio,
                                     cdtype=cdtype, bg=None,
-                                    bg_blur=args.bg_blur)
+                                    bg_blur=args.bg_blur, **tile)
     chunk = max(1, args.chunk if args.chunk is not None
                 else pcfg.chunk_size)
     g = torch.Generator().manual_seed(0)
@@ -226,7 +245,7 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
                                  make_ring(chunk)[0])
     spf, valid, n_dropped = measure(step, chunk)
     fps = 1.0 / spf
-    name = {"1080p": "1080p", "480p": "480p"}[mode]
+    name = mode
     if args.quick:
         name += "-quick"
     result = {
@@ -246,6 +265,7 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
         "preset": label,
         "chunk": chunk,
         "dispatch": dispatch,
+        **tile,
         "p50_ms_amortized": round(spf * 1e3, 4),
     }
     if chunk > 1:
@@ -272,9 +292,6 @@ def main(argv=None) -> int:
                     help="the portrait-blur tail (coarse-mode refine)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.mode in ("4k", "4k_tiled"):
-        raise NotImplementedError(
-            f"--mode {args.mode}: 4K tiling is not ported yet (ROADMAP A.8)")
     if args.mode == "multistream":
         raise NotImplementedError(
             "--mode multistream is not ported yet (ROADMAP A.12)")

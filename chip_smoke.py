@@ -104,23 +104,43 @@ Phases (any failure exits nonzero and prints no result line):
      kernels also the tile edge, block count and shared memory each
      site's launch chose
   7. where a frame's time goes on the planar chunk body: host time per
-     stage (pad and stage, H2D, body or replay enqueue, D2H wait) for the
-     eager body with the old staging (numpy pad and concatenation, a
-     pinned copy and a pinned output per chunk) and for the graph with the
-     pipeline's staging, in turns; the body's wall time, eager and
+     stage (pad and stage, H2D, replay enqueue, D2H wait) for the graph
+     with the pipeline's staging, twice; the body's wall time, eager and
      replayed; device time by kernel group, by kernel (the body's six:
      ingest, GF, refine and the three tensor-core planar kernels, each
      required) and by kernel file (torch.profiler); checks that the planar
-     body launches no library convolution or GEMM; fps of the old loop
-     against convert_video on 64 frames in turns; the device's busy share
-     under VideoPipeline.run and under the old loop (profiler device time
-     over the run's wall time)
+     body launches no library convolution or GEMM and that the port
+     kernels the device ran in 4 replays equal the wrappers' booked
+     launches; fps of convert_video on 64 frames, twice; the device's busy
+     share under VideoPipeline.run (profiler device time over the run's
+     wall time)
   I. matte_image at 512x512 (preset_pr1_image) for the base, trimap and
      plate families and a mask, card against CPU (MAD <= 1e-4) under
      PyTorch's default flags, ms per image; the fp32 repair (the session's
      parity mode card against CPU, max |d| <= 1e-4, with TF32 left
      allowed logged beside it)
-  T. bench_torch.py's 1080p, 480p and e2e records
+  K. video_4k (ratio 0.125, tiles of 1024 with an overlap of 128, chunk
+     1): phase 2's checks of ingest, GF (15 coarse tiles in one launch)
+     and the packed tail at the launch shapes of 3840x2176 frames (pool
+     8); convert_video on the 3840x2160 crops of 16 synthetic frames (no
+     integer pool: GF and composite_rgba_packed, untiled, as in the JAX
+     package) and on the 3840x2176 frames (the tiled fused tail): fps and
+     set-up, launches per frame (2 / 4 / 3 / 1 / 1 / 1 for planar_conv /
+     planar_conv2 / planar_conv_gru / ingest / GF / refine at 2176),
+     bytes against the plain body (worst-frame mean |d| <= 0.5 LSB, max
+     <= 2), at 2176 the tiled alpha against the untiled fused tail (on a
+     noise frame max <= 3, mean < 0.05 LSB, JAX's own case; on the clip
+     logged), the per-stage host times (pad, H2D, enqueue,
+     D2H wait) and device time by kernel; the bf16
+     MattingSession(2176, 3840) tiled against its plain twin (alpha and
+     fgr mean |d| <= 2e-3, max <= 8e-3)
+  A. trimap video and segmentation on 1920x1080 frames: trimap_prop_demo
+     through the planar net on the video_1080p pipeline from a keyframe
+     trimap and from a keyframe mask (4-channel ingest, the chunk graph),
+     the same checkpoint as F.conv2d with per-frame trimaps, and
+     output_segmentation with seg_demo through the planar net: launches,
+     fps, bytes against the plain body (mean <= 0.5 LSB, max <= 2)
+  T. bench_torch.py's 1080p, 480p, e2e, 4k and 4k_tiled records
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -243,7 +263,9 @@ def main_path_inputs(net, frame_u8, state_hw):
 def gf_one_launch(guide, p, *args):
     """guided_filter_coeffs(guide, p, *args), checking that the call
     launches its kernel once and allocates nothing beside its two
-    outputs (no scratch grid)."""
+    outputs (no scratch grid): its peak growth is at most what allocating
+    two tensors like its outputs takes (the caching allocator rounds
+    large blocks up)."""
     import torch
 
     from vidmat_torch.ops.gf import guided_filter_coeffs
@@ -255,7 +277,11 @@ def gf_one_launch(guide, p, *args):
     torch.cuda.synchronize()
     grew = torch.cuda.max_memory_allocated() - mem
     assert guided_filter_coeffs.launches == before + 1
-    assert grew <= nbytes(ka, kb) + 1024, (grew, nbytes(ka, kb))
+    mem = torch.cuda.memory_allocated()
+    like = (torch.empty_like(ka), torch.empty_like(kb))
+    outputs = torch.cuda.memory_allocated() - mem
+    del like
+    assert grew <= outputs + 1024, (grew, outputs, nbytes(ka, kb))
     return ka, kb
 
 
@@ -1431,6 +1457,388 @@ def phase_backgrounds(kernels, gpu, dev):
     return res
 
 
+# The video_4k preset (vidmat/config.py:188-193) at ratio 0.125. The coarse
+# grid snaps to multiples of 16: 3840x2176 frames (bench.py's 4K shape)
+# give 272x480, pool 8, which the s2d=2 net pads to 288x480 (the 1080p
+# state grid); tiles of 1024 with an overlap of 128, so coarse tiles of 128
+# with an overlap of 16: 3 x 5 = 15 tiles in one GF launch. 3840x2160
+# frames (their /16 bucket keeps 2160) snap to the same 272x480 grid, no
+# integer pool of 2160: the untiled guided tail, as in the JAX package.
+H4K, W4K, RATIO_4K = 2176, 3840, 0.125
+H4K_SRC = 2160
+TILE_4K, OVERLAP_4K = 1024, 128
+K_FRAMES = 16
+
+
+def frames_4k(n, seed=8):
+    """n synthetic 3840x2176 frames of the moving-disk clip and their
+    ground-truth alphas, made on 4 host threads (numpy releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vidmat_torch.io.fixtures import synthetic_frame
+
+    with ThreadPoolExecutor(4) as ex:
+        out = list(ex.map(lambda i: synthetic_frame(H4K, W4K, i / n, seed),
+                          range(n)))
+    return [f for f, _ in out], [a[..., 0] for _, a in out]
+
+
+def inputs_4k(net, dev):
+    """The 4K path's tail-kernel inputs for one frame, by the plain
+    versions: the frame (1, 2176, 3840, 3) u8, the guide and signals cut
+    into the 15 coarse tiles ((15, 128, 128, 1) and (..., 4) f32), and the
+    blended coefficient grids (1, 272, 480, 4) f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from vidmat_torch.ops.gf import guided_filter_coeffs_plain
+    from vidmat_torch.ops.guided_filter import gray_guide
+    from vidmat_torch.ops.ingest import ingest_pool_normalize_plain
+    from vidmat_torch.refine.tiling import (TileLayout, tile_frame,
+                                            untile_frame)
+
+    frame = torch.from_numpy(frames_4k(1, seed=13)[0][0][None]).to(dev)
+    x = ingest_pool_normalize_plain(frame, pool=8)
+    nh, nw = x.shape[1:3]
+    xp = F.pad(x.permute(0, 3, 1, 2), (0, -nw % 32, 0, -nh % 32),
+               mode="replicate").permute(0, 2, 3, 1)
+    with torch.inference_mode():
+        alpha, fgr, _ = net(xp, net.init_state(1, *xp.shape[1:3]),
+                            plain=True)
+    lay = TileLayout(nh, nw, TILE_4K // 8, OVERLAP_4K // 8)
+    guide = tile_frame(gray_guide(x.float()), lay)
+    p = tile_frame(torch.cat([alpha[:, :nh, :nw], fgr[:, :nh, :nw]],
+                             -1).float(), lay)
+    ta, tb = guided_filter_coeffs_plain(guide, p)
+    return dict(frame=frame, guide=guide, p=p,
+                ma=untile_frame(ta, lay, 1).contiguous(),
+                mb=untile_frame(tb, lay, 1).contiguous(), layout=lay)
+
+
+def phase_4k_kernels(net, dev):
+    """Phase 2 at the 4K path's launch shapes: ingest at pool 8 on one
+    3840x2176 frame (bit-exact), the GF kernel on the 15-tile batch
+    (bit-exact, one launch), the packed tail at pool 8 (bytes within +-1).
+    Returns (errs {row: max |d|}, inputs)."""
+    import torch
+
+    from vidmat_torch.ops.gf import guided_filter_coeffs_plain
+    from vidmat_torch.ops.ingest import (ingest_pool_normalize,
+                                         ingest_pool_normalize_plain)
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain)
+
+    inp = inputs_4k(net, dev)
+    fr, gd, p = inp["frame"], inp["guide"], inp["p"]
+    xi = ingest_pool_normalize(fr, pool=8)
+    d_ing = float((xi.float() - ingest_pool_normalize_plain(
+        fr, pool=8).float()).abs().max())
+    ka, kb = gf_one_launch(gd, p)
+    pa, pb = guided_filter_coeffs_plain(gd, p)
+    d_gf = max(float((ka - pa).abs().max()), float((kb - pb).abs().max()))
+    out = fused_refine_composite(fr, inp["ma"], inp["mb"], None, 8)
+    want = fused_refine_composite_plain(fr, inp["ma"], inp["mb"], None, 8)
+    db = (out.view(torch.uint8).int() - want.view(torch.uint8).int()).abs()
+    torch.cuda.synchronize()
+    log(f"[2] 4K launch shapes: ingest pool 8 {tuple(fr.shape)} max |d| "
+        f"{d_ing:.3g}; GF on {tuple(gd.shape[:3])} tiles max |d| "
+        f"{d_gf:.3g} (one launch); refine pool 8 bytes max |d| "
+        f"{int(db.max())}, unequal {int((db > 0).sum())} of {db.numel()}")
+    assert d_ing == 0 and d_gf == 0 and int(db.max()) <= 1
+    return {"ingest_pool_normalize (4K)": d_ing,
+            "guided_filter_coeffs (4K tiled)": d_gf,
+            "fused_refine_composite (4K)": float(db.max())}, inp
+
+
+def phase_4k(kernels, gpu, dev):
+    """Phase K: convert_video with video_4k, a sink keeping every alpha,
+    (a) on the 3840x2160 crops of 16 synthetic frames (the untiled guided
+    tail the JAX package takes there: GF and composite_rgba_packed) and
+    (b) on the 3840x2176 frames (the tiled fused tail): fps (set-up in the
+    first observation) and setup_ms; launches per frame against what the
+    wrappers book; the bytes against the same frames through the plain
+    body; for (b) the tiled alpha against the untiled fused tail, the
+    per-stage host times of the per-frame body with the pipeline's
+    staging and its device time by kernel; then the bf16
+    MattingSession(2176, 3840) with tiling against its plain twin."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vidmat_torch import MattingSession, convert_video, preset_video_4k
+    from vidmat_torch.io.native import pad_into
+    from vidmat_torch.models.weights import build_network, default_variables
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+    from vidmat_torch.pipeline.stepper import VideoStepper
+    from vidmat_torch.pipeline.video import Downloads, Uploads
+    from vidmat_torch.utils.metrics import mad
+
+    mcfg, pcfg = preset_video_4k()
+    t0 = time.perf_counter()
+    frames, gt = frames_4k(K_FRAMES)
+    log(f"[K] {K_FRAMES} frames {W4K}x{H4K} made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    preset = dict(model_cfg=mcfg, pipe_cfg=pcfg)
+    net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
+                        device=dev)
+
+    # (a) 3840x2160: no integer pool, the untiled guided tail.
+    crops = [f[:H4K_SRC] for f in frames]
+    convert_video(crops[:2], output_alpha=lambda a: None, **preset)
+    src_alphas = []
+    zero_counts(kernels)
+    ms = convert_video(crops, output_alpha=src_alphas.append, **preset)
+    src_launches = counts(kernels)
+    assert ms["frames"] == K_FRAMES and len(src_alphas) == K_FRAMES, ms
+    assert src_launches == expect(kernels, dict(
+        PLANAR_PER_FRAME, guided_filter_coeffs=1, composite_rgba_packed=1),
+        K_FRAMES), src_launches
+    src_twin = twin_bytes(net, mcfg, pcfg, crops, src_alphas, dev,
+                          alpha_only=True, tile_size=pcfg.tile_size,
+                          tile_overlap=pcfg.tile_overlap)
+    log(f"[K] (a) convert_video video_4k on {W4K}x{H4K_SRC}, {K_FRAMES} "
+        f"frames (coarse grid 272x480, no integer pool: the untiled "
+        f"guided tail): fps {ms['fps']:.2f} (set-up {ms['setup_ms']:.1f} "
+        f"ms), p50 {ms['p50_ms']:.3f} ms; bytes vs the plain body "
+        f"worst-frame mean |d| {src_twin[0]:.4g}, max {src_twin[1]:.0f}; "
+        f"launches {src_launches} ({gpu})")
+
+    # (b) 3840x2176: pool 8, the tiled fused tail.
+    convert_video(frames[:2], output_alpha=lambda a: None, **preset)
+    alphas = []
+    zero_counts(kernels)
+    m = convert_video(frames, output_alpha=alphas.append, **preset)
+    launches = counts(kernels)
+    want = expect(kernels, dict(PLANAR_PER_FRAME, ingest_pool_normalize=1,
+                                guided_filter_coeffs=1,
+                                fused_refine_composite=1), K_FRAMES)
+    assert m["frames"] == K_FRAMES and len(alphas) == K_FRAMES, m
+    assert alphas[0].shape == (H4K, W4K)
+    assert launches == want, (launches, want)
+    twin = twin_bytes(net, mcfg, pcfg, frames, alphas, dev, alpha_only=True,
+                      tile_size=pcfg.tile_size,
+                      tile_overlap=pcfg.tile_overlap)
+    untiled = []
+    upcfg = dataclasses.replace(pcfg, tile_size=None)
+    mu = convert_video(frames, output_alpha=untiled.append, model_cfg=mcfg,
+                       pipe_cfg=upcfg)
+    d = np.abs(np.stack(alphas).astype(np.int16) - np.stack(untiled))
+    # JAX's own tiled-vs-untiled check is on a uniform-noise frame
+    # (tests/unit/test_fused_tiled_tail.py:49-65); on the moving-disk clip
+    # the tiles' edge statistics move more bytes, in the JAX package too
+    # (tests/test_torch_tiling.py::test_tiled_alpha_near_untiled), so the
+    # clip's distance is logged, not bounded.
+    noise = [np.random.RandomState(0).randint(0, 255, (H4K, W4K, 3),
+                                              np.uint8)]
+    nt, nu = [], []
+    convert_video(noise, output_alpha=nt.append, **preset)
+    convert_video(noise, output_alpha=nu.append, model_cfg=mcfg,
+                  pipe_cfg=upcfg)
+    dn = np.abs(nt[0].astype(np.int16) - nu[0])
+    alpha_mad = float(np.mean([mad(a.astype(np.float32) / 255.0, g)
+                               for a, g in zip(alphas, gt)]))
+    log(f"[K] (b) convert_video video_4k on {W4K}x{H4K}, {K_FRAMES} "
+        f"frames: fps "
+        f"{m['fps']:.2f} (set-up {m['setup_ms']:.1f} ms in the first "
+        f"observation), p50 {m['p50_ms']:.3f} ms; untiled (tile_size=None) "
+        f"fps {mu['fps']:.2f}; launches {launches} ({gpu})")
+    log(f"    bytes vs the plain body worst-frame mean |d| {twin[0]:.4g}, "
+        f"max {twin[1]:.0f}; tiled vs untiled alpha on a noise frame mean "
+        f"|d| {float(dn.mean()):.4g}, max {int(dn.max())}; on the clip mean "
+        f"|d| {float(d.mean()):.4g}, max {int(d.max())}, unequal "
+        f"{int((d > 0).sum())} of {d.size}; alpha MAD vs ground truth "
+        f"{alpha_mad:.5f} (untiled "
+        f"{float(np.mean([mad(a.astype(np.float32) / 255.0, g) for a, g in zip(untiled, gt)])):.5f})")
+    assert int(dn.max()) <= 3 and float(dn.mean()) < 0.05, (dn.max(),
+                                                            dn.mean())
+
+    # Host stages of the per-frame body with the pipeline's staging, each
+    # waited; then the body alone on a device-resident frame.
+    body, plan = build_serving_body(net, mcfg, pcfg.refine, H4K, W4K,
+                                    RATIO_4K, alpha_only=True,
+                                    tile_size=pcfg.tile_size,
+                                    tile_overlap=pcfg.tile_overlap)
+    up, outs = Uploads((1, H4K, W4K, 3), torch.uint8, dev), Downloads(1, dev)
+    st = plan.make_state(1)
+    t = {"pad": 0.0, "h2d": 0.0, "enqueue": 0.0, "d2h": 0.0}
+    for i, f in enumerate(frames[:2] + frames):
+        a = time.perf_counter()
+        pad_into(f, up.slot().numpy()[0])
+        b = time.perf_counter()
+        x = up.send(1)
+        torch.cuda.synchronize()
+        c = time.perf_counter()
+        out, st = body(x, st)
+        e0 = time.perf_counter()
+        j = outs.open(out)
+        outs.put(j, 0, out)
+        handle = outs.close(j, 1, False)
+        outs.read(handle)
+        outs.release(handle)
+        e = time.perf_counter()
+        if i >= 2:  # two unrecorded frames
+            for k, v in zip(t, (b - a, c - b, e0 - c, e - e0)):
+                t[k] += v * 1e3 / K_FRAMES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        _, st = body(x, st)
+    torch.cuda.synchronize()
+    body_ms = (time.perf_counter() - t0) * 1e3 / 8
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        settle()
+        for _ in range(4):
+            _, st = body(x, st)
+        settle()
+    by_kernel = {}
+    kern_ms, copy_ms = device_ms(prof, by_kernel)
+    ours = sum(by_kernel.values()) / 4
+    log(f"[K] per 4K frame, stages each waited: pad_into {t['pad']:.3f} + "
+        f"H2D {t['h2d']:.3f} + body enqueue {t['enqueue']:.3f} + D2H wait "
+        f"{t['d2h']:.3f} = {sum(t.values()):.3f} ms; the body alone "
+        f"{body_ms:.3f} ms wall; device kernels {kern_ms / 4:.3f} ms/frame "
+        f"(port kernels {ours:.3f}: " + ", ".join(
+            f"{k} {v / 4:.4f}" for k, v in sorted(by_kernel.items()))
+        + f"; other PyTorch kernels {kern_ms / 4 - ours:.3f})")
+
+    # The bf16 session at 4K with tiling (the tiled float tail) against
+    # its plain twin.
+    kw = dict(downsample_ratio=RATIO_4K, tile_size=TILE_4K,
+              tile_overlap=OVERLAP_4K)
+    sess = MattingSession(H4K, W4K, model_cfg=mcfg, dtype="bfloat16", **kw)
+    plain = VideoStepper(mcfg, H4K, W4K, dtype="bfloat16", device=dev,
+                         kernels=False, **kw)
+    assert sess._stepper._plan.pool == 8 and not sess._stepper._plan.packed
+    zero_counts(kernels)
+    worst_mean = worst_max = 0.0
+    t0 = time.perf_counter()
+    souts = [sess.step(f) for f in frames[:4]]
+    sess_ms = (time.perf_counter() - t0) * 1e3 / 4
+    s_launches = counts(kernels)
+    for f, (ka, kf) in zip(frames[:4], souts):
+        pa, pf = plain.step(f)
+        for k, p_ in ((ka, pa), (kf, pf)):
+            dd = np.abs(k - p_)
+            worst_mean = max(worst_mean, float(dd.mean()))
+            worst_max = max(worst_max, float(dd.max()))
+    log(f"[K] MattingSession({H4K}, {W4K}) bf16 tiled, 4 frames: "
+        f"{sess_ms:.2f} ms a step (the first builds); kernels vs plain "
+        f"alpha/fgr worst-frame mean |d| {worst_mean:.3g}, max "
+        f"{worst_max:.3g}; launches {s_launches}")
+    assert s_launches == expect(kernels, dict(
+        PLANAR_PER_FRAME, ingest_pool_normalize=1, guided_filter_coeffs=1,
+        fused_refine_float=1), 4), s_launches
+    assert worst_mean <= 2e-3 and worst_max <= 8e-3, (worst_mean, worst_max)
+    return dict(fps=m["fps"], setup_ms=m["setup_ms"], launches=launches,
+                src=dict(fps=ms["fps"], setup_ms=ms["setup_ms"],
+                         launches=src_launches, twin=src_twin),
+                twin=twin, tiled_vs_untiled=(float(d.mean()), int(d.max())),
+                noise_tiled_vs_untiled=(float(dn.mean()), int(dn.max())),
+                stages=t, body_ms=body_ms, by_kernel=by_kernel,
+                session=dict(mean=worst_mean, max=worst_max, ms=sess_ms))
+
+
+def phase_trimap(kernels, gpu, dev):
+    """Phase A: trimap video, mask sources and the segmentation output on
+    1920x1080 frames. (a) trimap_prop_demo through the planar net on the
+    video_1080p pipeline (chunk 4, the chunk body and its graph) with a
+    keyframe trimap; (b) the same from a keyframe mask; (c) the same
+    checkpoint as F.conv2d with a per-frame trimap stream (the per-frame
+    body); (d) output_segmentation with seg_demo through the planar net
+    at ratio 0.25. Launch counts, fps, and the bytes against the same
+    frames through the plain body (worst-frame mean |d| <= 0.5 LSB, max
+    <= 2)."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch import ModelConfig, convert_video, preset_video_1080p
+    from vidmat_torch.models.weights import (build_network,
+                                             default_variables,
+                                             seg_default_variables)
+    from vidmat_torch.io.reader import pad_frame
+    from vidmat_torch.pipeline.stepper import VideoStepper
+    from vidmat_torch.pipeline.trimap import trimap_from_mask
+    from vidmat_torch.pipeline.video import attach_trimap
+
+    _, pcfg = preset_video_1080p()
+    frames, gt = clip(BG_FRAMES, seed=5)
+    tris = [np.where(a > 0.99, 255, np.where(a < 0.01, 0, 128)).astype(
+        np.uint8) for a in gt]
+    mask = (gt[0] > 0.5).astype(np.uint8) * 255
+    res = {}
+
+    def run(name, mcfg, src_kw, per_frame, want, n=BG_FRAMES):
+        net = build_network(mcfg, default_variables(mcfg),
+                            dtype=torch.bfloat16, device=dev)
+        convert_video(frames[:4], output_alpha=lambda a: None,
+                      model_cfg=mcfg, pipe_cfg=pcfg, **src_kw)  # warm-up
+        outs = []
+        zero_counts(kernels)
+        m = convert_video(frames[:n], output_alpha=outs.append,
+                          model_cfg=mcfg, pipe_cfg=pcfg, **src_kw)
+        launches = counts(kernels)
+        assert m["frames"] == n and len(outs) == n, m
+        assert launches == want, (name, launches, want)
+        with_tri = [attach_trimap(f, t, i) for i, (f, t) in enumerate(
+            zip(frames[:n], per_frame))]
+        twin = twin_bytes(net, mcfg, pcfg, with_tri, outs, dev,
+                          alpha_only=True)
+        log(f"[A] ({name}) {n} frames: fps {m['fps']:.2f} ({gpu}); bytes "
+            f"vs plain twin worst-frame mean |d| {twin[0]:.4g}, max "
+            f"{twin[1]:.0f}; launches {launches}")
+        res[name] = dict(fps=m["fps"], launches=launches, twin=twin)
+
+    prop = ModelConfig(use_trimap=True, space_to_depth=2, conv_impl="planar")
+    unknown = np.full(tris[0].shape, 128, np.uint8)
+    run("a: keyframe trimap, planar", prop, dict(trimap_source=tris[0]),
+        [tris[0]] + [unknown] * (BG_FRAMES - 1),
+        chunked(kernels, BG_FRAMES))
+    run("b: keyframe mask, planar", prop, dict(mask_source=mask),
+        [trimap_from_mask(mask)] + [unknown] * (BG_FRAMES - 1),
+        chunked(kernels, BG_FRAMES))
+    n = BG_FRAMES // 2
+    run("c: per-frame trimaps, F.conv2d",
+        ModelConfig(use_trimap=True, space_to_depth=2),
+        dict(trimap_source=tris), tris, expect(kernels, dict(
+            ingest_pool_normalize=1, guided_filter_coeffs=1,
+            fused_refine_composite=1), n), n=n)
+
+    # (d) the segmentation stream: bf16 on the card through the planar
+    # net, against a plain segmentation stepper on the same frames.
+    scfg = ModelConfig(conv_impl="planar")
+    convert_video(frames[:2], output_segmentation=lambda a: None,
+                  model_cfg=scfg, downsample_ratio=RATIO)
+    segs = []
+    zero_counts(kernels)
+    m = convert_video(frames[:n], output_segmentation=lambda a: segs.append(
+        a.copy()), model_cfg=scfg, downsample_ratio=RATIO)
+    launches = counts(kernels)
+    assert m["frames"] == n and len(segs) == n, m
+    assert launches == expect(kernels, dict(PLANAR_PER_FRAME,
+                                            ingest_pool_normalize=1),
+                              n), launches
+    plain = VideoStepper(scfg, H, W, variables=seg_default_variables(scfg),
+                         downsample_ratio=RATIO, dtype="bfloat16",
+                         output="seg", device=dev, kernels=False)
+    worst_mean = worst_max = 0.0
+    for f, got in zip(frames[:n], segs):
+        mask_p, _ = plain.step(pad_frame(f, H, W)[0])
+        want = np.round(mask_p[:FRAME_H, :, 0] * 255.0).astype(np.int16)
+        dd = np.abs(want - got[..., 0].astype(np.int16))
+        worst_mean = max(worst_mean, float(dd.mean()))
+        worst_max = max(worst_max, float(dd.max()))
+    log(f"[A] (d: output_segmentation, seg_demo, planar) {n} frames: fps "
+        f"{m['fps']:.2f}; mask bytes vs plain worst-frame mean |d| "
+        f"{worst_mean:.4g}, max {worst_max:.0f}; launches {launches}")
+    assert worst_mean <= 0.5 and worst_max <= 2, (worst_mean, worst_max)
+    res["d: output_segmentation"] = dict(fps=m["fps"], launches=launches,
+                                         twin=(worst_mean, worst_max))
+    return res
+
+
 def phase_int8_probe(kernels):
     """The int8 planes probe (vidmat_torch/tools/bench_int8_planes.py) with
     3 repeats: both legs' ms per layer-batch beside their bytes bounds.
@@ -1707,6 +2115,42 @@ def tail_rows(inputs, bg_inputs, tail):
     return rows
 
 
+def rows_4k(inp):
+    """Phase 6's rows of the kernels at the 4K path's launch shapes (one
+    3840x2176 frame at pool 8; the GF kernel on the 15 coarse tiles)."""
+    from vidmat_torch.ops.gf import (guided_filter_coeffs,
+                                     guided_filter_coeffs_plain)
+    from vidmat_torch.ops.ingest import (ingest_pool_normalize,
+                                         ingest_pool_normalize_plain)
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain)
+
+    fr, gd, p, a, b = (inp[k] for k in ("frame", "guide", "p", "ma", "mb"))
+    x = ingest_pool_normalize(fr, pool=8)
+    ta, tb = guided_filter_coeffs(gd, p)
+    packed = fused_refine_composite(fr, a, b, None, 8)
+    px = fr.shape[1] * fr.shape[2]
+    taps = 2 * (2 * 4 + 1)
+    return {
+        "ingest_pool_normalize (4K)": {"1 frame": dict(
+            kernel=lambda: ingest_pool_normalize(fr, pool=8),
+            plain=lambda: ingest_pool_normalize_plain(fr, pool=8),
+            bytes=nbytes(fr, x), ops=fr.numel() + 4 * x.numel(),
+            peak=F32_FLOPS_PER_S)},
+        "guided_filter_coeffs (4K tiled)": {"1 frame": dict(
+            kernel=lambda: guided_filter_coeffs(gd, p),
+            plain=lambda: guided_filter_coeffs_plain(gd, p),
+            bytes=nbytes(gd, p, ta, tb),
+            ops=gd.numel() * (18 * taps + 5 + 18 + 24),
+            peak=F32_FLOPS_PER_S)},
+        "fused_refine_composite (4K)": {"1 frame": dict(
+            kernel=lambda: fused_refine_composite(fr, a, b, None, 8),
+            plain=lambda: fused_refine_composite_plain(fr, a, b, None, 8),
+            bytes=nbytes(fr, a, b, packed),
+            ops=px * (8 * 9 + 6 + 16 + 9 + 12), peak=F32_FLOPS_PER_S)},
+    }
+
+
 def time_case(case):
     """Cold-L2 times of one case of a row, beside its bound."""
     ms = time_cold(case["kernel"])
@@ -1746,8 +2190,9 @@ def floor_line(moved):
     return res
 
 
-def phase_timing(inputs, sites, tail, bg_inputs):
+def phase_timing(inputs, sites, tail, bg_inputs, inp4k):
     rows = tail_rows(inputs, bg_inputs, tail)
+    rows.update(rows_4k(inp4k))
     chunk = f"{CHUNK} frames"
     # A copy_ of the bytes of each bytes-bound tail row at its launch shape.
     floor = floor_line({
@@ -1757,7 +2202,9 @@ def phase_timing(inputs, sites, tail, bg_inputs):
                             ("fused_refine_float", "1 frame"),
                             ("composite_rgba_packed", "1 frame"),
                             ("composite_rgba_packed 1088x1920", "1 frame"),
-                            ("int8_conv", "1 frame"))})
+                            ("int8_conv", "1 frame"),
+                            ("ingest_pool_normalize (4K)", "1 frame"),
+                            ("fused_refine_composite (4K)", "1 frame"))})
     out = {"floor": floor}
     for name, cases in rows.items():
         res = {label: time_case(case) for label, case in cases.items()}
@@ -1849,86 +2296,6 @@ LIBRARY_CONV = ("conv", "cudnn", "xmma", "gemm", "implicit", "wgrad",
                 "dgrad", "nchwtonhwc", "nhwctonchw", "cutlass")
 
 
-class OldTransfers:
-    """The pipeline's staging before its host side was rebuilt (its
-    former ``_Transfers``): each chunk copied into freshly pinned memory
-    and a pinned output allocated per call. Phase 7's yardstick only."""
-
-    def __init__(self, device):
-        self.device = device
-
-    def to_device(self, arr):
-        import numpy as np
-        import torch
-
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        return t.pin_memory().to(self.device, non_blocking=True)
-
-    @staticmethod
-    def to_host(out):
-        import torch
-
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return host, ev
-
-    @staticmethod
-    def wait(handle):
-        host, ev = handle
-        ev.synchronize()
-        return host.numpy()
-
-
-def old_convert(make_net, make_plan, frames, dev):
-    """The loop convert_video ran before the native staging and the chunk
-    graph, on the chunk body, alpha-only: numpy edge pad per frame, a
-    concatenation and a pinned copy per chunk, the eager chunk body, a
-    pinned output per chunk waited one chunk later, each frame's alpha
-    handed to a sink that drops it. make_net() builds the network (what
-    VideoPipeline.__init__ does), make_plan(net) the bucket's plan (what
-    run() does before its first chunk). Returns fps over run()'s window
-    (from before the plan is built to the last chunk's observation, as
-    convert_video's fps) and over the whole call (``wall_fps``)."""
-    import numpy as np
-
-    from vidmat_torch.io.reader import pad_frame
-
-    def flush(handle):
-        for a in xfer.wait(handle):
-            sink(a[:FRAME_H, :FRAME_W])
-
-    def sink(a):
-        pass
-
-    xfer = OldTransfers(dev)
-    t0 = time.perf_counter()
-    net = make_net()
-    t1 = t_last = time.perf_counter()
-    plan = None
-    pending = None
-    buf = []
-    for f in frames:
-        if plan is None:
-            plan = make_plan(net)
-            st = plan.make_state(1)
-        buf.append(pad_frame(f, H, W))
-        if len(buf) < CHUNK:
-            continue
-        out, st = plan.chunk_body(xfer.to_device(np.concatenate(buf)), st)
-        buf = []
-        handle = xfer.to_host(out)
-        if pending is not None:
-            flush(pending)
-        pending = handle
-        t_last = time.perf_counter()
-    flush(pending)
-    t_end = time.perf_counter()
-    return dict(fps=len(frames) / (t_last - t1),
-                wall_fps=len(frames) / (t_end - t0))
-
-
 def device_ms(prof, by_kernel=None):
     """Device time (ms) in a profiler window: kernels, and copies (the
     memcpy and memset events), summed over the window."""
@@ -1950,12 +2317,15 @@ def device_ms(prof, by_kernel=None):
 
 
 def settle():
-    """Wait for the device, then 50 ms more. Inside a profiler window,
-    before and after the work it reads: device events near the window's
-    edges can go unrecorded (phase 7 once lost the first 1.3 of 4 graph
-    replays' kernels from a window opened right before them)."""
+    """Launch one small kernel that is not the port's, wait for the device,
+    then 50 ms more. Inside a profiler window, before and after the work it
+    reads: device events near the window's edges can go unrecorded (phase
+    7 once lost the first 1.3 of 4 graph replays' kernels from a window
+    opened right before them, and after the 50 ms wait alone the first
+    replay's ingest, the window's first kernel)."""
     import torch
 
+    torch.ones(1, device="cuda").add_(1)
     torch.cuda.synchronize()
     time.sleep(0.05)
 
@@ -2027,24 +2397,20 @@ def staging_rates():
 
 def phase_profile(net, dev):
     """Where a frame's time goes on the planar chunk body. (a) Host time of
-    each stage, each waited, over 8 chunks: the eager chunk body with the
-    old staging (numpy pad and concatenation, a pinned copy and a pinned
-    output per chunk) against the graph with the pipeline's staging
-    (pad_into into a reused pinned chunk, one H2D, one replay, D2H into a
-    reused pinned buffer). (b) Wall time of the body alone on
-    device-resident chunks, eager and as graph replays, and device time by
-    kernel group and kernel from torch.profiler (full table in
-    chiprun_out/chip_smoke/profile.txt); fails if the planar body launches
-    a library convolution or GEMM, or if the port kernels the device ran
-    in 4 graph replays differ from the launches the wrappers book for
-    them. (c) fps of the old loop against convert_video over the same 64
-    frames, in turns (old, new, new, old), each building its network and
-    bucket (and the new one capturing its graph) in the call: over run()'s
-    window and over the whole call.
-    (d) The device's busy share under VideoPipeline.run (what
-    convert_video runs, its graph captured by a warm run) and under the
-    old loop: device time from the profiler over the run / the run's
-    wall time."""
+    each stage, each waited, over 8 chunks, twice: the graph with the
+    pipeline's staging (pad_into into a reused pinned chunk, one H2D, one
+    replay, D2H into a reused pinned buffer). (b) Wall time of the body
+    alone on device-resident chunks, eager and as graph replays, and
+    device time by kernel group and kernel from torch.profiler (full table
+    in chiprun_out/chip_smoke/profile.txt); fails if the planar body
+    launches a library convolution or GEMM, or if the port kernels the
+    device ran in 4 graph replays differ from the launches the wrappers
+    book for them. (c) fps of convert_video over 64 frames, twice, each
+    call building its network and bucket and capturing its graph: over
+    run()'s window and over the whole call. (d) The device's busy share
+    under VideoPipeline.run (what convert_video runs, its graph captured
+    by a warm run): device time from the profiler over the run / the
+    run's wall time."""
     import numpy as np
     import torch
 
@@ -2052,7 +2418,6 @@ def phase_profile(net, dev):
     from vidmat_torch.config import preset_video_1080p
     from vidmat_torch.io.native import pad_into
     from vidmat_torch.io.reader import pad_frame
-    from vidmat_torch.models.weights import build_network, default_variables
     from vidmat_torch.pipeline.graph import ChunkGraph
     from vidmat_torch.pipeline.stepfactory import build_serving_body
     from vidmat_torch.pipeline.video import Downloads, Uploads, VideoPipeline
@@ -2062,11 +2427,10 @@ def phase_profile(net, dev):
                                  alpha_only=True)
     body = plan.chunk_body
     frames = clip(CHUNK, seed=3)[0]
-    xfer = OldTransfers(dev)
     n = 8  # chunks
     st = plan.make_state(1)
     host = np.concatenate([pad_frame(f, H, W) for f in frames])
-    dev_chunk = xfer.to_device(host)
+    dev_chunk = torch.from_numpy(host).to(dev)
     for _ in range(2):
         _, st = body(dev_chunk, st)
     up, outs = Uploads((CHUNK, H, W, 3), torch.uint8, dev), Downloads(
@@ -2074,20 +2438,6 @@ def phase_profile(net, dev):
     up.dev.copy_(dev_chunk)
     graph = ChunkGraph(body, up.dev, plan.make_state(1))
     torch.cuda.synchronize()
-
-    def old_chunk(t):
-        nonlocal st
-        a = time.perf_counter()
-        hc = np.concatenate([pad_frame(f, H, W) for f in frames])
-        b = time.perf_counter()
-        x = xfer.to_device(hc)
-        c = time.perf_counter()
-        out, st = body(x, st)
-        d = time.perf_counter()
-        xfer.wait(xfer.to_host(out))
-        e = time.perf_counter()
-        for k, v in zip(t, (b - a, c - b, d - c, e - d)):
-            t[k] += v
 
     gst = graph.state
 
@@ -2113,32 +2463,22 @@ def phase_profile(net, dev):
 
     rates = staging_rates()
     per = 1e3 / (n * CHUNK)
-    split = {}
-    for name, fn in (("old", old_chunk), ("new", new_chunk),
-                     ("new ", new_chunk), ("old ", old_chunk)):
+    split = []
+    for _ in range(2):
         t = {"pad": 0.0, "h2d": 0.0, "body": 0.0, "d2h": 0.0}
-        fn(dict(t))  # one unrecorded chunk
+        new_chunk(dict(t))  # one unrecorded chunk
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            fn(t)
+            new_chunk(t)
         seq = (time.perf_counter() - t0) * per
-        split.setdefault(name.strip(), []).append(
-            dict({k: v * per for k, v in t.items()}, seq=seq))
-    for name, label, stages in (
-            ("old", "eager body, old staging", ("numpy pad + concatenate",
-                                                "H2D enqueue (pin + copy)",
-                                                "body enqueue",
-                                                "D2H wait")),
-            ("new", "graph, pipeline staging", ("pad_into pinned slots",
-                                                "H2D enqueue",
-                                                "replay enqueue",
-                                                "D2H wait"))):
-        for r in split[name]:
-            log(f"[7] per frame, chunk {CHUNK}, {label}, sequential (each "
-                f"stage waited): {r['seq']:.3f} ms = " + " + ".join(
-                    f"{lab} {r[k]:.3f}" for lab, k in zip(
-                        stages, ("pad", "h2d", "body", "d2h"))))
+        r = dict({k: v * per for k, v in t.items()}, seq=seq)
+        split.append(r)
+        log(f"[7] per frame, chunk {CHUNK}, graph with the pipeline's "
+            f"staging, sequential (each stage waited): {r['seq']:.3f} ms = "
+            + " + ".join(f"{lab} {r[k]:.3f}" for lab, k in zip(
+                ("pad_into pinned slots", "H2D enqueue", "replay enqueue",
+                 "D2H wait"), ("pad", "h2d", "body", "d2h"))))
 
     # (b) the body alone on a device-resident chunk
     torch.cuda.synchronize()
@@ -2218,72 +2558,44 @@ def phase_profile(net, dev):
     assert set(booked) == set(list(PORT_KERNELS)[:6]), booked
     assert ran == booked, (ran, booked)
 
-    # (c) the old loop against convert_video, in turns. Both build their
-    # network and bucket in the call: fps over run()'s window (set-up, and
-    # on the new side the graph capture, in the first observation) and
-    # over the whole call.
+    # (c) convert_video, building its network and bucket and capturing
+    # its graph in the call: fps over run()'s window (set-up and capture
+    # in the first observation) and over the whole call.
     clip64 = clip(N_FRAMES, seed=0)[0]
     preset = dict(zip(("model_cfg", "pipe_cfg"), preset_video_1080p()))
-
-    def make_net():
-        return build_network(mcfg, default_variables(mcfg),
-                             dtype=torch.bfloat16, device=dev)
-
-    def make_plan(net_):
-        return build_serving_body(net_, mcfg, pcfg.refine, H, W, RATIO,
-                                  alpha_only=True)[1]
-
-    old_convert(lambda: net, lambda _: plan, clip64[:8], dev)  # warm-up
-    fps = {"old": [], "new": []}
-    for name in ("old", "new", "new", "old"):
-        if name == "old":
-            fps[name].append(old_convert(make_net, make_plan, clip64, dev))
-        else:
-            t0 = time.perf_counter()
-            m = convert_video(clip64, output_alpha=lambda a: None, **preset)
-            fps[name].append(dict(
-                fps=m["fps"], wall_fps=N_FRAMES / (time.perf_counter() - t0),
-                setup_ms=m["setup_ms"],
-                graph_capture_ms=m["graph_capture_ms"]))
-    ratio = {k: float(np.median([r[k] for r in fps["new"]])
-                      / np.median([r[k] for r in fps["old"]]))
-             for k in ("fps", "wall_fps")}
-    log(f"    {N_FRAMES} frames alpha-only, in turns old/new/new/old, fps "
-        f"(run()'s window, set-up in it) / fps of the whole call: old loop "
-        f"(eager body, old staging) " + ", ".join(
-            f"{r['fps']:.2f} / {r['wall_fps']:.2f}" for r in fps["old"])
-        + "; convert_video (graph, pipeline staging) " + ", ".join(
+    fps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = convert_video(clip64, output_alpha=lambda a: None, **preset)
+        fps.append(dict(
+            fps=m["fps"], wall_fps=N_FRAMES / (time.perf_counter() - t0),
+            setup_ms=m["setup_ms"], graph_capture_ms=m["graph_capture_ms"]))
+    log(f"    {N_FRAMES} frames alpha-only, convert_video fps (run()'s "
+        f"window, set-up in it) / fps of the whole call: " + ", ".join(
             f"{r['fps']:.2f} / {r['wall_fps']:.2f} (set-up "
             f"{r['setup_ms']:.1f} ms, of which capture "
-            f"{r['graph_capture_ms']:.1f})" for r in fps["new"])
-        + f"; ratio of medians {ratio['fps']:.2f}x (window), "
-        f"{ratio['wall_fps']:.2f}x (whole call)")
+            f"{r['graph_capture_ms']:.1f})" for r in fps))
 
     # (d) the device's busy share under the run
     pipe = VideoPipeline(**preset, device=dev)
     pipe.run(clip64[:8], output_alpha=lambda a: None)  # builds, captures
-    busy = {}
-    for name, run in (
-            ("convert_video", lambda: pipe.run(clip64,
-                                               output_alpha=lambda a: None)),
-            ("old loop", lambda: old_convert(lambda: net, lambda _: plan,
-                                             clip64, dev))):
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as rprof:
+        settle()
+        t0 = time.perf_counter()
+        pipe.run(clip64, output_alpha=lambda a: None)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CUDA]) as rprof:
-            settle()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            settle()
-        kern, copy = device_ms(rprof)
-        busy[name] = dict(wall_ms=wall, kernels_ms=kern, copies_ms=copy,
-                          busy=(kern + copy) / wall)
-        log(f"    busy share under {name} ({N_FRAMES} frames, profiler "
-            f"on): wall {wall:.1f} ms, device kernels {kern:.1f} ms + "
-            f"copies {copy:.1f} ms = {100 * (kern + copy) / wall:.1f}% "
-            f"busy ({100 * kern / wall:.1f}% in kernels)")
+        wall = (time.perf_counter() - t0) * 1e3
+        settle()
+    kern, copy = device_ms(rprof)
+    busy = dict(wall_ms=wall, kernels_ms=kern, copies_ms=copy,
+                busy=(kern + copy) / wall)
+    log(f"    busy share under convert_video ({N_FRAMES} frames, profiler "
+        f"on): wall {wall:.1f} ms, device kernels {kern:.1f} ms + copies "
+        f"{copy:.1f} ms = {100 * (kern + copy) / wall:.1f}% busy "
+        f"({100 * kern / wall:.1f}% in kernels)")
+    assert busy["busy"] > 0, busy
     with open(os.path.join(OUT_DIR, "profile_by_file.json"), "w") as f:
         json.dump(dict(by_file=by_file, groups=groups, body_ms=body_only,
                        graph_body_ms=graph_only, split=split, fps=fps,
@@ -2406,15 +2718,15 @@ def phase_image(dev):
 
 
 def phase_bench():
-    """bench_torch.py's 1080p, 480p and e2e records, each on its own line
-    (the port's bench run in this process)."""
+    """bench_torch.py's 1080p, 480p, e2e, 4k and 4k_tiled records, each on
+    its own line (the port's bench run in this process)."""
     import contextlib
     import io
 
     import bench_torch
 
     recs = {}
-    for mode in ("1080p", "480p", "e2e"):
+    for mode in ("1080p", "480p", "e2e", "4k", "4k_tiled"):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             assert bench_torch.main(["--mode", mode]) == 0
@@ -2454,6 +2766,8 @@ def main() -> int:
     errs.update(tail_errs)
     bg_errs, bg_inputs = phase_bg_kernels(inputs, dev)
     errs.update(bg_errs)
+    errs4k, inp4k = phase_4k_kernels(net, dev)
+    errs.update(errs4k)
     phase_body(net, dev)
     kernels = kernel_wrappers()
     _, _, launches, _ = phase_main_path(kernels, net)
@@ -2465,8 +2779,10 @@ def main() -> int:
     bgs = phase_backgrounds(kernels, gpu, dev)
     for name, e in bgs["e: plate_demo, planar"]["errs"].items():
         errs[name] = max(errs[name], e)
+    k4 = phase_4k(kernels, gpu, dev)
+    phase_trimap(kernels, gpu, dev)
     probe, int8_launches = phase_int8_probe(kernels)
-    times = phase_timing(inputs, sites, tail, bg_inputs)
+    times = phase_timing(inputs, sites, tail, bg_inputs, inp4k)
     int8_ms = probe["int8-planes"]["ms"]
     log(f"[Q] int8 leg {int8_ms:.4f} ms = "
         f"{int8_ms / probe['bf16-planes']['ms']:.3f}x the bf16 leg "
@@ -2500,6 +2816,13 @@ def main() -> int:
         "int8_conv": (int8_launches,
                       "vidmat_torch/tools/bench_int8_planes.py, 3 repeats"),
     }
+    path4k = f"convert_video video_4k, {K_FRAMES} frames at {W4K}x{H4K}"
+    for name, fn in (("ingest_pool_normalize (4K)", "ingest_pool_normalize"),
+                     ("guided_filter_coeffs (4K tiled)",
+                      "guided_filter_coeffs"),
+                     ("fused_refine_composite (4K)",
+                      "fused_refine_composite")):
+        paths[name] = (k4["launches"][fn], path4k)
     meta = {
         "ingest_pool_normalize": ("vidmat_torch/csrc/ingest.cu",
                                   "vidmat/ops/pallas/ingest_kernel.py:140"),
@@ -2511,6 +2834,15 @@ def main() -> int:
             "vidmat_torch/csrc/refine_composite.cu",
             "vidmat/ops/pallas/refine_kernel.py:302"),
         "fused_refine_composite (coarse)": (
+            "vidmat_torch/csrc/refine_composite.cu",
+            "vidmat/ops/pallas/refine_kernel.py:302"),
+        "ingest_pool_normalize (4K)": (
+            "vidmat_torch/csrc/ingest.cu",
+            "vidmat/ops/pallas/ingest_kernel.py:140"),
+        "guided_filter_coeffs (4K tiled)": (
+            "vidmat_torch/csrc/gf_coeffs.cu",
+            "vidmat/ops/pallas/gf_kernel.py:123"),
+        "fused_refine_composite (4K)": (
             "vidmat_torch/csrc/refine_composite.cu",
             "vidmat/ops/pallas/refine_kernel.py:302"),
         "planar_conv": ("vidmat_torch/csrc/planar_conv.cu",

@@ -16,8 +16,11 @@ one part knocked out:
 
   as built        the kernels as shipped
   spread scale    the recompute's narrower error scale 2 sqrt(K) |acc| +
-                  4 S in place of K |acc| + 4 S (what the wider one
+                  4 S in place of K P + 4 S (what the wider one
                   costs; same-sign tiny terms then round otherwise)
+  final-sum scale K |acc| + 4 S, the scale before P (the larger of |acc|
+                  and the largest K step's mass) replaced |acc|: what P
+                  costs; big terms that cancel then round otherwise
   no recompute    near_tie never fires: no value is recomputed in the
                   CUDA-core order (results may differ from plain)
   no weights      stage_w, and planar_conv's copy of its packed weights,
@@ -110,9 +113,16 @@ def _no_recompute(h):
                 "bool near_tie(float v, float dv) {\n  return false;")
 
 
+_SCALE = "return kU * (kf * fmaxf(fabsf(acc), big) + 4.0f * sabs);"
+
+
 def _spread_scale(h):
-    return _sub(h, "return kU * (kf * fabsf(acc) + 4.0f * sabs);",
+    return _sub(h, _SCALE,
                 "return kU * (2.0f * sqrtf(kf) * fabsf(acc) + 4.0f * sabs);")
+
+
+def _final_sum_scale(h):
+    return _sub(h, _SCALE, "return kU * (kf * fabsf(acc) + 4.0f * sabs);")
 
 
 def _no_weights(h):
@@ -151,8 +161,8 @@ extern "C" void vm_take_counts(unsigned long long* out) {
   cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
 }""")
     return _sub(h, "      const bool need = r < npix && !epi(r, n, v, "
-                   "err_scale(v, sv, kf));",
-                """      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, kf));
+                   "err_scale(v, sv, bg, kf));",
+                """      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, bg, kf));
       const unsigned queued = __ballot_sync(0xFFFFFFFFu, need);
       const unsigned valid = __ballot_sync(0xFFFFFFFFu, r < npix);
       if (lane == 0) {
@@ -163,6 +173,7 @@ extern "C" void vm_take_counts(unsigned long long* out) {
 
 # variant -> {csrc file: edit}
 VARIANTS = {"as built": {}, "spread scale": {"planar_mma.cuh": _spread_scale},
+            "final-sum scale": {"planar_mma.cuh": _final_sum_scale},
             "no recompute": {"planar_mma.cuh": _no_recompute},
             "no weights": {"planar_mma.cuh": _no_weights,
                            "planar_conv.cu": _no_conv_weights},

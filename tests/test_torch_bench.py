@@ -1,6 +1,6 @@
 """``bench_torch.py`` on the CPU (``--quick --device cpu``): each mode
-prints one JSON line with ``bench.py``'s keys; the unported modes raise
-naming their ROADMAP item; without a card it raises unless given
+prints one JSON line with ``bench.py``'s keys (the 4K modes too); the
+unported mode (multistream) raises naming its ROADMAP item; without a card it raises unless given
 ``--device cpu``."""
 
 import json
@@ -36,11 +36,26 @@ def test_bench_prints_one_record(mode, capsys):
         assert rec["frames"] == 24
 
 
-@pytest.mark.parametrize("mode,item", [("4k", "A.8"), ("4k_tiled", "A.8"),
+@pytest.mark.parametrize("mode,item", [("4k", None), ("4k_tiled", None),
                                        ("multistream", "A.12")])
-def test_unported_modes_raise(mode, item):
-    with pytest.raises(NotImplementedError, match=item):
-        bench_torch.main(["--mode", mode, "--device", "cpu"])
+def test_unported_modes_raise(mode, item, capsys):
+    """multistream raises naming its item; the 4K modes (once A.8 raises)
+    print their record: video_4k at pool 8, tiled or not."""
+    argv = ["--mode", mode, "--device", "cpu"]
+    if item:
+        with pytest.raises(NotImplementedError, match=item):
+            bench_torch.main(argv)
+        return
+    assert bench_torch.main(argv + ["--quick"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert RING_KEYS <= set(rec), rec
+    assert rec["preset"].startswith("video_4k") and rec["value"] > 0
+    assert rec["downsample_ratio"] == 0.125 and rec["chunk"] == 1
+    assert rec["dispatch"] == "per-frame body"
+    assert ("tile_size=None" in rec["preset"]) == (mode == "4k")
+    assert rec.get("tile_size") == (128 if mode == "4k_tiled" else None)
 
 
 def test_bench_needs_a_card_unless_told_cpu(monkeypatch):

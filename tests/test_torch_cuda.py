@@ -868,6 +868,116 @@ def test_planar_kernels_round_same_sign_tiny_terms_as_sequential_order(
     assert unequal == 0
 
 
+# ---- sums that cancel ----
+#
+# The recompute's scale u (K |acc| + 4 S) covers partial sums larger than
+# |acc| only as a spread (planar_mma.cuh, Numerics). Here every tie value
+# is b * [0] + [1] + B [2] - B [last] + tiny terms: the big terms B = 2^10
+# come early and late in the sequential order (input channel, then ky,
+# then kx), so every tiny product (2^-8 * 2^-7 = 2^-15, under half a unit
+# of B's running sum) on the channels between them is dropped by that
+# order, while the tensor-core order (tap by tap, 16 channels a step)
+# adds most of them while its running sum is small. The two orders then
+# differ by up to ~9 (C - 4) 2^-15, far beyond the spread. The bound of a
+# K-term sum, K u S, covers it. Each case prints S / |acc| at the ties and
+# the sequential order's distance from the exact sum in units of u S.
+
+_CANCEL_B, _CANCEL_X, _CANCEL_W = 2.0 ** 10, 2.0 ** -8, 2.0 ** -7
+
+
+def _cancel_input(g, n, cins, h, w, dev):
+    """bf16 inputs split into ``cins``: channel 0 is 1, channel 1 is 2^-8
+    on three pixels in four, channel 2 and the last are B, the rest 2^-8
+    on three pixels in four (else 0)."""
+    c = sum(cins)
+    x = torch.zeros((n, c, h, w))
+    x[:, 0] = 1.0
+    x[:, 1] = 2.0 ** -8 * (torch.rand((n, h, w), generator=g) < 0.75)
+    x[:, 2] = _CANCEL_B
+    x[:, c - 1] = _CANCEL_B
+    x[:, 3:c - 1] = _CANCEL_X * (torch.rand((n, c - 4, h, w),
+                                            generator=g) < 0.75)
+    return [t.contiguous() for t in torch.split(x.to(dev, torch.bfloat16),
+                                                list(cins), 1)]
+
+
+def _cancel_conv(g, cin, roles, k, dev):
+    """(len(roles), cin, k, k) bf16 weights, float32 scale and bias.
+    roles[co]: "tie" is b * [0] + [1] + [2] - [last] at the centre tap
+    (b = 1 + j 2^-7, negative at random) plus 2^-7 on every tap of
+    channels 3 .. C - 2, scale a power of two, bias 0; "free" is random
+    weights, scale and bias."""
+    cout, c = len(roles), k // 2
+    w = torch.zeros((cout, cin, k, k))
+    scale, bias = torch.ones(cout), torch.zeros(cout)
+    for co, role in enumerate(roles):
+        if role == "tie":
+            s = -1.0 if torch.rand((), generator=g) < 0.5 else 1.0
+            w[co, 0, c, c] = s * (1 + int(torch.randint(0, 128, (),
+                                                        generator=g)) / 128)
+            w[co, 1, c, c] = s
+            w[co, 2, c, c] = 1.0
+            w[co, cin - 1, c, c] = -1.0
+            w[co, 3:cin - 1] = _CANCEL_W
+            scale[co] = 2.0 ** int(torch.randint(-1, 3, (), generator=g))
+        else:
+            w[co] = torch.randn((cin, k, k), generator=g) * (
+                k * k * cin) ** -0.5
+            scale[co] = float(torch.rand((), generator=g)) + 0.5
+            bias[co] = float(torch.randn((), generator=g)) * 0.1
+    return w.to(dev, torch.bfloat16), scale.to(dev), bias.to(dev)
+
+
+@pytest.mark.parametrize("case", range(len(SAME_SIGN)))
+def test_planar_kernels_round_cancelling_sums_as_sequential_order(dev, case):
+    """The same kernels and widths as the same-sign cases, on sums whose
+    big terms cancel after the sequential order dropped the tiny ones."""
+    from vidmat_torch.ops import planar as P
+
+    key, cins, kc, stride, h, w = SAME_SIGN[case]
+    g = torch.Generator().manual_seed(60 + case)
+    cin = sum(cins)
+    xs = _cancel_input(g, 1, cins, h, w, dev)
+    if key == "conv":
+        wt, sc, bi = _cancel_conv(g, cin, ["tie"] * 12 + ["free"] * 4, kc,
+                                  dev)
+        args = (xs, wt, sc, bi, stride, "none")
+        got = (P.planar_conv(*args),)
+        seq = (P.planar_conv_plain(*args, sequential=True),)
+    elif key == "conv2":
+        w1, s1, b1 = _cancel_conv(g, cin, ["tie"] * 12 + ["free"] * 12, 3,
+                                  dev)
+        w2, s2, b2 = _cancel_conv(g, 24, ["free"] * kc, 3, dev)
+        wt, sc = w1, s1
+        args = (xs, w1, s1, b1, w2, s2, b2, stride, "relu", "none")
+        got = (P.planar_conv2(*args),)
+        seq = (P.planar_conv2_plain(*args, sequential=True),)
+    else:
+        half = ["tie"] * (kc // 2) + ["free"] * (kc - kc // 2)
+        wt, sc, bi = _cancel_conv(g, cin, half + half, 3, dev)
+        hp = _rand(g, (1, kc, h, w), dev, torch.bfloat16, 0.5)
+        args = (xs, wt, sc, bi, hp, *_gru_args(g, kc, dev, torch.bfloat16))
+        got = P.planar_conv_gru(*args)
+        seq = P.planar_conv_gru_plain(*args, sequential=True)
+    acc = P.seq_conv_f32(xs, wt, stride)
+    ties = _midpoints(acc, sc, torch.zeros_like(sc))
+    k, dist = _sum_error(xs, wt, stride)
+    x = torch.cat([t.double() for t in xs], 1)
+    pad = wt.shape[-1] // 2
+    s_abs = torch.nn.functional.conv2d(x.abs(), wt.double().abs(), None,
+                                       stride, pad)
+    ratio = float((s_abs / acc.double().abs().clamp_min(1e-30))[
+        :, :12].median())
+    unequal = sum(int((a != b).sum()) for a, b in zip(got, seq))
+    print(f"cancelling {SAME_SIGN[case]}: {ties} midpoints; S / |acc| at "
+          f"the ties (median) {ratio:.0f}; bound K u S with K = {k}, "
+          f"sequential order measured {dist:.1f} u S from the exact sum; "
+          f"kernel values unequal to the sequential order: {unequal} of "
+          f"{sum(t.numel() for t in got)}")
+    assert ties > acc.numel() // 20
+    assert unequal == 0
+
+
 def test_planar_tensor_core_plans_fit_every_shipped_site(dev):
     """Every bf16 planar_conv / planar_conv2 / planar_conv_gru / planar_gru
     site of the

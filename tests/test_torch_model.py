@@ -13,9 +13,8 @@ import torch
 
 from vidmat_torch.config import ModelConfig
 from vidmat_torch.io.fixtures import synthetic_clip
-from vidmat_torch.models.matting_net import (MattingNetwork, RecurrentState,
-                                             depth_to_space, init_state,
-                                             space_to_depth)
+from vidmat_torch.models.matting_net import (RecurrentState, depth_to_space,
+                                             init_state, space_to_depth)
 from vidmat_torch.models.weights import build_network, default_variables
 from vidmat_torch.utils.metrics import mad
 
@@ -111,31 +110,44 @@ def test_space_to_depth_matches_jax():
 
 
 def test_unported_model_options_raise():
-    # The per-image trimap net is ported (matte_image: known regions
-    # pinned); trimap-conditioned serving is not (A.10).
-    from vidmat_torch.config import RefineConfig
-    from vidmat_torch.pipeline.stepfactory import build_serving_body
+    """The trimap pin (once an A.10 raise in the serving body and the
+    planar net, now ported) against the JAX network on the shipped
+    trimap weights: trimap_demo as F.conv2d and trimap_prop_demo through
+    the planar net's plain versions, fp32, alpha and fgr MAD <= 1e-3,
+    pinned pixels exact; then the planar build and the state layout."""
+    from vidmat.config import ModelConfig as JModelConfig
+    from vidmat.models.matting_net import MattingNetwork as JNet
 
-    tcfg = ModelConfig(use_trimap=True, recurrent=False)
-    tnet = MattingNetwork(tcfg)
-    x = torch.rand(1, 32, 32, 4)
-    x[..., 3] = torch.tensor([0.0, 0.5, 1.0]).repeat(352)[:1024].view(32, 32)
-    with torch.inference_mode():
-        alpha, _, _ = tnet(x)
-    assert (alpha[0, ..., 0][x[0, ..., 3] == 1.0] == 1.0).all()
-    assert (alpha[0, ..., 0][x[0, ..., 3] == 0.0] == 0.0).all()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        build_serving_body(tnet, tcfg, RefineConfig(), 32, 32, 1.0,
-                           cdtype=torch.float32)
-    # conv_impl="planar" builds the planar-kernel network.
     from vidmat_torch.models.planar import PlanarNetwork
 
+    rng = np.random.RandomState(8)
+    x = rng.rand(1, 64, 64, 4).astype(np.float32)
+    x[..., 3] = rng.choice([0.0, 128 / 255, 1.0], (1, 64, 64))
+    for kw, impl in ((dict(recurrent=False), "xla"),
+                     (dict(space_to_depth=2), "planar")):
+        tcfg = ModelConfig(use_trimap=True, conv_impl=impl, **kw)
+        variables = default_variables(tcfg)
+        tnet = build_network(tcfg, variables)
+        assert isinstance(tnet, PlanarNetwork) == (impl == "planar")
+        jcfg = JModelConfig(use_trimap=True, **kw)
+        with jax.default_matmul_precision("float32"):
+            ja, jf, _ = JNet(jcfg).apply(
+                jax.tree_util.tree_map(jnp.asarray, variables),
+                jnp.asarray(x))
+        with torch.inference_mode():
+            alpha, fgr, _ = tnet(torch.from_numpy(x), None)
+        assert mad(ja, alpha.numpy()) <= 1e-3, mad(ja, alpha.numpy())
+        assert mad(jf, fgr.numpy()) <= 1e-3
+        a, t = alpha[0, ..., 0].numpy(), x[0, ..., 3]
+        assert (a[t == 1.0] == 1.0).all() and (a[t == 0.0] == 0.0).all()
+        known = t != np.float32(128 / 255)
+        np.testing.assert_array_equal(a[known],
+                                      np.asarray(ja)[0, ..., 0][known])
+    # conv_impl="planar" builds the planar-kernel network.
     cfg = ModelConfig(space_to_depth=2, conv_impl="planar")
     net = build_network(cfg, default_variables(cfg), dtype=torch.bfloat16)
     assert isinstance(net, PlanarNetwork) and net.dtype == torch.bfloat16
     assert net.d1_gru_wg.shape == (24, 24, 3, 3)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        PlanarNetwork(ModelConfig(use_trimap=True, conv_impl="planar"), {})
     st = init_state(ModelConfig(space_to_depth=2), 1, 64, 96)
     assert isinstance(st, RecurrentState)
     assert st.h3.shape == (1, 4, 6, 24) and st.h1.shape == (1, 16, 24, 12)

@@ -1,8 +1,9 @@
 """The port's native staging tier (``vidmat_torch/io/native.py``,
 ``vidmat_torch/csrc/framestage.cpp``) against numpy and the JAX package's
 own tier (``vidmat/io/native.py``) on the CPU: edge padding bit-equal to
-``np.pad(..., mode="edge")`` on strided, ragged and exact-size frames,
-and packed RGBA unpacked to the same bytes."""
+``np.pad(..., mode="edge")`` on strided, ragged and exact-size frames, of
+3 channels and of 4 (a frame carrying its trimap), and packed RGBA
+unpacked to the same bytes."""
 
 import numpy as np
 import pytest
@@ -19,10 +20,17 @@ PAD_CASES = [
     (37, 53, 48, 64, "strided pixels"),       # every other pixel
     (1, 1, 16, 16, "contiguous"),             # one pixel fills the bucket
     (300, 17, 304, 32, "channel-last view"),  # a transposed array
+    (1080, 1920, 1088, 1920, "4 channels"),   # RGB + trimap, 1080p bucket
+    (37, 53, 48, 64, "4 channels, strided"),  # RGB + trimap, a crop
 ]
 
 
 def _frame(h, w, layout, rng):
+    if layout == "4 channels":
+        return rng.randint(0, 256, (h, w, 4), np.uint8)
+    if layout == "4 channels, strided":
+        return rng.randint(0, 256, (h + 3, w + 11, 4), np.uint8)[2:2 + h,
+                                                                 5:5 + w]
     if layout == "contiguous":
         return rng.randint(0, 256, (h, w, 3), np.uint8)
     if layout == "strided rows":
@@ -41,16 +49,17 @@ def test_pad_into_equals_numpy_edge_pad(case, dest):
     h, w, oh, ow, layout = case
     rng = np.random.RandomState(h * 7 + w)
     frame = _frame(h, w, layout, rng)
-    assert frame.shape == (h, w, 3)
+    c = 4 if layout.startswith("4 channels") else 3
+    assert frame.shape == (h, w, c)
     if dest == "array":
-        out = np.full((oh, ow, 3), 7, np.uint8)
+        out = np.full((oh, ow, c), 7, np.uint8)
     elif dest == "chunk slot":
-        chunk = np.full((3, oh, ow, 3), 7, np.uint8)
+        chunk = np.full((3, oh, ow, c), 7, np.uint8)
         out = chunk[1]
     else:
         import torch
 
-        out = torch.full((oh, ow, 3), 7, dtype=torch.uint8).numpy()
+        out = torch.full((oh, ow, c), 7, dtype=torch.uint8).numpy()
     pad_into(frame, out)
     if dest == "chunk slot":
         assert (chunk[0] == 7).all() and (chunk[2] == 7).all()

@@ -79,18 +79,22 @@ def test_alpha_only_body_matches_jax():
 
 
 def test_unported_branches_raise():
+    """Error-map refinement (A.11) raises naming its item, in the body and
+    as convert_video's refiner_variables. Tiling (A.8), the earlier second
+    case, is ported: tests/test_torch_tiling.py."""
+    from vidmat_torch import convert_video
+
     net = build_network(CFG, default_variables(CFG))
-    guided = RefineConfig("guided")
+    frames = list(synthetic_frames_only(64, 64, 1, seed=1))
     cases = [
-        (dict(refine=RefineConfig("errormap")), "A.11"),
-        (dict(tile_size=64), "A.8"),
+        (lambda: build_serving_body(net, CFG, RefineConfig("errormap"), H,
+                                    W, 0.25), "A.11"),
+        (lambda: convert_video(frames, refiner_variables={"params": {}},
+                               device="cpu"), "A.11"),
     ]
-    for kw, item in cases:
-        args = dict(refine=guided, ratio=0.25)
-        args.update(kw)
-        refine, ratio = args.pop("refine"), args.pop("ratio")
+    for call, item in cases:
         with pytest.raises(NotImplementedError, match=item):
-            build_serving_body(net, CFG, refine, H, W, ratio, **args)
+            call()
 
 
 def test_convert_video_cpu_smoke():

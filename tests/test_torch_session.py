@@ -7,7 +7,7 @@ frame over 4 recurrent frames. Serving mode (dtype="bfloat16": uint8
 frames, the planar net, the GF coefficients and fused_refine_float) on
 fast_demo at 128x192, ratio 0.5, with the JAX package's kernels in
 interpret mode: MAD <= 2e-2 per frame. Then the static-scene fast path,
-the carry's save/load round trip and the options that are not ported.
+the carry's save/load round trip and the errors of misused options.
 """
 
 import os
@@ -154,17 +154,24 @@ def test_save_load_round_trip(tmp_path):
 
 
 def test_session_options_not_ported_raise():
-    cases = [(dict(tile_size=64), "A.8"),
-             (dict(output="seg"), "A.10")]
-    for kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            MattingSession(64, 64, device="cpu", **kw)
+    """The options this test once found unported (tiling, A.8; the
+    segmentation output and trimaps, A.10) are ported; each case now
+    raises the JAX package's own error for a misuse: a tile overlap off
+    the coarse pool, a segmentation session without a co-trained
+    checkpoint, a trimap given to a model that takes none."""
+    sess = MattingSession(64, 64, downsample_ratio=0.25, tile_size=32,
+                          tile_overlap=6, device="cpu")
+    with pytest.raises(ValueError, match="align with the coarse pool"):
+        sess.step(np.zeros((64, 64, 3), np.uint8))
+    with pytest.raises(ValueError, match="co-trained"):
+        MattingSession(64, 64, model_cfg=ModelConfig(space_to_depth=2),
+                       output="seg", device="cpu")
     with pytest.raises(ValueError, match="output"):
         MattingSession(64, 64, output="mask", device="cpu")
     with pytest.raises(ValueError, match="multiples of 16"):
         MattingSession(60, 64, device="cpu")
     sess = MattingSession(64, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="not trimap-conditioned"):
         sess.step(np.zeros((64, 64, 3), np.uint8),
                   trimap=np.zeros((64, 64), np.uint8))
     # Float frames in serving mode go to uint8 as round(clip(v) * 255).

@@ -1,0 +1,108 @@
+"""The port's public surface against the JAX package's, name for name
+(ROADMAP C.4): every parameter of ``convert_video``, ``matte_image``,
+``MattingSession.__init__`` and ``.step``, every field of the
+configuration dataclasses with its default, and every preset, each
+returning equal dataclasses. What is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item."""
+
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+
+import vidmat
+import vidmat.config as jconfig
+import vidmat_torch
+import vidmat_torch.config as tconfig
+
+ENTRY_POINTS = [("convert_video", None), ("matte_image", None),
+                ("MattingSession", "__init__"), ("MattingSession", "step")]
+CONFIGS = ["ModelConfig", "RefineConfig", "PipelineConfig", "StreamConfig"]
+
+
+def _params(mod, name, method):
+    fn = getattr(mod, name)
+    if method:
+        fn = getattr(fn, method)
+    return {k: p.default for k, p in inspect.signature(fn).parameters.items()}
+
+
+@pytest.mark.parametrize("name,method", ENTRY_POINTS,
+                         ids=lambda v: v or "fn")
+def test_entry_point_parameters_exist_with_equal_defaults(name, method):
+    want = _params(vidmat, name, method)
+    got = _params(vidmat_torch, name, method)
+    missing = sorted(set(want) - set(got))
+    assert not missing, missing
+    # The port adds only the device to pick the card or the CPU.
+    assert set(got) - set(want) <= {"device"}
+    for k, v in want.items():
+        assert got[k] == v, (k, got[k], v)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_fields_exist_with_equal_defaults(name):
+    want = getattr(jconfig, name)()
+    got = getattr(tconfig, name)()
+    wf = {f.name for f in dataclasses.fields(want)}
+    gf = {f.name for f in dataclasses.fields(got)}
+    assert wf == gf, (wf - gf, gf - wf)
+    for f in wf:
+        w, g = getattr(want, f), getattr(got, f)
+        if dataclasses.is_dataclass(w):
+            assert dataclasses.asdict(w) == dataclasses.asdict(g), f
+        else:
+            assert w == g, (f, g, w)
+    assert getattr(vidmat_torch, name) is getattr(tconfig, name)
+
+
+def _as_dicts(preset):
+    return [dataclasses.asdict(c) for c in preset]
+
+
+@pytest.mark.parametrize("key", sorted(jconfig.PRESETS))
+def test_presets_equal_jax(key):
+    assert set(tconfig.PRESETS) == set(jconfig.PRESETS)
+    want, got = jconfig.PRESETS[key](), tconfig.PRESETS[key]()
+    assert len(got) == len(want)
+    assert [type(c).__name__ for c in got] == [type(c).__name__
+                                               for c in want]
+    assert _as_dicts(got) == _as_dicts(want)
+    assert getattr(vidmat_torch, f"preset_{key}") is tconfig.PRESETS[key]
+
+
+FRAMES = [np.zeros((32, 32, 3), np.uint8)]
+
+
+@pytest.mark.parametrize("case", ["errormap preset", "refiner_variables",
+                                  "session errormap", "multistream"])
+def test_unported_options_raise_naming_their_item(case):
+    """Error-map refinement is A.11, multi-stream serving A.12."""
+    from vidmat_torch import convert_video
+
+    if case == "errormap preset":
+        m, p = tconfig.preset_video_1080p_errormap()
+        call, item = (lambda: convert_video(FRAMES, model_cfg=m, pipe_cfg=p,
+                                            device="cpu")), "A.11"
+    elif case == "refiner_variables":
+        call, item = (lambda: convert_video(
+            FRAMES, refiner_variables={"params": {}}, device="cpu")), "A.11"
+    elif case == "session errormap":
+        from vidmat_torch.models.weights import build_network, \
+            default_variables
+        from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+        cfg = tconfig.ModelConfig()
+        net = build_network(cfg, default_variables(cfg))
+        call, item = (lambda: build_serving_body(
+            net, cfg, tconfig.RefineConfig("errormap"), 32, 32,
+            0.5)), "A.11"
+    else:
+        m, p, s = tconfig.preset_multistream()
+        assert dataclasses.asdict(s) == dataclasses.asdict(
+            jconfig.StreamConfig())
+        call, item = (lambda: convert_video(FRAMES, model_cfg=m, pipe_cfg=s,
+                                            device="cpu")), "A.12"
+    with pytest.raises(NotImplementedError, match=item):
+        call()

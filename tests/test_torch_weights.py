@@ -1,9 +1,9 @@
 """The port's weight bridge and its shipped checkpoints.
 
 ``vidmat_torch/checkpoints/<name>.npz`` for fast_demo, synthetic_demo,
-plate_demo, trimap_demo and trimap_prop_demo are the JAX package's
-``checkpoints/<name>`` flattened to one npz entry per leaf, so the port
-loads them with numpy alone. Running this file as a script rewrites the
+plate_demo, trimap_demo, trimap_prop_demo and seg_demo (co-trained, with
+its seg_head) are the JAX package's ``checkpoints/<name>`` flattened to
+one npz entry per leaf, so the port loads them with numpy alone. Running this file as a script rewrites the
 named ones (all by default):
 
     python tests/test_torch_weights.py [name ...]
@@ -29,7 +29,10 @@ CHECKPOINTS = {"fast_demo": dict(space_to_depth=2),
                "synthetic_demo": dict(space_to_depth=1),
                "plate_demo": dict(use_bg_plate=True, space_to_depth=2),
                "trimap_demo": dict(use_trimap=True, recurrent=False),
-               "trimap_prop_demo": dict(use_trimap=True, space_to_depth=2)}
+               "trimap_prop_demo": dict(use_trimap=True, space_to_depth=2),
+               "seg_demo": dict(space_to_depth=1)}
+#: the co-trained checkpoints (matting weights and seg_head)
+SEG = {"seg_demo"}
 
 
 def _npz(name):
@@ -38,9 +41,11 @@ def _npz(name):
 
 def _restore(name):
     from vidmat.config import ModelConfig as JModelConfig
-    from vidmat.models.weights import default_variables
+    from vidmat.models.weights import (default_variables,
+                                       seg_default_variables)
 
-    variables = default_variables(JModelConfig(**CHECKPOINTS[name]))
+    load = seg_default_variables if name in SEG else default_variables
+    variables = load(JModelConfig(**CHECKPOINTS[name]))
     return jax.tree_util.tree_map(np.asarray, variables)
 
 
@@ -57,14 +62,14 @@ def test_committed_npz_equals_checkpoint(name):
                                              flatten_variables, load_npz)
     from vidmat_torch.config import ModelConfig
 
-    assert default_checkpoint_path(
-        ModelConfig(**CHECKPOINTS[name])) == _npz(name)
+    assert default_checkpoint_path(ModelConfig(**CHECKPOINTS[name]),
+                                   seg=name in SEG) == _npz(name)
     want = flatten_variables(_restore(name))
     got = flatten_variables(load_npz(_npz(name)))
     assert sorted(got) == sorted(want)
     # 76 leaves; the non-recurrent trimap_demo has no GRU (4 leaves per
-    # decoder stage).
-    assert len(got) == (64 if name == "trimap_demo" else 76)
+    # decoder stage); seg_demo adds the seg_head's kernel and bias.
+    assert len(got) == {"trimap_demo": 64, "seg_demo": 78}.get(name, 76)
     for k, v in want.items():
         assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)

@@ -6,12 +6,16 @@ one frame from a zero state, the trimap model (``trimap_demo``) given a
 trimap or a rough mask, or the clean-plate model given a plate.
 ``convert_video`` serves the JAX package's defaults (``ModelConfig()``,
 ``PipelineConfig()``) when given no configuration, and the presets
-(``preset_video_1080p``, ``preset_clip_480p``) when given theirs.
-``MattingSession`` streams float mattes one frame at a time. Both take
-the clean-plate family (``bg_plate``, shipped ``plate_demo``);
+(``preset_video_1080p``, ``preset_video_4k``, ``preset_clip_480p``) when
+given theirs; trimap video (``trimap_source``, or rough masks through
+``mask_source``) and the segmentation stream (``output_segmentation``).
+``MattingSession`` streams float mattes one frame at a time (tiled, with
+trimaps, or the segmentation mask with ``output="seg"``). Both take the
+clean-plate family (``bg_plate``, shipped ``plate_demo``);
 ``convert_video`` composites over a color, an image, a background video
-or a blur of the source frame. Tiling, trimap video and segmentation
-output are not ported yet (ROADMAP queue A).
+or a blur of the source frame. The signatures are the JAX package's, plus
+``device``; error-map refinement (``refiner_variables``) raises
+NotImplementedError naming its ROADMAP item (A.11).
 """
 
 from __future__ import annotations
@@ -78,6 +82,28 @@ def matte_image(image: np.ndarray, trimap: Optional[np.ndarray] = None,
     return stepper(image, trimap, bg_plate=bg_plate)
 
 
+def _mask_to_trimap_source(mask_source, band: float, start: int = 0,
+                           count: Optional[int] = None):
+    """A mask source as a trimap source (vidmat/api.py:75-100): one
+    keyframe mask (image path or array) becomes one trimap; a per-frame
+    mask stream becomes a lazy stream of trimaps, trimmed to [start,
+    start + count) before the conversion and marked pre-trimmed."""
+    from vidmat_torch.io.reader import FrameSource
+    from vidmat_torch.pipeline.trimap import (PreTrimmedTrimaps,
+                                              trimap_from_mask)
+    from vidmat_torch.pipeline.video import single_trimap
+
+    single = single_trimap(mask_source)
+    if single is not None:
+        return trimap_from_mask(single, band=band)
+
+    def gen():
+        for m in FrameSource(mask_source, start=start, count=count):
+            yield trimap_from_mask(m, band=band)
+
+    return PreTrimmedTrimaps(gen())
+
+
 def convert_video(input_source: Union[str, Iterable[np.ndarray]],
                   output_alpha: Optional[Target] = None,
                   output_foreground: Optional[Target] = None,
@@ -91,9 +117,14 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
                   variables=None,
                   model_cfg: Optional[ModelConfig] = None,
                   pipe_cfg: Optional[PipelineConfig] = None,
+                  refiner_variables=None,
                   progress: bool = False,
                   start_frame: int = 0,
                   max_frames: Optional[int] = None,
+                  trimap_source=None,
+                  mask_source=None,
+                  mask_band: float = 0.04,
+                  output_segmentation: Optional[Target] = None,
                   device: Union[str, torch.device] = "cuda") -> dict:
     """Convert a video to alpha / composited streams.
 
@@ -125,13 +156,67 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
         for s2d=1, ``fast_demo`` for s2d=2).
     model_cfg / pipe_cfg: default to ``ModelConfig()`` and
         ``PipelineConfig()``, as in the JAX package.
+    refiner_variables: the error-map refiner's weights; not ported yet
+        (raises, ROADMAP A.11).
     start_frame / max_frames: trim the input (temporal state starts cold
         at the trim point).
+    trimap_source: trimaps for trimap-conditioned matting: a per-frame
+        stream (video path, image directory or pattern, iterable),
+        trimmed as the input is (with model_cfg=None: the per-frame
+        family, ``trimap_demo``), or one keyframe trimap (image path or
+        (H, W) array: the recurrent propagation family,
+        ``trimap_prop_demo``, which carries it forward over all-unknown
+        trimaps). uint8 {0, 128, 255} or float {0, 0.5, 1}.
+    mask_source: rough binary masks in place of trimaps, in the same two
+        shapes; each becomes a trimap with an unknown band of half-width
+        ``mask_band`` across its boundary. Exclusive with trimap_source.
+    output_segmentation: the co-trained segmentation head's mask stream
+        (a video path or a callable receiving (H, W, 3) uint8 frames) in
+        place of the matting outputs (shipped ``seg_demo`` with
+        variables=None); exclusive with the matting outputs, the
+        backgrounds and the conditioned families.
     device: "cuda" (default; raises without a CUDA device) or "cpu".
     Returns a metrics dict (fps, p50/p99 latency, frames, device).
     """
-    from vidmat_torch.pipeline.video import VideoPipeline
+    from vidmat_torch.pipeline.video import VideoPipeline, single_trimap
 
+    if output_segmentation is not None:
+        if output_alpha or output_foreground or output_composition:
+            raise ValueError(
+                "output_segmentation runs the seg head in place of the "
+                "matting heads (one pass, one head); request the matting "
+                "outputs in a separate convert_video call")
+        if (trimap_source is not None or mask_source is not None
+                or bg_plate is not None):
+            raise ValueError(
+                "the shipped co-trained segmentation head covers the "
+                "unconditioned base family; conditioned segmentation "
+                "needs a custom co-trained model_cfg/variables and is "
+                "not selected implicitly")
+        return _segment_video(input_source, output_segmentation,
+                              variables=variables, model_cfg=model_cfg,
+                              downsample_ratio=downsample_ratio,
+                              progress=progress, start_frame=start_frame,
+                              max_frames=max_frames, device=device)
+    if mask_source is not None:
+        if trimap_source is not None:
+            raise ValueError("pass either trimap_source or mask_source, "
+                             "not both")
+        trimap_source = _mask_to_trimap_source(
+            mask_source, mask_band, start=start_frame, count=max_frames)
+    if trimap_source is not None:
+        keyframe = single_trimap(trimap_source)
+        if keyframe is not None:
+            trimap_source = keyframe  # read once here
+        if model_cfg is None:
+            if bg_plate is not None:
+                raise ValueError(
+                    "no shipped checkpoint combines trimap AND plate "
+                    "conditioning: pass model_cfg/variables explicitly "
+                    "for a custom-trained combined model")
+            model_cfg = (ModelConfig(use_trimap=True, space_to_depth=2)
+                         if keyframe is not None else
+                         ModelConfig(use_trimap=True, recurrent=False))
     if bg_plate is not None and model_cfg is None:
         from vidmat_torch.models.weights import plate_default_config
 
@@ -144,12 +229,66 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
         bg_image=bg_image if comp else None,
         bg_video=bg_video if comp else None,
         bg_blur=bg_blur if comp else None,
-        bg_plate=bg_plate, device=device)
+        bg_plate=bg_plate, refiner_variables=refiner_variables,
+        device=device)
     return pipeline.run(input_source, output_alpha=output_alpha,
                         output_foreground=output_foreground,
                         output_composition=output_composition,
                         progress=progress, start_frame=start_frame,
-                        max_frames=max_frames)
+                        max_frames=max_frames, trimap_source=trimap_source)
+
+
+def _segment_video(input_source, target: Target, *, variables, model_cfg,
+                   downsample_ratio, progress, start_frame, max_frames,
+                   device) -> dict:
+    """The segmentation stream of ``convert_video(output_segmentation=)``
+    (vidmat/api.py:262-316): a segmentation ``VideoStepper`` per frame,
+    bf16 on the card and float32 on the CPU (the JAX package picks by its
+    backend), each mask written as an (H, W, 3) uint8 frame."""
+    import time
+
+    from vidmat_torch._device import resolve_device
+    from vidmat_torch.io.reader import FrameSource
+    from vidmat_torch.io.writer import open_sink
+    from vidmat_torch.pipeline.stepper import VideoStepper, pad_to_multiple
+    from vidmat_torch.pipeline.video import auto_downsample_ratio
+    from vidmat_torch.utils.metrics import RunMetrics
+
+    dev = resolve_device(device)
+    cfg = model_cfg or ModelConfig()
+    src = FrameSource(input_source, start=start_frame, count=max_frames)
+    stepper = writer = None
+    metrics = RunMetrics()
+    n = 0
+    try:
+        for frame in src:
+            padded, h, w = pad_to_multiple(np.asarray(frame),
+                                           16 * cfg.space_to_depth)
+            if stepper is None:
+                ratio = (auto_downsample_ratio(*padded.shape[:2])
+                         if downsample_ratio is None else downsample_ratio)
+                stepper = VideoStepper(
+                    cfg, padded.shape[0], padded.shape[1],
+                    variables=variables, downsample_ratio=ratio,
+                    dtype="bfloat16" if dev.type == "cuda" else "float32",
+                    output="seg", device=dev)
+                writer = open_sink(target, src.fps)
+            t0 = time.perf_counter()
+            mask, _ = stepper.step(padded)
+            metrics.record_frame(time.perf_counter() - t0)
+            m8 = np.round(mask[:h, :w, 0] * 255.0).astype(np.uint8)
+            writer.write(np.repeat(m8[..., None], 3, axis=-1))
+            n += 1
+            if progress and n % 50 == 0:
+                print(f"segmented {n} frames", flush=True)
+    finally:
+        if writer is not None:
+            writer.close()
+    summary = metrics.summary()
+    summary["frames"] = n
+    summary["device"] = (torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu")
+    return summary
 
 
 class MattingSession:
@@ -166,9 +305,11 @@ class MattingSession:
     kernels); dtype="bfloat16" the serving mode (see
     ``pipeline.stepper.VideoStepper``). bg_plate: the clean plate of the
     plate-conditioned family, fixed for the session (with model_cfg=None
-    it selects ``plate_default_config()``, shipped plate_demo). Tiling,
-    trimap-conditioned steps and segmentation output are not ported yet
-    and raise; ``matte_image`` takes a trimap for single images."""
+    it selects ``plate_default_config()``, shipped plate_demo).
+    tile_size / tile_overlap: tiled refinement (e.g. 1024 / 128, the
+    ``video_4k`` preset's). output="seg": the co-trained segmentation
+    head (shipped seg_demo with variables=None); ``step`` then returns
+    (mask (H, W, 1) float32, None)."""
 
     def __init__(self, height: int, width: int,
                  variables=None, model_cfg: Optional[ModelConfig] = None,
@@ -179,16 +320,8 @@ class MattingSession:
                  bg_plate: Optional[np.ndarray] = None,
                  output: str = "matte",
                  device: Union[str, torch.device] = "cuda"):
-        from vidmat_torch.pipeline.stepfactory import _unported
         from vidmat_torch.pipeline.stepper import VideoStepper
 
-        if tile_size:
-            raise _unported("tiled refinement", "A.8")
-        if output == "seg":
-            raise _unported("segmentation output", "A.10")
-        if output != "matte":
-            raise ValueError(f"output must be 'matte' or 'seg', got "
-                             f"{output!r}")
         if bg_plate is not None and model_cfg is None:
             from vidmat_torch.models.weights import plate_default_config
 
@@ -196,18 +329,20 @@ class MattingSession:
         self._stepper = VideoStepper(
             model_cfg or ModelConfig(), height, width, variables=variables,
             downsample_ratio=downsample_ratio, dtype=dtype,
-            static_skip_eps=static_skip_eps, bg_plate=bg_plate,
+            static_skip_eps=static_skip_eps, tile_size=tile_size,
+            tile_overlap=tile_overlap, bg_plate=bg_plate, output=output,
             device=device)
 
     def step(self, frame: np.ndarray, trimap: Optional[np.ndarray] = None
-             ) -> Tuple[np.ndarray, np.ndarray]:
-        """frame: (H, W, 3) uint8 or float RGB. Returns (alpha (H, W, 1),
-        fgr (H, W, 3)) float32 in [0, 1] on the host."""
-        if trimap is not None:
-            from vidmat_torch.pipeline.stepfactory import _unported
-
-            raise _unported("trimap-conditioned sessions", "A.10")
-        return self._stepper.step(frame)
+             ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """frame: (H, W, 3) uint8 or float RGB; trimap: (H, W) uint8 {0,
+        128, 255} or float {0, 0.5, 1}, for trimap-conditioned models
+        only: the per-frame family (trimap_demo) needs one every step, the
+        recurrent propagation family (trimap_prop_demo) takes one on
+        keyframes and an all-unknown one (filled in) in between. Returns
+        (alpha (H, W, 1), fgr (H, W, 3)) float32 in [0, 1] on the host, or
+        (mask, None) with output="seg"."""
+        return self._stepper.step(frame, trimap)
 
     def reset(self) -> None:
         """Reset the temporal state (scene cut, new stream)."""

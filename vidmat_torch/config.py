@@ -1,18 +1,21 @@
 """Typed configuration for the PyTorch port (counterpart of vidmat/config.py).
 
-The dataclasses keep the field names and defaults of the JAX package so a
-configuration reads the same in both; fields no ported code reads yet are
-left out. The port carries its own copy: it imports nothing from
-``vidmat``.
+The dataclasses keep every field name and default of the JAX package so a
+configuration reads the same in both. The port carries its own copy: it
+imports nothing from ``vidmat``.
 
 The defaults are the JAX package's: ``ModelConfig()`` (s2d=1, the net as
 ``F.conv2d``, shipped ``synthetic_demo`` weights) and ``PipelineConfig()``
 (auto ratio, chunk 1, bfloat16, guided refinement) are what
 ``convert_video`` serves when given no configuration. The presets, as the
 JAX package ships them: ``preset_video_1080p`` (``fast_demo``, s2d=2,
-pool 4), ``preset_clip_480p`` (``synthetic_demo`` at full resolution) and
-``preset_pr1_image`` (the single-image rung); ``PRESETS`` names the ones
-the port serves. ``conv_impl="planar"`` runs the net through the four planar
+pool 4), ``preset_video_4k`` (the same model at pool 8, tiled
+refinement), ``preset_clip_480p`` (``synthetic_demo`` at full resolution),
+``preset_pr1_image`` (the single-image rung),
+``preset_video_1080p_errormap`` (error-map refinement, ROADMAP A.11) and
+``preset_multistream`` (with a ``StreamConfig``, ROADMAP A.12); building
+a pipeline from the last two raises ``NotImplementedError`` naming its
+item. ``conv_impl="planar"`` runs the net through the four planar
 conv kernels (``vidmat_torch/models/planar.py``); ``conv_impl="xla"`` runs
 the same variables as ``F.conv2d`` (``vidmat_torch/models/matting_net.py``).
 """
@@ -59,6 +62,10 @@ class RefineConfig:
     mode: str = "guided"  # "none" | "guided" | "errormap"
     guided_radius: int = 4
     guided_eps: float = 1e-4
+    # error-map path (ROADMAP A.11): number of worst patches refined at
+    # full resolution, and their size
+    errormap_patches: int = 256
+    errormap_patch_size: int = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,14 +80,37 @@ class PipelineConfig:
     # Compute dtype of the conv path.
     dtype: str = "bfloat16"
     refine: RefineConfig = dataclasses.field(default_factory=RefineConfig)
-    # Tiled refinement; not ported yet (ROADMAP A.8): serving raises.
-    tile_size: Optional[int] = None
+    # Tiled refinement (4K): tile size and overlap at full resolution.
+    # The fused tails take per-coarse-tile guided-filter statistics with
+    # the coefficient grids feather-blended (refine/tiling.py).
+    tile_size: Optional[int] = None  # None = no tiling
+    tile_overlap: int = 64
+    # Background for compositing, declared as in the JAX package, which
+    # reads it nowhere either (convert_video takes bg_color).
+    composite_bg: Optional[Tuple[float, float, float]] = None
+    # The serving kernels: None or True = on (the CUDA kernels on CUDA
+    # tensors, their plain versions on CPU tensors); False = the branch
+    # the JAX package takes without its kernels: no fused tail, the
+    # uint8 tuple instead of packed words, every stage on its plain
+    # version and the net as F.conv2d.
+    use_pallas: Optional[bool] = None
     # Static-scene fast path: when the ingested coarse frame's mean abs
     # delta against the frame the cached coefficients came from is <= eps
     # (in [0, 1] units, e.g. 0.5/255), the net and the guided-filter
     # coefficients are skipped and the cache reused; the tail still runs
     # on the current frame. None = off. Batch-1 fused tails only.
     static_skip_eps: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Multi-stream serving configuration (ROADMAP A.12: not served by the
+    port yet)."""
+
+    num_streams: int = 8
+    height: int = 1088  # padded 1080p (the /16 bucket)
+    width: int = 1920
+    downsample_ratio: float = 0.25
 
 
 def preset_pr1_image() -> tuple[ModelConfig, PipelineConfig]:
@@ -120,9 +150,42 @@ def preset_clip_480p() -> tuple[ModelConfig, PipelineConfig]:
         downsample_ratio=1.0, chunk_size=10, refine=RefineConfig(mode="none"))
 
 
-#: the presets the port serves, by the JAX package's names
+def preset_video_1080p_errormap() -> tuple[ModelConfig, PipelineConfig]:
+    """1080p recurrent with error-map patch refinement on the s2d=1 model
+    (vidmat/config.py ``preset_video_1080p_errormap``). Its refiner is not
+    ported yet: serving raises (ROADMAP A.11)."""
+    return ModelConfig(conv_impl="planar"), PipelineConfig(
+        downsample_ratio=0.25, chunk_size=4,
+        refine=RefineConfig(mode="errormap"))
+
+
+def preset_video_4k() -> tuple[ModelConfig, PipelineConfig]:
+    """4K tiled inference with overlap blending: the ``video_1080p`` model
+    (s2d=2, planar) at ratio 0.125, tiles of 1024 with an overlap of 128,
+    chunk 1 (vidmat/config.py ``preset_video_4k``). The coarse grid snaps
+    to multiples of 16: a 3840x2176 frame gives 272x480, pool 8, and the
+    tiled fused tail; a 3840x2160 one (its /16 bucket keeps 2160) also
+    gives 272x480, which is no integer pool of it, so it takes the untiled
+    guided tail, as in the JAX package."""
+    return ModelConfig(space_to_depth=2, conv_impl="planar"), PipelineConfig(
+        downsample_ratio=0.125, chunk_size=1,
+        refine=RefineConfig(mode="guided"), tile_size=1024, tile_overlap=128)
+
+
+def preset_multistream() -> tuple[ModelConfig, PipelineConfig, StreamConfig]:
+    """8 concurrent 1080p streams: the ``video_1080p`` pair at chunk 1 and a
+    ``StreamConfig`` (vidmat/config.py ``preset_multistream``). Not served
+    by the port yet (ROADMAP A.12)."""
+    m, p = preset_video_1080p()
+    return m, dataclasses.replace(p, chunk_size=1), StreamConfig()
+
+
+#: the JAX package's presets, by its names
 PRESETS = {
     "pr1_image": preset_pr1_image,
     "clip_480p": preset_clip_480p,
     "video_1080p": preset_video_1080p,
+    "video_1080p_errormap": preset_video_1080p_errormap,
+    "video_4k": preset_video_4k,
+    "multistream": preset_multistream,
 }

@@ -2,11 +2,12 @@
 // (counterpart of native/framestage.cpp, the JAX package's native tier).
 //
 // Host code, not a kernel: it sits between the decoder and the H2D copy.
-//   vm_pad_into   edge-pads one (h, w, 3) uint8 frame (any row and pixel
-//                 stride) at the bottom and right straight into a caller's
-//                 contiguous (out_h, out_w, 3) buffer, a slot of the
-//                 pipeline's pinned host chunk; rows split over up to 4
-//                 OpenMP threads.
+//   vm_pad_into   edge-pads one (h, w, c) uint8 frame (c = 3, or 4 for a
+//                 frame carrying its trimap; any row and pixel stride) at
+//                 the bottom and right straight into a caller's contiguous
+//                 (out_h, out_w, c) buffer, a slot of the pipeline's
+//                 pinned host chunk; rows split over up to 4 OpenMP
+//                 threads.
 //   vm_unpack_rgba copies packed RGBA words (R | G<<8 | B<<16 | A<<24, the
 //                 composite kernels' output) to interleaved uint8 RGBA: a
 //                 byte copy on a little-endian host, split over threads, for
@@ -23,23 +24,23 @@
 namespace {
 
 // Rows [y0, y1) of the padded frame.
-void pad_rows(const uint8_t* src, int64_t h, int64_t w, int64_t stride0,
-              int64_t stride1, uint8_t* dst, int64_t out_w, int64_t y0,
-              int64_t y1) {
-  const int64_t row_bytes = out_w * 3;
+void pad_rows(const uint8_t* src, int64_t h, int64_t w, int64_t c,
+              int64_t stride0, int64_t stride1, uint8_t* dst, int64_t out_w,
+              int64_t y0, int64_t y1) {
+  const int64_t row_bytes = out_w * c;
   for (int64_t y = y0; y < y1; ++y) {
     // Rows below the frame repeat its last row (edge padding).
     const uint8_t* s = src + std::min(y, h - 1) * stride0;
     uint8_t* d = dst + y * row_bytes;
-    if (stride1 == 3) {
-      std::memcpy(d, s, w * 3);
+    if (stride1 == c) {
+      std::memcpy(d, s, w * c);
     } else {
       for (int64_t x = 0; x < w; ++x)
-        std::memcpy(d + x * 3, s + x * stride1, 3);
+        std::memcpy(d + x * c, s + x * stride1, c);
     }
     // Columns right of the frame repeat its last pixel.
-    const uint8_t* edge = d + (w - 1) * 3;
-    for (int64_t x = w; x < out_w; ++x) std::memcpy(d + x * 3, edge, 3);
+    const uint8_t* edge = d + (w - 1) * c;
+    for (int64_t x = w; x < out_w; ++x) std::memcpy(d + x * c, edge, c);
   }
 }
 
@@ -70,14 +71,16 @@ void parallel_rows(int64_t n, int64_t grain, F fn) {
 extern "C" {
 
 // Returns 0, or 1 on shapes it does not take (empty frame, frame larger
-// than the buffer).
-int vm_pad_into(const uint8_t* src, int64_t h, int64_t w, int64_t stride0,
-                int64_t stride1, uint8_t* dst, int64_t out_h,
-                int64_t out_w) {
-  if (h <= 0 || w <= 0 || h > out_h || w > out_w) return 1;
+// than the buffer, c not 3 or 4).
+int vm_pad_into(const uint8_t* src, int64_t h, int64_t w, int64_t c,
+                int64_t stride0, int64_t stride1, uint8_t* dst,
+                int64_t out_h, int64_t out_w) {
+  if (h <= 0 || w <= 0 || h > out_h || w > out_w || c < 3 || c > 4)
+    return 1;
   parallel_rows(out_h, 64,
                 [=](int64_t lo, int64_t hi) {
-                  pad_rows(src, h, w, stride0, stride1, dst, out_w, lo, hi);
+                  pad_rows(src, h, w, c, stride0, stride1, dst, out_w, lo,
+                           hi);
                 });
   return 0;
 }

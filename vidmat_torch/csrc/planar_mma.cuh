@@ -40,21 +40,28 @@
 // second mma on sign-masked fragments), and every epilogue checks the
 // value it is about to round against the two orders' error scale carried
 // through its arithmetic (near_tie). The scale (err_scale) is
-// u (K |acc| + 4 S) (u = 2^-24). K |acc| bounds what either order can lose
-// while its partial sums stay below |acc|: each of the K adds rounds by at
-// most u times its partial sum, and the sequential order drops every term
-// under half a unit of its running sum, so tiny terms of one sign over K
-// products move the two orders apart linearly in K (the card test
+// u (K P + 4 S) (u = 2^-24), P the larger of |acc| and the largest K
+// step's mass (the sum of its 16 |x * w|). K P bounds what either order
+// can lose while its partial sums stay below P: each of the K adds rounds
+// by at most u times its partial sum, and the sequential order drops every
+// term under half a unit of its running sum. So tiny terms of one sign
+// over K products move the two orders apart linearly in K (the card test
 // test_planar_kernels_round_same_sign_tiny_terms_as_sequential_order; a
-// scale of 2 sqrt(K) |acc|, the spread of random roundings, missed it).
-// 4 S covers sums that cancel, as a spread: partial sums larger than |acc|
-// (big terms that cancel after many tiny ones) can exceed it, up to the
-// bound K u S. Where the value lies that close to a midpoint or to zero
-// (about a percent of values) its (m, n) is queued and recomputed in the
-// CUDA-core order (seq_sum: input channel, then ky, then kx, FMA from 0,
-// over the operands already in shared memory), one queued value per lane.
-// Each bf16 value is then the one the sequential kernel gives. The
-// epilogue arithmetic is unchanged.
+// scale of 2 sqrt(K) |acc|, the spread of random roundings, missed it),
+// and so do big terms that cancel after many tiny ones: the sequential
+// order drops the tiny terms while a big one holds its running sum up,
+// the tensor-core order keeps those it adds while its sum is small (the
+// card test test_planar_kernels_round_cancelling_sums_as_sequential_order;
+// u (K |acc| + 4 S), a scale that saw only the final sum, missed it). A
+// big term makes the mass of the K step that holds it big. 4 S covers the
+// rest as a spread (many medium terms that cancel across K steps); the
+// bound of a K-term sum is K u S, which would send about a third of all
+// values to the slow order. Where the value lies that close
+// to a midpoint or to zero (a few percent of values) its (m, n) is queued
+// and recomputed in the CUDA-core order (seq_sum: input channel, then ky,
+// then kx, FMA from 0, over the operands already in shared memory), one
+// queued value per lane. Each bf16 value is then the one the sequential
+// kernel gives. The epilogue arithmetic is unchanged.
 
 #pragma once
 
@@ -71,9 +78,10 @@ constexpr int kNTMax = 4;  // N tiles (of 8 channels) a warp accumulates
 constexpr float kU = 1.0f / 16777216.0f;  // 2^-24
 
 // The error scale of a sum acc of k products with S = sabs (see Numerics):
-// u (k |acc| + 4 S); kf = k.
-__device__ __forceinline__ float err_scale(float acc, float sabs, float kf) {
-  return kU * (kf * fabsf(acc) + 4.0f * sabs);
+// u (k P + 4 S), P = max(|acc|, big), big the largest K step mass; kf = k.
+__device__ __forceinline__ float err_scale(float acc, float sabs, float big,
+                                           float kf) {
+  return kU * (kf * fmaxf(fabsf(acc), big) + 4.0f * sabs);
 }
 
 __host__ __device__ constexpr int up(int x, int m) {
@@ -148,17 +156,26 @@ __device__ __forceinline__ void mma16816(float (&acc)[4],
 }
 
 // s += |A| * |B| for one K step (sign bits cleared), summed loosely: S
-// only sizes the error of the sum.
-__device__ __forceinline__ void mma_abs(float (&s)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
+// only sizes the error of the sum. big = max(big, the step's masses of the
+// four values): a lane's four values share one big (a wider scale only
+// queues more values).
+__device__ __forceinline__ void mma_abs(float (&s)[4], float& big,
+                                        const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
   constexpr uint32_t kMag = 0x7FFF7FFFu;
   const uint32_t aa[4] = {a[0] & kMag, a[1] & kMag, a[2] & kMag,
                           a[3] & kMag};
+  float d0, d1, d2, d3;
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3])
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
       : "r"(aa[0]), "r"(aa[1]), "r"(aa[2]), "r"(aa[3]), "r"(b0 & kMag),
-        "r"(b1 & kMag));
+        "r"(b1 & kMag), "f"(0.0f));
+  s[0] += d0;
+  s[1] += d1;
+  s[2] += d2;
+  s[3] += d3;
+  big = fmaxf(big, fmaxf(fmaxf(d0, d1), fmaxf(d2, d3)));
 }
 
 // Channel k of image b of the concatenation `in` (k < in.total): its plane.
@@ -393,11 +410,13 @@ __device__ __forceinline__ void conv_stage(const Seg (&segs)[NSEG],
     if (m >= npix) m = 0;  // a real pixel; its row is dropped below
     const int oy = m / cols, ox = m - (m / cols) * cols;
 
-    float acc[kNTMax][4], sab[kNTMax][4];
+    float acc[kNTMax][4], sab[kNTMax][4], big[kNTMax];
 #pragma unroll
-    for (int j = 0; j < kNTMax; ++j)
+    for (int j = 0; j < kNTMax; ++j) {
+      big[j] = 0.0f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] = sab[j][i] = 0.0f;
+    }
 
 #pragma unroll
     for (int s = 0; s < NSEG; ++s) {
@@ -425,13 +444,13 @@ __device__ __forceinline__ void conv_stage(const Seg (&segs)[NSEG],
               ldsm_x4(b, bj);
               mma16816(acc[j], a, b[0], b[1]);
               mma16816(acc[j + 1], a, b[2], b[3]);
-              mma_abs(sab[j], a, b[0], b[1]);
-              mma_abs(sab[j + 1], a, b[2], b[3]);
+              mma_abs(sab[j], big[j], a, b[0], b[1]);
+              mma_abs(sab[j + 1], big[j + 1], a, b[2], b[3]);
             } else {
               uint32_t b0r, b1r;
               ldsm_x2(b0r, b1r, bj);
               mma16816(acc[j], a, b0r, b1r);
-              mma_abs(sab[j], a, b0r, b1r);
+              mma_abs(sab[j], big[j], a, b0r, b1r);
             }
           }
         }
@@ -451,8 +470,8 @@ __device__ __forceinline__ void conv_stage(const Seg (&segs)[NSEG],
       __syncwarp();
       qn = 0;
     };
-    auto put = [&](int r, int n, float v, float sv) {
-      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, kf));
+    auto put = [&](int r, int n, float v, float sv, float bg) {
+      const bool need = r < npix && !epi(r, n, v, err_scale(v, sv, bg, kf));
       const unsigned mask = __ballot_sync(0xFFFFFFFFu, need);
       if (mask == 0) return;
       if (qn + __popc(mask) > kQueue) flush();
@@ -465,10 +484,10 @@ __device__ __forceinline__ void conv_stage(const Seg (&segs)[NSEG],
     for (int j = 0; j < kNTMax; ++j) {
       if (j >= ng) break;
       const int n = (n0 + j) * 8 + cq;
-      put(r0, n, acc[j][0], sab[j][0]);
-      put(r0, n + 1, acc[j][1], sab[j][1]);
-      put(r1, n, acc[j][2], sab[j][2]);
-      put(r1, n + 1, acc[j][3], sab[j][3]);
+      put(r0, n, acc[j][0], sab[j][0], big[j]);
+      put(r0, n + 1, acc[j][1], sab[j][1], big[j]);
+      put(r1, n, acc[j][2], sab[j][2], big[j]);
+      put(r1, n + 1, acc[j][3], sab[j][3], big[j]);
     }
     flush();
   }

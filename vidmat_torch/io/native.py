@@ -51,28 +51,31 @@ def _lib() -> ctypes.CDLL:
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     lib.vm_pad_into.restype = _I
-    lib.vm_pad_into.argtypes = [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64]
+    lib.vm_pad_into.argtypes = [_P, _I64, _I64, _I64, _I64, _I64, _P, _I64,
+                                _I64]
     lib.vm_unpack_rgba.restype = _I
     lib.vm_unpack_rgba.argtypes = [_P, _I64, _P]
     return lib
 
 
 def pad_into(frame: np.ndarray, out: np.ndarray) -> None:
-    """Edge-pad an (H, W, 3) uint8 frame (any strides with a 1-byte channel
-    step) at the bottom and right into ``out``, a C-contiguous
-    (out_h, out_w, 3) uint8 buffer with out_h >= H and out_w >= W, as
-    ``np.pad(frame, ..., mode="edge")`` does. Rows are split over up to 4
-    OpenMP threads."""
-    if (frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3
-            or frame.strides[2] != 1):
-        raise ValueError("frame must be (H, W, 3) uint8 with contiguous "
-                         f"channels; got {frame.dtype} {frame.shape}")
-    if (out.dtype != np.uint8 or out.ndim != 3 or out.shape[2] != 3
+    """Edge-pad an (H, W, C) uint8 frame, C = 3 or 4 (RGB and a trimap
+    byte; any strides with a 1-byte channel step), at the bottom and right
+    into ``out``, a C-contiguous (out_h, out_w, C) uint8 buffer with
+    out_h >= H and out_w >= W, as ``np.pad(frame, ..., mode="edge")``
+    does. Rows are split over up to 4 OpenMP threads."""
+    if (frame.dtype != np.uint8 or frame.ndim != 3
+            or frame.shape[2] not in (3, 4) or frame.strides[2] != 1):
+        raise ValueError("frame must be (H, W, 3 or 4) uint8 with "
+                         f"contiguous channels; got {frame.dtype} "
+                         f"{frame.shape}")
+    c = frame.shape[2]
+    if (out.dtype != np.uint8 or out.ndim != 3 or out.shape[2] != c
             or not out.flags.c_contiguous or not out.flags.writeable):
         raise ValueError("out must be a writable C-contiguous "
-                         "(out_h, out_w, 3) uint8 array")
+                         f"(out_h, out_w, {c}) uint8 array")
     h, w = frame.shape[:2]
-    err = _lib().vm_pad_into(frame.ctypes.data, h, w, frame.strides[0],
+    err = _lib().vm_pad_into(frame.ctypes.data, h, w, c, frame.strides[0],
                              frame.strides[1], out.ctypes.data,
                              out.shape[0], out.shape[1])
     if err:

@@ -12,7 +12,8 @@ Architecture:
   decoder: 3 upsample stages with skip concat + split-half ConvGRU
            (recurrent state = the GRU half-channels at strides 8/4/2),
            final full-res stage conditioned on the raw frame
-  heads: alpha (1ch) + foreground residual (3ch)
+  heads: alpha (1ch) + foreground residual (3ch); with a co-trained
+         checkpoint also ``seg_head`` (segmentation logits, 1ch)
 """
 
 from __future__ import annotations
@@ -138,12 +139,17 @@ class MattingNetwork(nn.Module):
     returns for ``conv_impl="planar"``; this module computes the same
     function whatever ``conv_impl`` says. With ``cfg.use_trimap`` the
     fourth input channel is the trimap in [0, 1]: where it is >= 0.75 the
-    alpha is pinned to 1, where <= 0.25 to 0, as in the JAX network. The
-    segmentation pass is not ported yet (ROADMAP A.10).
+    alpha is pinned to 1, where <= 0.25 to 0, as in the JAX network.
+
+    forward(frame, state, seg_pass=True) -> (seg_logits (N, H, W, 1)
+    float32, None, new_state): the segmentation pass of a co-trained
+    network (``with_seg``): the same trunk, with ``seg_head`` in place of
+    the matting head; the state advances as in the matting pass.
     """
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 with_seg: bool = False):
         super().__init__()
         self.cfg = cfg
         # Compute dtype: None = float32 (parity path); torch.bfloat16 for
@@ -159,9 +165,11 @@ class MattingNetwork(nn.Module):
         cond_ch = cfg.in_channels * s * s if s > 1 else 3
         self.d0 = ConvBNAct(d[2] + cond_ch, d[3], bn_eps=e)
         self.head = Conv(d[3], 4 * s * s, 3)
+        self.seg_head = Conv(d[3], s * s, 3) if with_seg else None
 
     def forward(self, frame: torch.Tensor,
-                state: Optional[RecurrentState] = None):
+                state: Optional[RecurrentState] = None,
+                seg_pass: bool = False):
         cfg = self.cfg
         s = cfg.space_to_depth
         x = frame.permute(0, 3, 1, 2)
@@ -187,6 +195,14 @@ class MattingNetwork(nn.Module):
         if cfg.recurrent:
             new_state = RecurrentState(*(t.permute(0, 2, 3, 1)
                                          for t in (n3, n2, n1)))
+        if seg_pass:
+            if self.seg_head is None:
+                raise ValueError("the segmentation pass needs a co-trained "
+                                 "network (a seg_head in its variables)")
+            seg = self.seg_head(y)
+            if s > 1:
+                seg = depth_to_space(seg, s)
+            return seg.float().permute(0, 2, 3, 1), None, new_state
         out = self.head(y)
         if s > 1:
             out = depth_to_space(out, s)

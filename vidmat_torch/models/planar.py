@@ -11,7 +11,10 @@ of the net through the four planar kernels (``vidmat_torch.ops.planar``):
   decoder     d3, d2, d1: 2x upsample of the previous stage, then
               planar_conv_gru (conv + split + ConvGRU in one launch)
   full res    d0 + head (planar_conv2, act2 none), depth-to-space, clip,
-              the foreground residual
+              the foreground residual; a trimap-conditioned model pins the
+              alpha to the trimap's known regions. ``seg=True`` (a
+              co-trained network) fuses d0 + seg_head instead and returns
+              the segmentation logits
 
 BatchNorm is folded once at build time (``folded_planar_params``); on
 bfloat16 planes every conv weight a planar_conv call takes is also packed
@@ -64,10 +67,12 @@ class PlanarState(NamedTuple):
 class PlanarEncoding(NamedTuple):
     """``encode``'s output for a batch of frames, NCHW: the packed input
     (the full-res stage's conditioning), the frame's RGB in float32, the
-    encoder skips f1..f3 and the gated bottleneck b4."""
+    trimap channel of a trimap-conditioned model (else None), the encoder
+    skips f1..f3 and the gated bottleneck b4."""
 
     x_in: torch.Tensor
     rgb: torch.Tensor
+    tri: Optional[torch.Tensor]
     f1: torch.Tensor
     f2: torch.Tensor
     f3: torch.Tensor
@@ -75,7 +80,8 @@ class PlanarEncoding(NamedTuple):
 
     def frame(self, i: int) -> "PlanarEncoding":
         """The encoding of frame i alone (batch 1)."""
-        return PlanarEncoding(*(t[i:i + 1] for t in self))
+        return PlanarEncoding(*(None if t is None else t[i:i + 1]
+                                for t in self))
 
 
 def planar_init_state(cfg: ModelConfig, batch: int, height: int, width: int,
@@ -116,9 +122,6 @@ class PlanarNetwork(nn.Module):
                  params: Dict[str, Dict[str, torch.Tensor]],
                  dtype: torch.dtype = torch.float32, fuse_pairs: bool = True):
         super().__init__()
-        if cfg.use_trimap:
-            raise NotImplementedError(
-                "trimap-conditioned matting is not ported yet (ROADMAP A.10)")
         self.cfg = cfg
         self.dtype = dtype
         self.fuse_pairs = fuse_pairs
@@ -155,6 +158,10 @@ class PlanarNetwork(nn.Module):
         s = self.cfg.space_to_depth
         x = frame.permute(0, 3, 1, 2)
         rgb = x[:, :3].float()
+        # The trimap channel as the frame gives it (vidmat/models/
+        # planar.py:321), before the cast to the plane dtype.
+        tri = (x[:, 3:4] if self.cfg.use_trimap and x.shape[1] >= 4
+               else None)
         x = x.to(self.dtype)
         x_in = (space_to_depth(x, s) if s > 1 else x).contiguous()
 
@@ -181,7 +188,7 @@ class PlanarNetwork(nn.Module):
         # on the planar body for a 64 x 64 product.
         gate = torch.sigmoid((gmean[:, :, None] * g["w"]).sum(1) + g["b"])
         b4 = (proj.float() * gate[:, :, None, None]).to(self.dtype)
-        return PlanarEncoding(x_in, rgb, f1, f2, f3, b4)
+        return PlanarEncoding(x_in, rgb, tri, f1, f2, f3, b4)
 
     def _dec_stage(self, k, name, xs, skip, h_prev):
         ups = [upsample2x(t) for t in xs] + [skip]
@@ -205,9 +212,10 @@ class PlanarNetwork(nn.Module):
         return [a, h_new], h_new
 
     def decode(self, enc: PlanarEncoding, state: Optional[PlanarState],
-               plain: bool = False):
+               plain: bool = False, seg: bool = False):
         """Recurrent half: decoder stages and the full-res head on one
-        batch of encodings. Returns (alpha, fgr, new_state)."""
+        batch of encodings. Returns (alpha, fgr, new_state), or with
+        ``seg`` (seg_logits (N, H, W, 1) float32, None, new_state)."""
         k = _PLAIN if plain else _KERNELS
         cfg = self.cfg
         s = cfg.space_to_depth
@@ -222,21 +230,32 @@ class PlanarNetwork(nn.Module):
         # contiguous planes.
         cond = enc.x_in if s > 1 else enc.rgb.to(self.dtype).contiguous()
         ups = [upsample2x(t) for t in xs] + [cond]
-        d0, hd = self._p("d0"), self._p("head")
+        head = "seg_head" if seg else "head"
+        if head not in self._sites:
+            raise ValueError("the segmentation pass needs a co-trained "
+                             "network (a seg_head in its variables)")
+        d0, hd = self._p("d0"), self._p(head)
         if self.fuse_pairs:
             out = k["conv2"](ups, d0["w"], d0["scale"], d0["bias"], hd["w"],
                              hd["scale"], hd["bias"], 1, "relu", "none")
         else:
             y = self._conv(k, ups, "d0")
-            out = self._conv(k, [y], "head", 1, "none")
+            out = self._conv(k, [y], head, 1, "none")
         og = out.float()
         if s > 1:
             og = depth_to_space(og, s)
+        new_state = PlanarState(n3, n2, n1) if cfg.recurrent else state
+        if seg:
+            return og[:, 0:1].permute(0, 2, 3, 1), None, new_state
         alpha = og[:, 0:1].clamp(0.0, 1.0)
         fgr = (og[:, 1:4] + enc.rgb).clamp(0.0, 1.0)
-        new_state = PlanarState(n3, n2, n1) if cfg.recurrent else state
+        if enc.tri is not None:
+            # Known foreground and background are pinned.
+            alpha = torch.where(enc.tri >= 0.75, 1.0,
+                                torch.where(enc.tri <= 0.25, 0.0, alpha))
         return alpha.permute(0, 2, 3, 1), fgr.permute(0, 2, 3, 1), new_state
 
     def forward(self, frame: torch.Tensor,
-                state: Optional[PlanarState] = None, plain: bool = False):
-        return self.decode(self.encode(frame, plain), state, plain)
+                state: Optional[PlanarState] = None, plain: bool = False,
+                seg: bool = False):
+        return self.decode(self.encode(frame, plain), state, plain, seg)

@@ -11,11 +11,13 @@ The shipped checkpoints the port serves (in ``checkpoints/`` of this
 package: ``fast_demo``, the s2d=2 serving model; ``synthetic_demo``, the
 s2d=1 default model; ``plate_demo``, the clean-plate conditioned s2d=2
 model; ``trimap_demo``, the per-image trimap model, non-recurrent;
-``trimap_prop_demo``, the recurrent s2d=2 trimap-propagation model) are
-flattened Flax trees, one npz entry per leaf keyed by its path
+``trimap_prop_demo``, the recurrent s2d=2 trimap-propagation model;
+``seg_demo``, the s2d=1 base model co-trained with a segmentation head)
+are flattened Flax trees, one npz entry per leaf keyed by its path
 (``params/encoder/stem/conv/kernel``), so they load with numpy alone.
 Unlike the JAX package's oracle bridge this one keeps the ``seg_head``
-subtree.
+subtree: a network built from a co-trained tree has the segmentation
+pass.
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ _DEFAULT_CKPTS = {
     (True, False, 1, False): "trimap_demo",
     (True, False, 2, True): "trimap_prop_demo",
     (False, True, 2, True): "plate_demo",
+}
+
+
+#: The same for the co-trained checkpoints (matting weights and seg_head).
+_SEG_CKPTS = {
+    (False, False, 1, True): "seg_demo",
 }
 
 
@@ -114,16 +122,19 @@ def load_npz(path: str) -> Dict[str, Any]:
         return unflatten_variables({k: z[k] for k in z.files})
 
 
-def default_checkpoint_path(cfg: ModelConfig) -> Optional[str]:
+def default_checkpoint_path(cfg: ModelConfig,
+                            seg: bool = False) -> Optional[str]:
     """Path of the shipped checkpoint matching ``cfg`` in this package, or
-    None: the JAX package's five entries (``_DEFAULT_CKPTS``). Only the
-    base channel plan has shipped weights."""
+    None: the JAX package's five entries (``_DEFAULT_CKPTS``), or with
+    ``seg`` its co-trained one (``_SEG_CKPTS``). Only the base channel
+    plan has shipped weights."""
     base = ModelConfig()
     if (cfg.enc_channels, cfg.dec_channels) != (base.enc_channels,
                                                 base.dec_channels):
         return None
-    name = _DEFAULT_CKPTS.get((cfg.use_trimap, cfg.use_bg_plate,
-                               cfg.space_to_depth, cfg.recurrent))
+    name = (_SEG_CKPTS if seg else _DEFAULT_CKPTS).get(
+        (cfg.use_trimap, cfg.use_bg_plate, cfg.space_to_depth,
+         cfg.recurrent))
     if name is None:
         return None
     path = os.path.join(_CKPT_DIR, f"{name}.npz")
@@ -142,6 +153,19 @@ def default_variables(cfg: ModelConfig) -> Dict[str, Any]:
             "fast_demo (s2d=2), plate_demo (use_bg_plate, s2d=2), "
             "trimap_demo (use_trimap, recurrent=False) and "
             "trimap_prop_demo (use_trimap, s2d=2) only.")
+    return load_npz(path)
+
+
+def seg_default_variables(cfg: ModelConfig) -> Dict[str, Any]:
+    """The shipped co-trained weights (with ``seg_head``) for ``cfg``, or
+    raise: a matting-only checkpoint has no segmentation head
+    (vidmat/models/weights.py ``seg_default_variables``)."""
+    path = default_checkpoint_path(cfg, seg=True)
+    if path is None:
+        raise ValueError(
+            f"no shipped co-trained (seg_head) checkpoint matches {cfg!r}: "
+            "pass variables= from a co-training run; the shipped seg "
+            "default covers the base plan only (seg_demo)")
     return load_npz(path)
 
 
@@ -200,6 +224,11 @@ def folded_planar_params(cfg: ModelConfig, variables: Dict[str, Any],
     hb = _f32(prm["head"]["bias"])
     out["head"] = {"w": _conv_weight(prm["head"]["kernel"], dtype),
                    "scale": torch.ones_like(hb), "bias": hb}
+    if "seg_head" in prm:
+        sb = _f32(prm["seg_head"]["bias"])
+        out["seg_head"] = {"w": _conv_weight(prm["seg_head"]["kernel"],
+                                             dtype),
+                           "scale": torch.ones_like(sb), "bias": sb}
     return out
 
 
@@ -210,8 +239,8 @@ def build_network(cfg: ModelConfig, variables: Dict[str, Any],
     a PlanarNetwork (the four planar conv kernels, BatchNorm folded) for
     ``conv_impl="planar"``, else a MattingNetwork (F.conv2d). ``dtype``:
     compute (plane) dtype, None = float32. ``fuse_pairs`` selects the
-    planar network's fused kernels. A co-trained ``seg_head`` is left out:
-    the segmentation pass is not ported yet (ROADMAP A.10)."""
+    planar network's fused kernels. A co-trained ``seg_head`` gives the
+    network its segmentation pass."""
     from vidmat_torch.models.matting_net import MattingNetwork
 
     if cfg.conv_impl == "planar":
@@ -222,9 +251,9 @@ def build_network(cfg: ModelConfig, variables: Dict[str, Any],
             dtype=dtype or torch.float32, fuse_pairs=fuse_pairs)
         net.requires_grad_(False)
         return net.eval().to(device)
-    sd = {k: v for k, v in state_dict_from_jax(variables).items()
-          if not k.startswith("seg_head.")}
-    net = MattingNetwork(cfg, dtype=dtype)
+    sd = state_dict_from_jax(variables)
+    net = MattingNetwork(cfg, dtype=dtype,
+                         with_seg="seg_head" in variables["params"])
     net.load_state_dict(sd)
     net.requires_grad_(False)
     return net.eval().to(device)

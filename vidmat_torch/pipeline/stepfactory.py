@@ -14,9 +14,11 @@ The body maps one frame batch through the serving chain:
      fused float    the same pool, float output or raw foreground: GF
                     coefficients and fused_refine_float (CUDA kernel)
      unfused        full resolution (no refinement), bilinear upsample
-                    (refine "none"), or guided refinement at a ratio that
+                    (refine "none"), guided refinement at a ratio that
                     is not an integer pool (``guided_upsample``: the GF
-                    kernel, bilinear upsample, apply); then one
+                    kernel, bilinear upsample, apply), or tiled guided
+                    refinement off the fused tails
+                    (``refine.tiling.tiled_guided_upsample``); then one
                     ``finish_float``: float output, packed words through
                     composite_rgba_packed (CUDA kernel), or the uint8
                     tuple (alpha, fgr, rgba) for raw-foreground output
@@ -38,11 +40,29 @@ inside its kernel (coarse mode) and the other tails upsample with
 time and appended to the net's input; the guide, the tails, the composite
 and the static-skip delta see the frame's channels only (:403-432).
 
-Tiling (A.8), trimaps (A.10) and error-map refinement (A.11) raise
-NotImplementedError naming the ROADMAP item that ports them. The JAX
-package's scoped-VMEM fit rule for the fused tails (``refine_tiles_fit``)
-is a TPU limit the CUDA kernels do not have: every integer pool > 1 takes
-a fused tail.
+Tiling (``tile_size``, ``tile_overlap``; :251-262, 471-498, 560-567):
+the fused tails take the guided-filter statistics per coarse tile, all
+tiles as one batch of the GF kernel, and feather-blend the coefficient
+grids at the coarse grid (exact: the guided apply is pointwise in (A, b)
+and the guide is shared), then run the whole-frame tail once. They stay
+fused only where the tile and the overlap are multiples of the pool;
+otherwise, and without the kernels, the tail is the unfused
+``tiled_guided_upsample``, which raises on a misaligned overlap.
+
+Trimap-conditioned models (``model_cfg.use_trimap``) take (N, h, w, 4)
+frames: RGB and the trimap byte ({0, 128, 255}), ingested together; the
+guide, the tails and the composite see the RGB only (:348-351, 478-482,
+518-545). ``output_seg`` builds the segmentation body instead (:442-459):
+ingest, the trunk with the co-trained ``seg_head`` (the state advances as
+in the matting pass), a bilinear upsample of the logits and a sigmoid.
+
+``use_pallas=False`` takes the branch the JAX package takes without its
+kernels: no fused tail, no packed output (the uint8 tuple), every stage
+and the net on its plain version (:227-244). Error-map refinement (A.11)
+raises NotImplementedError naming its ROADMAP item. The JAX package's
+scoped-VMEM fit rule for the fused tails (``refine_tiles_fit``) is a TPU
+limit the CUDA kernels do not have: every integer pool > 1 takes a fused
+tail.
 """
 
 from __future__ import annotations
@@ -71,6 +91,8 @@ from vidmat_torch.ops.refine import (Background, fused_refine_composite,
                                      fused_refine_float,
                                      fused_refine_float_plain)
 from vidmat_torch.ops.resize import downsample_ratio_shape, resize_bilinear
+from vidmat_torch.refine.tiling import (TileLayout, tile_frame,
+                                        tiled_guided_upsample, untile_frame)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,9 +147,12 @@ def build_serving_body(
     need_fgr: bool = False,
     alpha_only: bool = False,
     tile_size: Optional[int] = None,
+    tile_overlap: int = 64,
     static_skip_eps: Optional[float] = None,
     float_frames: bool = False,
     float_output: bool = False,
+    output_seg: bool = False,
+    use_pallas: Optional[bool] = None,
     kernels: bool = True,
 ) -> Tuple[Callable, ServingPlan]:
     """Build the serving body for a static (h, w, ratio) bucket.
@@ -156,6 +181,8 @@ def build_serving_body(
               RGB).
     alpha_only: packed paths return the (N, h, w) uint8 alpha byte instead
               of the packed words (a 4x smaller device-to-host copy).
+    tile_size, tile_overlap: tiled refinement at full resolution (see
+              the module docstring); tile_size None = untiled.
     static_skip_eps: the static-scene fast path of the fused tails (see
               ``PipelineConfig.static_skip_eps``); batch 1 only.
     float_frames: the body takes (N, h, w, 3) float32 frames in [0, 1]
@@ -163,6 +190,10 @@ def build_serving_body(
               fused tail.
     float_output: return (alpha (N, h, w, 1), fgr (N, h, w, 3)) float32,
               no composite, no quantization (the streaming contract).
+    output_seg: the segmentation body: returns (mask (N, h, w, 1) float32
+              probability, new_state); needs a net holding ``seg_head``.
+    use_pallas: None or True: the kernels' branches; False: the JAX
+              package's branch without kernels (implies kernels=False).
     kernels:  True (serving): the stages call the kernel wrappers, which
               launch the CUDA kernels on CUDA tensors and run the plain
               versions on CPU tensors. False: the stages (and the planar
@@ -170,18 +201,16 @@ def build_serving_body(
               the reference the kernel path is held against on the card.
 
     Returns (body, plan) where
-      body(frame (N, h, w, 3) uint8 (float32 with float_frames), state
+      body(frame (N, h, w, C) uint8 (float32 with float_frames), state
            [, bg_frame with bg_dynamic]) -> (out, new_state)
+      C is 3, or 4 for a trimap-conditioned model (RGB, then the trimap
+      byte, normalized with the RGB)
       out = (N, h, w) uint8 alpha           if plan.alpha_only
           | (N, h, w) uint32 packed RGBA    if plan.packed
                 (R | G<<8 | B<<16 | A<<24)
           | (alpha (N, h, w, 1), fgr (N, h, w, 3)) float32  if float_output
           | (alpha_u8 (N, h, w, 1), fgr_u8 (N, h, w, 3), rgba (N, h, w, 4))
     """
-    if model_cfg.use_trimap:
-        raise _unported("trimap-conditioned serving", "A.10")
-    if tile_size:
-        raise _unported("tiled refinement", "A.8")
     if refine.mode == "errormap":
         raise _unported("error-map refinement", "A.11")
     if refine.mode not in ("guided", "none"):
@@ -227,12 +256,23 @@ def build_serving_body(
     pool = (h // net_h if (not full and h % net_h == 0 and w % net_w == 0
                            and h // net_h == w // net_w) else 0)
 
-    # The branch the JAX package takes with its kernels on
-    # (stepfactory.py:229-250, 317-318, 525).
-    use_packed = not need_fgr and not float_output
-    kernel_tail_ok = pool > 1 and refine.mode == "guided" and not float_frames
+    # The branch the JAX package takes (stepfactory.py:227-278, 317-318,
+    # 525): with its kernels, or without them (use_pallas=False).
+    pallas = use_pallas is not False
+    kernels = kernels and pallas
+    use_packed = pallas and not need_fgr and not float_output
+    kernel_tail_ok = (pallas and pool > 1 and refine.mode == "guided"
+                      and not float_frames)
     use_fused = use_packed and kernel_tail_ok
     use_float_tail = not use_packed and kernel_tail_ok
+    # Tiled: per-coarse-tile statistics and the blended coefficient grids
+    # feed the whole-frame fused tails where the geometry aligns with the
+    # pool (stepfactory.py:259-262, 278).
+    if tile_size and kernel_tail_ok:
+        geom_ok = tile_size % pool == 0 and tile_overlap % pool == 0
+        use_fused = use_fused and geom_ok
+        use_float_tail = use_float_tail and geom_ok
+    fused_tiled = bool(tile_size) and (use_fused or use_float_tail)
     use_static_skip = (static_skip_eps is not None and not float_frames
                        and (use_fused or use_float_tail))
     use_alpha_only = alpha_only and use_packed
@@ -276,23 +316,30 @@ def build_serving_body(
             raise ValueError("static_skip_eps is a batch-1 serving feature; "
                              "use the plain body for batched serving")
         # The reference frame starts at +inf: the first frame's delta is
-        # +inf and takes the compute branch even on near-black content.
-        cache = (torch.full((1, net_h, net_w, 3), float("inf"), dtype=cdtype,
-                            device=dev),
+        # +inf and takes the compute branch even on near-black content. It
+        # holds the ingested channels (the trimap too: a trimap change
+        # forces a recompute).
+        ingest_c = 4 if model_cfg.use_trimap else 3
+        cache = (torch.full((1, net_h, net_w, ingest_c), float("inf"),
+                            dtype=cdtype, device=dev),
                  torch.zeros((1, net_h, net_w, 4), device=dev),   # mean_a
                  torch.zeros((1, net_h, net_w, 4), device=dev),   # mean_b
                  0)                                               # skips
         return make_net_state(1), cache
 
+    seg_kw = {}
+    if output_seg:
+        seg_kw = {"seg": True} if planar else {"seg_pass": True}
+
     def net_apply(xp, state):
         if planar:
-            return net(xp, state, plain=not kernels)
-        return net(xp, state)
+            return net(xp, state, plain=not kernels, **seg_kw)
+        return net(xp, state, **seg_kw)
 
     def ingest_x(frame):
-        """(N, h, w, 3) frame -> (N, net_h, net_w, 3) coarse frame in the
+        """(N, h, w, C) frame -> (N, net_h, net_w, C) coarse frame in the
         compute dtype (stepfactory.py:374-401)."""
-        if pool and not float_frames:
+        if pool and not float_frames and pallas:
             return ingest(frame, pool=pool, out_dtype=cdtype)
         x = frame.float() if float_frames else frame.float() * (1.0 / 255.0)
         if full:
@@ -344,12 +391,44 @@ def build_serving_body(
         return (alpha[:, :net_h, :net_w].float(),
                 fgr[:, :net_h, :net_w].float(), new_state)
 
+    if output_seg:
+        @torch.inference_mode()
+        def seg_body(frame, state):
+            """Segmentation: ingest, the trunk with seg_head, the logits
+            upsampled bilinearly, a sigmoid (stepfactory.py:446-453)."""
+            x = ingest_x(frame)
+            logits, _, new_state = net_apply(prep_net_input(x), state)
+            logits = logits[:, :net_h, :net_w].float()
+            if not full:
+                logits = resize_bilinear(logits, h, w)
+            return torch.sigmoid(logits), new_state
+
+        if cdtype == torch.float32:
+            seg_body = in_full_fp32(seg_body)
+        return seg_body, ServingPlan(
+            net_h=net_h, net_w=net_w, state_h=state_h, state_w=state_w,
+            pool=pool, packed=False, alpha_only=False, static_skip=False,
+            full=full, make_state=make_net_state)
+
+    lr_layout = (TileLayout(net_h, net_w, tile_size // pool,
+                            tile_overlap // pool) if fused_tiled else None)
+
     def coeffs(x, alpha, fgr):
-        """Guided-filter coefficient grids at the coarse grid; the guide
-        comes from the ingested coarse frame."""
+        """Guided-filter coefficient grids at the coarse grid for the
+        fused tails; the guide comes from the ingested coarse frame's RGB.
+        Tiled: the statistics per coarse tile, all tiles as one batch,
+        and the coefficient grids feather-blended (stepfactory.py:
+        471-498)."""
         guide = gray_guide(x[..., :3].float())
         p = torch.cat([alpha, fgr], dim=-1)
-        return gf_coeffs(guide, p, refine.guided_radius, refine.guided_eps)
+        if lr_layout is None:
+            return gf_coeffs(guide, p, refine.guided_radius,
+                             refine.guided_eps)
+        ma, mb = gf_coeffs(tile_frame(guide, lr_layout),
+                           tile_frame(p, lr_layout), refine.guided_radius,
+                           refine.guided_eps)
+        return (untile_frame(ma, lr_layout, x.shape[0]),
+                untile_frame(mb, lr_layout, x.shape[0]))
 
     def fused_out(frame_u8, ma, mb, bgv):
         out = packed_tail(frame_u8[..., :3], ma, mb, bgv, pool)
@@ -386,9 +465,18 @@ def build_serving_body(
         elif not full and refine.mode == "guided":
             rgb = (frame[..., :3].float() if float_frames
                    else frame[..., :3].float() * (1.0 / 255.0))
-            alpha, fgr = guided_upsample(rgb, alpha, fgr,
-                                         refine.guided_radius,
-                                         refine.guided_eps, kernels=kernels)
+            if tile_size and pool:
+                # Tiled full-resolution refinement off the fused tails
+                # (stepfactory.py:560-569).
+                alpha, fgr = tiled_guided_upsample(
+                    rgb, alpha, fgr, tile_size, tile_overlap,
+                    refine.guided_radius, refine.guided_eps,
+                    kernels=kernels)
+            else:
+                alpha, fgr = guided_upsample(rgb, alpha, fgr,
+                                             refine.guided_radius,
+                                             refine.guided_eps,
+                                             kernels=kernels)
         elif not full:
             alpha = resize_bilinear(alpha, h, w)
             fgr = resize_bilinear(fgr, h, w)

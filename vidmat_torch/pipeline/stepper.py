@@ -5,7 +5,12 @@ zero state, cropped (``matte_image``).
 
 ``VideoStepper``: one frame per ``step``; the recurrent state stays on
 the device between calls. The body comes from ``build_serving_body`` in
-float-output mode.
+float-output mode (or the segmentation body with ``output="seg"``).
+Trimap-conditioned models take a trimap per step; the recurrent
+propagation family takes one on keyframes and an all-unknown trimap in
+between (vidmat/pipeline/stepper.py:212-232). ``tile_size`` gives the
+tiled refinement: the bf16 session's tiled float tail, the parity
+session's ``tiled_guided_upsample``.
 
 dtype="float32" (the default) is the parity mode: float frames in,
 float32 compute, the net as F.conv2d and every stage on its plain PyTorch
@@ -29,9 +34,11 @@ import torch
 from vidmat_torch._device import full_fp32, resolve_device
 from vidmat_torch.config import ModelConfig, RefineConfig
 from vidmat_torch.io.backgrounds import prepare_plate_u8
-from vidmat_torch.models.weights import build_network, default_variables
+from vidmat_torch.models.weights import (build_network, default_variables,
+                                         seg_default_variables)
 from vidmat_torch.ops.resize import downsample_ratio_shape
 from vidmat_torch.pipeline.stepfactory import build_serving_body
+from vidmat_torch.pipeline.trimap import canon_trimap_u8
 
 
 def pad_to_multiple(x: np.ndarray, m: int = 16) -> Tuple[np.ndarray, int, int]:
@@ -120,17 +127,26 @@ class VideoStepper:
     downsample_ratio < 1 runs the net on a coarse grid and restores full
     resolution with the guided filter. bg_plate: the clean plate of a
     plate-conditioned ``cfg`` (path or (H, W, 3) array), prepared to the
-    stream's size once and fixed for the session."""
+    stream's size once and fixed for the session. output="seg": the
+    co-trained segmentation head in place of the matting heads (the same
+    trunk and state advance); ``step`` returns (mask probability (H, W, 1)
+    float32, None)."""
 
     def __init__(self, cfg: ModelConfig, height: int, width: int,
                  variables=None, downsample_ratio: float = 1.0,
                  dtype: str = "float32", guided_radius: int = 4,
                  guided_eps: float = 1e-4,
                  static_skip_eps: Optional[float] = None,
-                 bg_plate=None, device="cuda", kernels: bool = True):
+                 tile_size: Optional[int] = None, tile_overlap: int = 128,
+                 bg_plate=None, output: str = "matte", device="cuda",
+                 kernels: bool = True):
         if height % 16 or width % 16:
             raise ValueError("height/width must be multiples of 16 "
                              "(pad with pipeline.stepper.pad_to_multiple)")
+        if output not in ("matte", "seg"):
+            raise ValueError(f"output must be 'matte' or 'seg', got "
+                             f"{output!r}")
+        self._seg = output == "seg"
         self.device = resolve_device(device)
         self.cfg = cfg
         self.h, self.w = height, width
@@ -143,7 +159,12 @@ class VideoStepper:
         else:
             self.net_h, self.net_w = height, width
         if variables is None:
-            variables = default_variables(cfg)
+            variables = (seg_default_variables(cfg) if self._seg
+                         else default_variables(cfg))
+        if self._seg and "seg_head" not in variables["params"]:
+            raise ValueError(
+                "output='seg' needs a co-trained checkpoint (a seg_head "
+                "subtree in the params), such as the shipped seg_demo")
         # Parity mode runs the net as plain convolutions (the JAX package
         # builds its planar forward only with its kernels on).
         net_cfg = (dataclasses.replace(cfg, conv_impl="xla") if self._parity
@@ -157,7 +178,8 @@ class VideoStepper:
                          guided_eps=guided_eps),
             height, width, downsample_ratio, cdtype=self.dtype,
             float_frames=self._parity, float_output=True,
-            static_skip_eps=static_skip_eps,
+            static_skip_eps=static_skip_eps, tile_size=tile_size,
+            tile_overlap=tile_overlap, output_seg=self._seg,
             bg_plate=(None if bg_plate is None
                       else prepare_plate_u8(bg_plate, height, width)),
             kernels=kernels and not self._parity)
@@ -166,9 +188,32 @@ class VideoStepper:
     def reset(self) -> None:
         self.state = self._plan.make_state(1)
 
-    def _device_frame(self, frame: np.ndarray) -> torch.Tensor:
-        """(1, H, W, 3) on the device: float32 in [0, 1] in parity mode,
-        uint8 in serving mode (float frames as round(clip(v) * 255))."""
+    def _device_frame(self, frame: np.ndarray,
+                      trimap: Optional[np.ndarray] = None) -> torch.Tensor:
+        """(1, H, W, C) on the device: float32 in [0, 1] in parity mode,
+        uint8 in serving mode (float frames as round(clip(v) * 255)). A
+        trimap-conditioned model gets the trimap as a fourth channel (an
+        all-unknown one where the recurrent family is given none)."""
+        if not self.cfg.use_trimap:
+            if trimap is not None:
+                raise ValueError(
+                    "model is not trimap-conditioned (use_trimap=False); "
+                    "the trimap would be silently ignored: build the "
+                    "session with a trimap ModelConfig (or drop trimap=)")
+        else:
+            if trimap is None:
+                if not self.cfg.recurrent:
+                    raise ValueError(
+                        "model config requires a per-frame trimap input "
+                        "(step(frame, trimap=...))")
+                # Propagation: a keyframe trimap, then all-unknown ones;
+                # the GRU carries the constraint forward.
+                trimap = np.full(frame.shape[:2], 128, np.uint8)
+            tri = canon_trimap_u8(trimap, frame.shape[:2])
+            if frame.dtype != np.uint8:
+                tri = (tri.astype(np.float32) / 255.0).astype(frame.dtype)
+            frame = np.concatenate([np.asarray(frame), tri[..., None]],
+                                   axis=-1)
         if self._parity:
             arr = to_float_rgb(frame)
         elif frame.dtype != np.uint8:
@@ -178,11 +223,17 @@ class VideoStepper:
         t = torch.from_numpy(np.ascontiguousarray(arr))[None]
         return t.to(self.device)
 
-    def step(self, frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """frame: (H, W, 3) uint8 or float RGB. Returns host alpha
-        (H, W, 1) and fgr (H, W, 3), float32 in [0, 1]."""
-        (alpha, fgr), self.state = self._step(self._device_frame(frame),
-                                              self.state)
+    def step(self, frame: np.ndarray, trimap: Optional[np.ndarray] = None
+             ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """frame: (H, W, 3) uint8 or float RGB; trimap (trimap-conditioned
+        models): (H, W) uint8 {0, 128, 255} or float {0, 0.5, 1}. Returns
+        host alpha (H, W, 1) and fgr (H, W, 3), float32 in [0, 1];
+        output="seg" returns (mask (H, W, 1) float32, None)."""
+        out, self.state = self._step(self._device_frame(frame, trimap),
+                                     self.state)
+        if self._seg:
+            return out[0].cpu().numpy(), None
+        alpha, fgr = out
         return alpha[0].cpu().numpy(), fgr[0].cpu().numpy()
 
     # -- mid-video resume: the carry in the port's own npz format --

@@ -1,9 +1,51 @@
-"""Trimaps from rough masks (counterpart of ``trimap_from_mask`` and
-``_box_dilate`` in vidmat/train/data.py; numpy only)."""
+"""Trimaps: the canonical byte form of a user trimap and a marker for
+pre-trimmed trimap streams (counterpart of vidmat/pipeline/trimap.py), and
+trimaps from rough masks (counterpart of ``trimap_from_mask`` and
+``_box_dilate`` in vidmat/train/data.py). numpy only.
+
+The byte convention: uint8 {0, 128, 255} == float {0, 0.5, 1} for
+background / unknown / foreground."""
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
+
+
+class PreTrimmedTrimaps:
+    """A per-frame trimap iterable already trimmed to the run's
+    [start_frame, start_frame + max_frames) window (the mask_source
+    adapter trims the raw mask stream first): the pipeline does not trim
+    it again, which would misalign frame i and trimap i."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __iter__(self):
+        return iter(self.frames)
+
+
+def canon_trimap_u8(tri: np.ndarray, hw: Tuple[int, int],
+                    frame_idx: Optional[int] = None) -> np.ndarray:
+    """Validate a user trimap and bring it to the (H, W) uint8 canon.
+
+    Takes (H, W), (H, W, 1) or (H, W, 3) (a trimap stored as video decodes
+    3-channel: the first channel is taken), uint8 {0, 128, 255} or float
+    {0, 0.5, 1} (as round(clip(v) * 255)). Raises on a resolution other
+    than ``hw``."""
+    tri = np.asarray(tri)
+    if tri.ndim == 3:
+        tri = tri[..., 0]
+    if tri.ndim != 2 or tri.shape != tuple(hw):
+        at = "" if frame_idx is None else f" frame {frame_idx}"
+        raise ValueError(
+            f"trimap{at} is {tri.shape}, input frame is {tuple(hw)}: "
+            "trimaps must match the input resolution frame-for-frame")
+    if tri.dtype != np.uint8:
+        tri = np.round(np.clip(tri.astype(np.float32), 0.0, 1.0)
+                       * 255.0).astype(np.uint8)
+    return tri
 
 
 def _box_dilate(mask: np.ndarray, r: int) -> np.ndarray:

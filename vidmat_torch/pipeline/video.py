@@ -37,6 +37,11 @@
     background clip is shorter), one image baked into the body, or a
     color. A clean plate (the plate-conditioned family) is prepared once
     per bucket and baked into the body
+  - trimap-conditioned models take ``trimap_source``: a per-frame trimap
+    stream, trimmed as the input is, or one keyframe trimap (the
+    recurrent propagation family: later frames get all-unknown trimaps).
+    Each trimap rides its frame as a fourth uint8 channel through the
+    same staging (vidmat/pipeline/video.py:178-205, 404-496)
 """
 
 from __future__ import annotations
@@ -49,15 +54,17 @@ import numpy as np
 import torch
 
 from vidmat_torch._device import resolve_device
-from vidmat_torch.config import ModelConfig, PipelineConfig
+from vidmat_torch.config import ModelConfig, PipelineConfig, StreamConfig
 from vidmat_torch.io.backgrounds import (BgFrameSource, prepare_bg_image,
                                          prepare_plate_u8)
 from vidmat_torch.io.native import pad_into, unpack_rgba
-from vidmat_torch.io.reader import FrameSource
+from vidmat_torch.io.reader import _IMG_EXTS, FrameSource, read_image
 from vidmat_torch.io.writer import open_sink
 from vidmat_torch.models.weights import build_network, default_variables
 from vidmat_torch.pipeline.graph import ChunkGraph
-from vidmat_torch.pipeline.stepfactory import ServingPlan, build_serving_body
+from vidmat_torch.pipeline.stepfactory import (ServingPlan, _unported,
+                                               build_serving_body)
+from vidmat_torch.pipeline.trimap import PreTrimmedTrimaps, canon_trimap_u8
 from vidmat_torch.utils.metrics import RunMetrics
 
 Target = Union[str, Callable[[np.ndarray], None]]
@@ -70,6 +77,27 @@ def auto_downsample_ratio(h: int, w: int) -> float:
     if short <= 512:
         return 1.0
     return max(0.125, 512.0 / short)
+
+
+def single_trimap(src) -> Optional[np.ndarray]:
+    """A ``trimap_source`` naming one still (keyframe propagation): an
+    array, or one image file (read with cv2); None for a per-frame stream
+    (video path, image directory or pattern, iterable of frames)."""
+    import os
+
+    if isinstance(src, np.ndarray):
+        return src
+    if (isinstance(src, str) and os.path.isfile(src)
+            and os.path.splitext(src)[1].lower() in _IMG_EXTS):
+        return read_image(src)
+    return None
+
+
+def attach_trimap(frame: np.ndarray, tri, frame_idx: int) -> np.ndarray:
+    """The frame with its trimap as a fourth uint8 channel ((H, W[, 1 or
+    3]) trimap, uint8 {0, 128, 255} or float {0, 0.5, 1})."""
+    tri = canon_trimap_u8(tri, frame.shape[:2], frame_idx=frame_idx)
+    return np.concatenate([frame, tri[..., None]], axis=-1)
 
 
 class Uploads:
@@ -188,6 +216,11 @@ class VideoPipeline:
     bg_plate: the clean plate (path or (H, W, 3) array) of the
     plate-conditioned family (``ModelConfig(use_bg_plate=True)``, which
     requires it): an input of the net, not a background.
+    ``pipe_cfg.use_pallas=False`` runs the net as F.conv2d and every stage
+    on its plain version (the JAX package's branch without kernels).
+    Error-map refinement (``refine.mode="errormap"``, ``refiner_variables``)
+    and a ``StreamConfig`` raise NotImplementedError (ROADMAP A.11,
+    A.12).
     device: "cuda" (default; raises without a CUDA device) or "cpu" (the
     plain PyTorch versions of the kernels)."""
 
@@ -199,9 +232,15 @@ class VideoPipeline:
                  bg_video: Optional[Union[str, Iterable[np.ndarray]]] = None,
                  bg_blur: Optional[int] = None,
                  bg_plate: Optional[Union[str, np.ndarray]] = None,
+                 refiner_variables=None,
                  device: Union[str, torch.device] = "cuda"):
+        if isinstance(pipe_cfg, StreamConfig):
+            raise _unported("multi-stream serving (StreamConfig)", "A.12")
         self.model_cfg = model_cfg or ModelConfig()
         self.pipe_cfg = pipe_cfg or PipelineConfig()
+        if (self.pipe_cfg.refine.mode == "errormap"
+                or refiner_variables is not None):
+            raise _unported("error-map refinement", "A.11")
         if self.model_cfg.use_bg_plate and bg_plate is None:
             raise ValueError(
                 "ModelConfig(use_bg_plate=True) needs the pre-captured "
@@ -217,8 +256,13 @@ class VideoPipeline:
             variables = default_variables(self.model_cfg)
         self.cdtype = (torch.bfloat16 if self.pipe_cfg.dtype == "bfloat16"
                        else torch.float32)
+        net_cfg = self.model_cfg
+        if self.pipe_cfg.use_pallas is False:
+            # Without kernels the JAX package runs the net as plain
+            # convolutions (its planar forward needs its kernels).
+            net_cfg = dataclasses.replace(net_cfg, conv_impl="xla")
         self.net = build_network(
-            self.model_cfg, variables,
+            net_cfg, variables,
             dtype=torch.bfloat16 if self.cdtype == torch.bfloat16 else None,
             device=self.device)
         self.downsample_ratio = downsample_ratio
@@ -248,10 +292,13 @@ class VideoPipeline:
                 cdtype=self.cdtype, bg=bg, bg_dynamic=self._bg_dynamic,
                 bg_blur=self.bg_blur, bg_plate=plate, need_fgr=need_fgr,
                 alpha_only=alpha_only, tile_size=cfg.tile_size,
-                static_skip_eps=cfg.static_skip_eps)
+                tile_overlap=cfg.tile_overlap,
+                static_skip_eps=cfg.static_skip_eps,
+                use_pallas=cfg.use_pallas)
             k = max(1, cfg.chunk_size)
+            c = 4 if self.model_cfg.use_trimap else 3
             self._step_cache[key] = Bucket(
-                body, plan, Uploads((k, h, w, 3), torch.uint8, self.device),
+                body, plan, Uploads((k, h, w, c), torch.uint8, self.device),
                 Downloads(k, self.device),
                 bgs=(Uploads((1, h, w, 3), torch.float32, self.device)
                      if self._bg_dynamic else None))
@@ -269,14 +316,53 @@ class VideoPipeline:
             output_composition: Optional[Target] = None,
             progress: bool = False,
             start_frame: int = 0,
-            max_frames: Optional[int] = None) -> dict:
+            max_frames: Optional[int] = None,
+            trimap_source=None) -> dict:
         """Matte a frame stream. Each output target is a video path or a
         callable that receives every (H, W[, C]) uint8 frame (an owned
         array). Without outputs the frames are processed and only metrics
         are returned (benchmark mode). Frames the source drops are counted
-        as ``dropped_frames``. Returns the metrics dict."""
+        as ``dropped_frames``. ``trimap_source`` (trimap-conditioned
+        models, which require it): a per-frame trimap stream (video path,
+        image directory or pattern, iterable), trimmed as the input is, or
+        one keyframe trimap (image path or array; the recurrent family
+        only). Returns the metrics dict."""
+        cfg = self.model_cfg
+        if cfg.use_trimap and trimap_source is None:
+            raise ValueError(
+                "model_cfg.use_trimap=True needs trimaps: pass "
+                "trimap_source=<video path / PNG dir-or-pattern / frame "
+                "iterable> consumed in lockstep with the input, or, for "
+                "the recurrent propagation family, a single keyframe "
+                "trimap (image path or (H, W) array)")
+        if trimap_source is not None and not cfg.use_trimap:
+            raise ValueError(
+                "trimap_source given but the model is not trimap-"
+                "conditioned: build with ModelConfig(use_trimap=True) "
+                "(recurrent propagation, shipped trimap_prop_demo) or "
+                "ModelConfig(use_trimap=True, recurrent=False) (per-frame "
+                "trimaps, shipped trimap_demo), or drop trimap_source")
         source = FrameSource(input_source, start=start_frame,
                              count=max_frames)
+        tri_iter = None
+        if trimap_source is not None:
+            keyframe = single_trimap(trimap_source)
+            if keyframe is not None:
+                if not cfg.recurrent:
+                    raise ValueError(
+                        "a single keyframe trimap needs the recurrent "
+                        "trimap-propagation family (ModelConfig(use_trimap"
+                        "=True), shipped trimap_prop_demo): the "
+                        "non-recurrent per-frame family has no temporal "
+                        "state to carry it forward")
+                tri_iter = iter([keyframe])
+            elif isinstance(trimap_source, PreTrimmedTrimaps):
+                # Already trimmed to the run's window (mask_source).
+                tri_iter = iter(trimap_source)
+            else:
+                # Trimmed as the input is, so frame i pairs with trimap i.
+                tri_iter = iter(FrameSource(trimap_source, start=start_frame,
+                                            count=max_frames))
         metrics = RunMetrics()
         writers = {}
         b: Optional[Bucket] = None
@@ -363,6 +449,20 @@ class VideoPipeline:
         setup_ms = 0.0
         t_prev = time.perf_counter()
         for frame in source:
+            if tri_iter is not None:
+                tri = next(tri_iter, None)
+                if tri is None:
+                    if not cfg.recurrent:
+                        raise ValueError(
+                            f"trimap stream ended at frame {n + staged} but "
+                            "the input continues: the per-frame trimap "
+                            "family needs a trimap for every converted "
+                            "frame (the recurrent propagation family "
+                            "continues on all-unknown trimaps instead)")
+                    # Past the annotated prefix: all-unknown (128), the
+                    # GRU carries the constraint forward.
+                    tri = np.full(frame.shape[:2], 128, np.uint8)
+                frame = attach_trimap(frame, tri, n + staged)
             if b is None:
                 t0 = time.perf_counter()
                 fh, fw = frame.shape[:2]
