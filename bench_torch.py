@@ -22,11 +22,13 @@ Modes:
       ``torch.cuda.synchronize()``, median over repeats. Also
       ``p50_ms_per_frame``, the same timing through the per-frame body.
   480p  the ``clip_480p`` preset at 480x864 (chunk 10: its per-frame
-      body ten times a dispatch, as the pipeline runs it).
+      body ten times a dispatch, one graph replay on the card, as the
+      pipeline runs it).
   4k_tiled  the ``video_4k`` preset at 2176x3840 (``bench.py``'s 4K
       shape; ratio 0.125, pool 8, tiles of 1024 with an overlap of 128,
       chunk 1: the per-frame body, tiled guided-filter statistics and the
-      whole-frame fused tail), 120 timed frames.
+      whole-frame fused tail, one graph replay a frame on the card), 120
+      timed frames.
   4k    the same with tiling dropped (labelled "(tile_size=None
       variant)", as ``bench.py`` labels it).
   e2e   ``VideoPipeline.run`` (what ``convert_video`` runs) on 120
@@ -130,33 +132,28 @@ def bench_e2e(dev: torch.device, quick: bool) -> dict:
 
 def _dispatcher(plan, body, chunk: int, h: int, w: int, dev, ring0):
     """The callable the pipeline dispatches per group of ``chunk`` frames
-    on a device chunk, and what it is."""
+    on a device chunk, and what it is: the chunk body where the plan has
+    one, else ``chunk`` calls of the per-frame body; on the card one
+    replay of it captured as a CUDA graph, as the pipeline runs it."""
+    from vidmat_torch.pipeline.graph import ChunkGraph, per_frame_chunk
+
     if chunk > 1 and plan.chunk_body is not None:
-        if dev.type != "cuda":
-            return plan.chunk_body, "eager chunk body"
-        from vidmat_torch.pipeline.graph import ChunkGraph
+        fn, what, eager = plan.chunk_body, "chunk body", "eager chunk body"
+    else:
+        fn = per_frame_chunk(body)
+        what = eager = "per-frame body" + (f" x{chunk}" if chunk > 1 else "")
+    if dev.type != "cuda":
+        return fn, eager
+    static_in = torch.empty((chunk, h, w, 3), dtype=torch.uint8, device=dev)
+    static_in.copy_(ring0)
+    _, st = fn(static_in, plan.make_state(1))  # warm-up
+    graph = ChunkGraph(fn, static_in, st)
 
-        static_in = torch.empty((chunk, h, w, 3), dtype=torch.uint8,
-                                device=dev)
-        static_in.copy_(ring0)
-        _, st = plan.chunk_body(static_in, plan.make_state(1))  # warm-up
-        graph = ChunkGraph(plan.chunk_body, static_in, st)
+    def replay(frames, state):
+        static_in.copy_(frames, non_blocking=True)
+        return graph(state)
 
-        def replay(frames, state):
-            static_in.copy_(frames, non_blocking=True)
-            return graph(state)
-
-        return replay, "one CUDA graph launch per chunk"
-    if chunk > 1:
-        def loop(frames, state):
-            outs = []
-            for i in range(frames.shape[0]):
-                out, state = body(frames[i:i + 1], state)
-                outs.append(out)
-            return outs, state
-
-        return loop, f"per-frame body x{chunk}"
-    return body, "per-frame body"
+    return replay, f"one CUDA graph launch per chunk ({what})"
 
 
 def bench_ring(mode: str, args, dev: torch.device) -> dict:

@@ -1208,3 +1208,165 @@ def test_fp32_paths_run_full_fp32_under_default_flags(monkeypatch):
         assert cudnn.allow_tf32 and not matmul.allow_tf32
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+# ---- one graph per chunk on every path, the captured session step and
+# ---- the error-map refiner (slice 12) ----
+
+
+@pytest.mark.parametrize("case", ["bg_video", "defaults", "foreground"])
+def test_per_frame_graph_equals_eager_bodies(dev, case):
+    """convert_video over 3 full chunks on a path with no chunk body, with
+    one graph per chunk (the first chunk eager, then the capture), against
+    the same run through the eager bodies: every output byte equal, two
+    replays, and the run's launches the graph's per replay once a chunk.
+    bg_video: chunk 4, 3 backgrounds cycled, staged 4 deep; defaults:
+    ModelConfig() / PipelineConfig() at ratio 0.3 (chunk 1, no integer
+    pool: the GF kernel and the unfused tail); foreground: the
+    video_1080p preset with output_foreground (the float tail)."""
+    import numpy as np
+
+    from vidmat_torch import convert_video, preset_video_1080p
+    from vidmat_torch.io.fixtures import synthetic_frames_only
+    from vidmat_torch.pipeline.video import VideoPipeline
+
+    mcfg, pcfg = preset_video_1080p()
+    kw, k, target = dict(model_cfg=mcfg, pipe_cfg=pcfg), 4, "output_alpha"
+    if case == "bg_video":
+        rng = np.random.RandomState(20)
+        kw["bg_video"] = [(rng.rand(256, 512, 3) * 255).astype(np.uint8)
+                          for _ in range(3)]
+        target = "output_composition"
+    elif case == "defaults":
+        kw, k = dict(downsample_ratio=0.3), 1
+    else:
+        target = "output_foreground"
+    frames = list(synthetic_frames_only(256, 512, 3 * k, seed=21))
+
+    def run():
+        outs = []
+        before = _launch_counts()
+        m = convert_video(frames, **{target: lambda a: outs.append(
+            np.array(a))}, **kw)
+        return m, outs, _delta(_launch_counts(), before)
+
+    m, outs, launches = run()
+    VideoPipeline.capture = False
+    try:
+        me, eager, _ = run()
+    finally:
+        VideoPipeline.capture = True
+    assert m["graph_replays"] == 2 and "graph_replays" not in me, m
+    per = m["graph_launches_per_replay"]
+    assert per == {name: n // 3 for name, (n, _) in launches.items() if n}
+    for a, b in zip(outs, eager):
+        assert np.array_equal(a, b)
+
+
+def test_session_captured_step_equals_eager_session(dev, tmp_path):
+    """MattingSession(128, 192) bf16 on the video_1080p model: its steps
+    after the first replay a captured step; every output equal to an
+    eager session's (capture off) across a reset and a load_state, and
+    the arrays a step returned are not overwritten by later steps."""
+    import numpy as np
+
+    from vidmat_torch import MattingSession, preset_video_1080p
+    from vidmat_torch.io.fixtures import synthetic_frames_only
+
+    kw = dict(model_cfg=preset_video_1080p()[0], downsample_ratio=0.25,
+              dtype="bfloat16")
+    sess, eager = MattingSession(128, 192, **kw), MattingSession(128, 192,
+                                                                 **kw)
+    eager._stepper.capture = False
+    frames = list(synthetic_frames_only(128, 192, 12, seed=22))
+
+    def both(fs):
+        for f in fs:
+            for a, b in zip(sess.step(f), eager.step(f)):
+                assert np.array_equal(a, b)
+
+    both(frames[:3])
+    assert sess._stepper._graph is not None and eager._stepper._graph is None
+    kept = sess.step(frames[3])
+    eager.step(frames[3])
+    snapshot = [np.array(a) for a in kept]
+    sess.reset()
+    eager.reset()
+    both(frames[4:7])
+    path = str(tmp_path / "carry.npz")
+    sess.save_state(path, frame_index=7)
+    both(frames[7:9])
+    assert sess.load_state(path) == 7 and eager.load_state(path) == 7
+    both(frames[9:])
+    for a, b in zip(kept, snapshot):
+        assert np.array_equal(a, b)
+
+
+def _errormap_body(dev, cdtype, kernels=True, h=256, w=256):
+    from vidmat_torch.config import ModelConfig, RefineConfig
+    from vidmat_torch.models.weights import (build_network, build_refiner,
+                                             default_refiner_variables,
+                                             default_variables)
+    from vidmat_torch.pipeline.stepfactory import build_serving_body
+
+    cfg = ModelConfig(conv_impl="planar" if kernels else "xla")
+    net = build_network(cfg, default_variables(cfg),
+                        dtype=None if cdtype == torch.float32 else cdtype,
+                        device=dev)
+    ref = build_refiner(default_refiner_variables(), 64, 16, device=dev)
+    return build_serving_body(net, cfg, RefineConfig("errormap",
+                                                     errormap_patches=64),
+                              h, w, 0.25, cdtype=cdtype, refiner=ref,
+                              use_pallas=kernels, float_output=True)
+
+
+def test_errormap_body_card_equals_cpu(dev):
+    """The fp32 errormap body (no kernels: F.conv2d net, the refiner) at
+    256x256 over 3 recurrent frames of the hard clip, on the card against
+    the CPU: alpha and fgr max |d| <= 1e-4."""
+    from vidmat_torch.io.fixtures import synthetic_hard_clip
+
+    bodies = {}
+    for d in (dev, torch.device("cpu")):
+        body, plan = _errormap_body(d, torch.float32, kernels=False)
+        bodies[d.type] = [body, plan.make_state(1)]
+    worst = 0.0
+    for f, _ in synthetic_hard_clip(256, 256, 3, seed=23):
+        outs = {}
+        for name, bs in bodies.items():
+            x = torch.from_numpy(f[None]).to(name)
+            outs[name], bs[1] = bs[0](x, bs[1])
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            worst = max(worst, float((a.cpu() - b).abs().max()))
+    print(f"errormap body card vs CPU, 3 frames: max |d| {worst:.3g}")
+    assert worst <= 1e-4, worst
+
+
+def test_errormap_refiner_full_fp32_under_default_tf32_flags(dev):
+    """The bf16 errormap body on the card (the planar kernels, the refiner
+    in float32) under PyTorch's default flags, where cuDNN may run float32
+    convolutions as TF32, against the same body with TF32 off for the
+    process: max |d| <= 1e-4 (the body runs its refiner in full
+    float32)."""
+    from vidmat_torch.io.fixtures import synthetic_hard_clip
+
+    cudnn = torch.backends.cudnn
+    frames = [f for f, _ in synthetic_hard_clip(256, 256, 2, seed=24)]
+    outs = {}
+    saved = cudnn.allow_tf32
+    try:
+        for allow in (True, False):
+            cudnn.allow_tf32 = allow
+            body, plan = _errormap_body(dev, torch.bfloat16)
+            st = plan.make_state(1)
+            outs[allow] = []
+            for f in frames:
+                o, st = body(torch.from_numpy(f[None]).to(dev), st)
+                outs[allow].append([t.clone() for t in o])
+    finally:
+        cudnn.allow_tf32 = saved
+    worst = max(float((a - b).abs().max())
+                for fa, fb in zip(outs[True], outs[False])
+                for a, b in zip(fa, fb))
+    print(f"bf16 errormap body, TF32 allowed vs off: max |d| {worst:.3g}")
+    assert worst <= 1e-4, worst

@@ -79,22 +79,35 @@ def test_alpha_only_body_matches_jax():
 
 
 def test_unported_branches_raise():
-    """Error-map refinement (A.11) raises naming its item, in the body and
-    as convert_video's refiner_variables. Tiling (A.8), the earlier second
-    case, is ported: tests/test_torch_tiling.py."""
+    """Error-map refinement (A.11), which raised here, is ported: the body
+    builds in errormap mode (with a refiner, and with none: the bilinear
+    tail) and convert_video takes refiner_variables. Tiling (A.8), the
+    earlier second case, is ported: tests/test_torch_tiling.py."""
     from vidmat_torch import convert_video
+    from vidmat_torch.models.weights import (build_refiner,
+                                             default_refiner_variables)
 
     net = build_network(CFG, default_variables(CFG))
     frames = list(synthetic_frames_only(64, 64, 1, seed=1))
-    cases = [
-        (lambda: build_serving_body(net, CFG, RefineConfig("errormap"), H,
-                                    W, 0.25), "A.11"),
-        (lambda: convert_video(frames, refiner_variables={"params": {}},
-                               device="cpu"), "A.11"),
-    ]
-    for call, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    f = torch.from_numpy(frames[0][None])
+    none_body, plan = build_serving_body(net, CFG, RefineConfig("errormap"),
+                                         64, 64, 0.25)
+    bilinear, _ = build_serving_body(net, CFG, RefineConfig("none"), 64, 64,
+                                     0.25)
+    assert plan.chunk_body is None and plan.packed
+    assert torch.equal(none_body(f, plan.make_state(1))[0],
+                       bilinear(f, plan.make_state(1))[0])
+    refined, _ = build_serving_body(
+        net, CFG, RefineConfig("errormap"), 64, 64, 0.25,
+        refiner=build_refiner(default_refiner_variables(), 4, 16))
+    out, _ = refined(f, plan.make_state(1))
+    assert out.shape == (1, 64, 64) and out.dtype == torch.uint32
+    m = convert_video(frames, refiner_variables=default_refiner_variables(),
+                      pipe_cfg=PipelineConfig(
+                          downsample_ratio=0.25,
+                          refine=RefineConfig("errormap", errormap_patches=4)),
+                      model_cfg=CFG, device="cpu")
+    assert m["frames"] == 1
 
 
 def test_convert_video_cpu_smoke():

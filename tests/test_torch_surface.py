@@ -2,8 +2,9 @@
 (ROADMAP C.4): every parameter of ``convert_video``, ``matte_image``,
 ``MattingSession.__init__`` and ``.step``, every field of the
 configuration dataclasses with its default, and every preset, each
-returning equal dataclasses. What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item."""
+returning equal dataclasses. What is not ported yet (multi-stream
+serving, A.12) raises ``NotImplementedError`` naming its ROADMAP item;
+error-map refinement (A.11) runs as in the JAX package."""
 
 import dataclasses
 import inspect
@@ -78,31 +79,63 @@ FRAMES = [np.zeros((32, 32, 3), np.uint8)]
 @pytest.mark.parametrize("case", ["errormap preset", "refiner_variables",
                                   "session errormap", "multistream"])
 def test_unported_options_raise_naming_their_item(case):
-    """Error-map refinement is A.11, multi-stream serving A.12."""
+    """Error-map refinement (A.11) is ported: the preset runs, a
+    ``refiner_variables`` outside errormap mode is ignored, and the body
+    with no refiner is the JAX package's bilinear tail. Multi-stream
+    serving (A.12) still raises naming its item."""
     from vidmat_torch import convert_video
 
     if case == "errormap preset":
         m, p = tconfig.preset_video_1080p_errormap()
-        call, item = (lambda: convert_video(FRAMES, model_cfg=m, pipe_cfg=p,
-                                            device="cpu")), "A.11"
+        frames = [np.full((64, 96, 3), 40 * i, np.uint8) for i in range(5)]
+        alphas = []
+        out = convert_video(frames, output_alpha=alphas.append, model_cfg=m,
+                            pipe_cfg=p, device="cpu")
+        assert out["frames"] == 5 and len(alphas) == 5
+        assert alphas[0].shape == (64, 96) and alphas[0].dtype == np.uint8
     elif case == "refiner_variables":
-        call, item = (lambda: convert_video(
-            FRAMES, refiner_variables={"params": {}}, device="cpu")), "A.11"
+        # Guided (the defaults): the refiner's weights are ignored, as in
+        # vidmat/pipeline/video.py:284-291.
+        frames = FRAMES * 2
+        runs = []
+        for rv in (None, {"params": {}}):
+            comps = []
+            convert_video(frames, output_composition=comps.append,
+                          refiner_variables=rv, device="cpu")
+            runs.append(np.stack(comps))
+        np.testing.assert_array_equal(runs[0], runs[1])
     elif case == "session errormap":
+        import jax
+        import jax.numpy as jnp
+        import torch
+        from vidmat.models.matting_net import MattingNetwork
+        from vidmat.pipeline.stepfactory import build_serving_body as jbuild
+
         from vidmat_torch.models.weights import build_network, \
             default_variables
         from vidmat_torch.pipeline.stepfactory import build_serving_body
 
         cfg = tconfig.ModelConfig()
-        net = build_network(cfg, default_variables(cfg))
-        call, item = (lambda: build_serving_body(
-            net, cfg, tconfig.RefineConfig("errormap"), 32, 32,
-            0.5)), "A.11"
+        variables = default_variables(cfg)
+        net = build_network(cfg, variables)
+        body, plan = build_serving_body(
+            net, cfg, tconfig.RefineConfig("errormap"), 32, 32, 0.5,
+            cdtype=torch.float32, float_output=True)
+        jcfg = jconfig.ModelConfig()
+        jbody, jplan = jbuild(MattingNetwork(jcfg), jcfg,
+                              jconfig.RefineConfig("errormap"), 32, 32, 0.5,
+                              cdtype=jnp.float32, use_pallas=False,
+                              float_output=True)
+        f = (np.arange(32 * 32 * 3) % 251).astype(np.uint8).reshape(
+            1, 32, 32, 3)
+        (ta, tf), _ = body(torch.from_numpy(f), plan.make_state(1))
+        (ja, jf), _ = jbody(jax.tree_util.tree_map(jnp.asarray, variables),
+                            jnp.asarray(f), jplan.make_state(1))
+        assert float(np.abs(ta.numpy() - np.asarray(ja)).max()) <= 1e-4
+        assert float(np.abs(tf.numpy() - np.asarray(jf)).max()) <= 1e-4
     else:
         m, p, s = tconfig.preset_multistream()
         assert dataclasses.asdict(s) == dataclasses.asdict(
             jconfig.StreamConfig())
-        call, item = (lambda: convert_video(FRAMES, model_cfg=m, pipe_cfg=s,
-                                            device="cpu")), "A.12"
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+        with pytest.raises(NotImplementedError, match="A.12"):
+            convert_video(FRAMES, model_cfg=m, pipe_cfg=s, device="cpu")

@@ -1,9 +1,10 @@
 """The port's weight bridge and its shipped checkpoints.
 
 ``vidmat_torch/checkpoints/<name>.npz`` for fast_demo, synthetic_demo,
-plate_demo, trimap_demo, trimap_prop_demo and seg_demo (co-trained, with
-its seg_head) are the JAX package's ``checkpoints/<name>`` flattened to
-one npz entry per leaf, so the port loads them with numpy alone. Running this file as a script rewrites the
+plate_demo, trimap_demo, trimap_prop_demo, seg_demo (co-trained, with
+its seg_head) and errormap_demo (the error-map refiner) are the JAX
+package's ``checkpoints/<name>`` flattened to one npz entry per leaf, so
+the port loads them with numpy alone. Running this file as a script rewrites the
 named ones (all by default):
 
     python tests/test_torch_weights.py [name ...]
@@ -30,9 +31,12 @@ CHECKPOINTS = {"fast_demo": dict(space_to_depth=2),
                "plate_demo": dict(use_bg_plate=True, space_to_depth=2),
                "trimap_demo": dict(use_trimap=True, recurrent=False),
                "trimap_prop_demo": dict(use_trimap=True, space_to_depth=2),
-               "seg_demo": dict(space_to_depth=1)}
+               "seg_demo": dict(space_to_depth=1),
+               "errormap_demo": None}
 #: the co-trained checkpoints (matting weights and seg_head)
 SEG = {"seg_demo"}
+#: the error-map refiner's checkpoint (no ModelConfig selects it)
+REFINER = "errormap_demo"
 
 
 def _npz(name):
@@ -44,8 +48,18 @@ def _restore(name):
     from vidmat.models.weights import (default_variables,
                                        seg_default_variables)
 
-    load = seg_default_variables if name in SEG else default_variables
-    variables = load(JModelConfig(**CHECKPOINTS[name]))
+    if name == REFINER:
+        # The JAX package restores the refiner through a template from
+        # ErrorMapRefiner.init (its convolutions' shapes do not depend on
+        # the frame's).
+        from vidmat.pipeline.video import _load_default_refiner
+        from vidmat.refine.errormap import ErrorMapRefiner
+
+        variables = _load_default_refiner(
+            ErrorMapRefiner(num_patches=8, patch_size=16), 64, 64, 16, 16)
+    else:
+        load = seg_default_variables if name in SEG else default_variables
+        variables = load(JModelConfig(**CHECKPOINTS[name]))
     return jax.tree_util.tree_map(np.asarray, variables)
 
 
@@ -59,17 +73,23 @@ def export(names=None) -> None:
 @pytest.mark.parametrize("name", sorted(CHECKPOINTS))
 def test_committed_npz_equals_checkpoint(name):
     from vidmat_torch.models.weights import (default_checkpoint_path,
+                                             default_refiner_path,
                                              flatten_variables, load_npz)
     from vidmat_torch.config import ModelConfig
 
-    assert default_checkpoint_path(ModelConfig(**CHECKPOINTS[name]),
-                                   seg=name in SEG) == _npz(name)
+    if name == REFINER:
+        assert default_refiner_path() == _npz(name)
+    else:
+        assert default_checkpoint_path(ModelConfig(**CHECKPOINTS[name]),
+                                       seg=name in SEG) == _npz(name)
     want = flatten_variables(_restore(name))
     got = flatten_variables(load_npz(_npz(name)))
     assert sorted(got) == sorted(want)
     # 76 leaves; the non-recurrent trimap_demo has no GRU (4 leaves per
-    # decoder stage); seg_demo adds the seg_head's kernel and bias.
-    assert len(got) == {"trimap_demo": 64, "seg_demo": 78}.get(name, 76)
+    # decoder stage); seg_demo adds the seg_head's kernel and bias; the
+    # refiner has 6 convolutions, 4 of them with BatchNorm.
+    assert len(got) == {"trimap_demo": 64, "seg_demo": 78,
+                        REFINER: 24}.get(name, 76)
     for k, v in want.items():
         assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)

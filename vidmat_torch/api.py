@@ -6,16 +6,17 @@ one frame from a zero state, the trimap model (``trimap_demo``) given a
 trimap or a rough mask, or the clean-plate model given a plate.
 ``convert_video`` serves the JAX package's defaults (``ModelConfig()``,
 ``PipelineConfig()``) when given no configuration, and the presets
-(``preset_video_1080p``, ``preset_video_4k``, ``preset_clip_480p``) when
-given theirs; trimap video (``trimap_source``, or rough masks through
+(``preset_video_1080p``, ``preset_video_4k``, ``preset_clip_480p``,
+``preset_video_1080p_errormap`` with the error-map refiner) when given
+theirs; trimap video (``trimap_source``, or rough masks through
 ``mask_source``) and the segmentation stream (``output_segmentation``).
 ``MattingSession`` streams float mattes one frame at a time (tiled, with
 trimaps, or the segmentation mask with ``output="seg"``). Both take the
 clean-plate family (``bg_plate``, shipped ``plate_demo``);
 ``convert_video`` composites over a color, an image, a background video
 or a blur of the source frame. The signatures are the JAX package's, plus
-``device``; error-map refinement (``refiner_variables``) raises
-NotImplementedError naming its ROADMAP item (A.11).
+``device``; multi-stream serving (a ``StreamConfig``) raises
+NotImplementedError naming its ROADMAP item (A.12).
 """
 
 from __future__ import annotations
@@ -156,8 +157,10 @@ def convert_video(input_source: Union[str, Iterable[np.ndarray]],
         for s2d=1, ``fast_demo`` for s2d=2).
     model_cfg / pipe_cfg: default to ``ModelConfig()`` and
         ``PipelineConfig()``, as in the JAX package.
-    refiner_variables: the error-map refiner's weights; not ported yet
-        (raises, ROADMAP A.11).
+    refiner_variables: the error-map refiner's weights (nested numpy
+        dict in the JAX package's layout) for ``refine.mode="errormap"``
+        (``preset_video_1080p_errormap``); None = the shipped
+        errormap_demo. Ignored in the other modes, as in the JAX package.
     start_frame / max_frames: trim the input (temporal state starts cold
         at the trim point).
     trimap_source: trimaps for trimap-conditioned matting: a per-frame

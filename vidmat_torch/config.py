@@ -12,9 +12,10 @@ JAX package ships them: ``preset_video_1080p`` (``fast_demo``, s2d=2,
 pool 4), ``preset_video_4k`` (the same model at pool 8, tiled
 refinement), ``preset_clip_480p`` (``synthetic_demo`` at full resolution),
 ``preset_pr1_image`` (the single-image rung),
-``preset_video_1080p_errormap`` (error-map refinement, ROADMAP A.11) and
+``preset_video_1080p_errormap`` (error-map refinement with the shipped
+``errormap_demo`` refiner on ``synthetic_demo``) and
 ``preset_multistream`` (with a ``StreamConfig``, ROADMAP A.12); building
-a pipeline from the last two raises ``NotImplementedError`` naming its
+a pipeline from the last raises ``NotImplementedError`` naming its
 item. ``conv_impl="planar"`` runs the net through the four planar
 conv kernels (``vidmat_torch/models/planar.py``); ``conv_impl="xla"`` runs
 the same variables as ``F.conv2d`` (``vidmat_torch/models/matting_net.py``).
@@ -62,8 +63,8 @@ class RefineConfig:
     mode: str = "guided"  # "none" | "guided" | "errormap"
     guided_radius: int = 4
     guided_eps: float = 1e-4
-    # error-map path (ROADMAP A.11): number of worst patches refined at
-    # full resolution, and their size
+    # error-map path: number of worst patches refined at full resolution,
+    # and their size
     errormap_patches: int = 256
     errormap_patch_size: int = 16
 
@@ -152,8 +153,11 @@ def preset_clip_480p() -> tuple[ModelConfig, PipelineConfig]:
 
 def preset_video_1080p_errormap() -> tuple[ModelConfig, PipelineConfig]:
     """1080p recurrent with error-map patch refinement on the s2d=1 model
-    (vidmat/config.py ``preset_video_1080p_errormap``). Its refiner is not
-    ported yet: serving raises (ROADMAP A.11)."""
+    (vidmat/config.py ``preset_video_1080p_errormap``): the refiner
+    (``refine/errormap.py``, shipped ``errormap_demo``) refines the 256
+    worst 16x16 patches of the upsampled alpha; no chunk body, so each
+    chunk is four calls of the per-frame body (one CUDA graph on the
+    card)."""
     return ModelConfig(conv_impl="planar"), PipelineConfig(
         downsample_ratio=0.25, chunk_size=4,
         refine=RefineConfig(mode="errormap"))

@@ -1,6 +1,7 @@
 """Synthetic video fixtures with closed-form ground-truth alpha
-(counterpart of the moving-disk and clean-plate clips in
-vidmat/io/fixtures.py; numpy only)."""
+(counterpart of the moving-disk, clean-plate and hard clips in
+vidmat/io/fixtures.py; numpy only, cv2 for the hard clip's JPEG option
+alone)."""
 
 from __future__ import annotations
 
@@ -108,3 +109,163 @@ def synthetic_plate_clip(h: int, w: int, num_frames: int, seed: int = 0,
         yield synthetic_plate_frame(h, w, i / max(num_frames, 1), seed,
                                     camouflage=camouflage,
                                     plate_jitter=plate_jitter)
+
+
+def _disk_hair_alpha(xx: np.ndarray, yy: np.ndarray, h: int, w: int,
+                     t: float, rng: np.random.RandomState, hair: bool
+                     ) -> np.ndarray:
+    """The hard clip's subject coverage: a soft orbiting disk and, with
+    ``hair``, 12 thin waving filament strands on polar spirals whose
+    alpha falls off with the arc distance (a real metric width, tapered
+    toward the tip). Takes one draw of ``rng`` (the curl) with hair."""
+    cx = w / 2 + 0.22 * w * np.cos(2 * np.pi * t)
+    cy = h / 2 + 0.22 * h * np.sin(2 * np.pi * t)
+    radius = 0.16 * min(h, w)
+    dx, dy = xx - cx, yy - cy
+    dist = np.sqrt(dx ** 2 + dy ** 2)
+    alpha = np.clip((radius - dist) / 2.0 + 0.5, 0.0, 1.0)
+
+    if hair:
+        theta_pix = np.arctan2(dy, dx)
+        r_max = 1.9 * radius
+        n_strands = 12
+        curl = 0.8 * (2.0 * rng.rand() - 1.0)
+        base_w = 0.05 * radius
+        a_hair = np.zeros((h, w), np.float32)
+        for k in range(n_strands):
+            ak = (2 * np.pi * k / n_strands
+                  + 0.25 * np.sin(2 * np.pi * t + 1.7 * k))
+            target = ak + curl * (dist - radius) / radius
+            d_ang = np.angle(np.exp(1j * (theta_pix - target))).astype(
+                np.float32)
+            arc = np.abs(d_ang) * np.maximum(dist, 1e-3)
+            taper = np.clip((r_max - dist) / (0.35 * radius), 0.0, 1.0)
+            width = base_w * (0.3 + 0.7 * taper)
+            prof = np.clip((width - arc) / 1.2 + 0.5, 0.0, 1.0)
+            in_band = (dist >= radius * 0.9) & (dist <= r_max)
+            a_hair = np.maximum(a_hair,
+                                np.where(in_band, prof * taper, 0.0))
+        alpha = np.maximum(alpha, a_hair)
+    return alpha
+
+
+def _hard_render(h: int, w: int, t: float, seed: int, pan: bool,
+                 hair: bool, occluder: bool
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """One noiseless float render of the hard scene at time t: (frame
+    (H, W, 3) float32 before clipping, alpha (H, W))."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    phase = rng.rand(3, 4) * 2 * np.pi
+    # A panning camera: a constant per-seed velocity.
+    vx, vy = ((rng.rand(2) - 0.5) * np.array([w, h]) * 0.9) if pan \
+        else (0.0, 0.0)
+    bx, by = xx + vx * t, yy + vy * t
+    bg = _texture(bx, by, h, w, phase)
+    # A high-frequency octave that pans with the camera.
+    hp = rng.rand(3, 2) * 2 * np.pi
+    bg = bg + np.stack([
+        0.07 * np.sin(2 * np.pi * bx / w * 23 + hp[c, 0])
+        * np.cos(2 * np.pi * by / h * 19 + hp[c, 1])
+        for c in range(3)], axis=-1)
+
+    alpha = _disk_hair_alpha(xx, yy, h, w, t, rng, hair)
+
+    fg_color = np.array([0.85, 0.45, 0.25], np.float32) + 0.12 * np.sin(
+        np.stack([xx / 11.0, yy / 13.0, (xx + yy) / 17.0], axis=-1))
+    frame = alpha[..., None] * fg_color + (1.0 - alpha[..., None]) * bg
+
+    if occluder:
+        bar_cx = w * (0.5 + 0.38 * np.sin(2 * np.pi * 0.7 * t + 1.0))
+        bar_hw = 0.05 * w
+        occ = np.clip((bar_hw - np.abs(xx - bar_cx)) / 1.5 + 0.5,
+                      0.0, 1.0)
+        occ_color = (np.array([0.2, 0.25, 0.3], np.float32)
+                     + 0.1 * np.sin(np.stack([yy / 7.0, yy / 5.0,
+                                              xx / 9.0], axis=-1)))
+        frame = occ[..., None] * occ_color + (1.0 - occ[..., None]) * frame
+        alpha = alpha * (1.0 - occ)  # the visible coverage
+    return frame, alpha
+
+
+def _shutter_average(render, t: float, shutter_dt: float, taps: int = 5):
+    """Motion blur: the mean of ``taps`` renders (frame and alpha) over
+    the shutter interval [t - dt/2, t + dt/2]."""
+    offs = ((np.arange(taps) + 0.5) / taps - 0.5) * shutter_dt
+    acc_f = acc_a = None
+    for off in offs:
+        f, a = render(t + off)
+        acc_f = f if acc_f is None else acc_f + f
+        acc_a = a if acc_a is None else acc_a + a
+    return acc_f / taps, acc_a / taps
+
+
+def _light_drift_gain(t: float, seed: int, magnitude: float) -> np.ndarray:
+    """Per-channel exposure drift over the clip: slow sinusoids with a
+    per-seed frequency and phase."""
+    drng = np.random.RandomState(seed + 29)
+    freq = 0.5 + drng.rand(3)
+    ph = drng.rand(3) * 2 * np.pi
+    return (1.0 + magnitude * np.sin(2 * np.pi * freq * t + ph)
+            ).astype(np.float32)
+
+
+def _jpeg_roundtrip(frame_u8: np.ndarray, quality: int) -> np.ndarray:
+    """The frame through a JPEG encode and decode (cv2, imported here:
+    only this option needs it)."""
+    import cv2
+
+    ok, buf = cv2.imencode(".jpg", cv2.cvtColor(frame_u8,
+                                                cv2.COLOR_RGB2BGR),
+                           [cv2.IMWRITE_JPEG_QUALITY, int(quality)])
+    if not ok:
+        return frame_u8
+    return cv2.cvtColor(cv2.imdecode(buf, cv2.IMREAD_COLOR),
+                        cv2.COLOR_BGR2RGB)
+
+
+def synthetic_hard_frame(h: int, w: int, t: float, seed: int = 0,
+                         pan: bool = True, hair: bool = True,
+                         occluder: bool = True, noise: float = 0.015,
+                         shutter_dt: float = 0.0,
+                         light_drift: float = 0.0, jpeg: int = 0,
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """One frame of the hard clip (vidmat/io/fixtures.py
+    ``synthetic_hard_frame``): the moving disk with a panning textured
+    background (``pan``), thin filament strands off its edge (``hair``),
+    a textured bar sweeping in front (``occluder``; the ground truth is
+    the visible coverage), sensor noise on the frame only (``noise``),
+    motion blur over ``shutter_dt``, exposure drift (``light_drift``) and
+    a JPEG round trip at quality ``jpeg`` (> 0; needs cv2). Returns
+    (frame uint8 (H, W, 3), alpha float32 (H, W, 1))."""
+    if shutter_dt > 0.0:
+        frame, alpha = _shutter_average(
+            lambda tt: _hard_render(h, w, tt, seed, pan, hair, occluder),
+            t, shutter_dt)
+    else:
+        frame, alpha = _hard_render(h, w, t, seed, pan, hair, occluder)
+
+    if light_drift > 0.0:
+        frame = frame * _light_drift_gain(t, seed, light_drift)
+
+    if noise > 0.0:
+        nrng = np.random.RandomState(
+            (seed * 9973 + int(t * 1e4) % 7919) % (2 ** 32 - 1))
+        frame = frame + noise * nrng.randn(h, w, 3).astype(np.float32)
+
+    frame_u8 = np.round(np.clip(frame, 0, 1) * 255).astype(np.uint8)
+    if jpeg:
+        frame_u8 = _jpeg_roundtrip(frame_u8, jpeg)
+    return frame_u8, alpha[..., None].astype(np.float32)
+
+
+def synthetic_hard_clip(h: int, w: int, num_frames: int, seed: int = 0,
+                        motion_blur: float = 0.0,
+                        **kw) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (frame_uint8, gt_alpha) of the hard clip. motion_blur: the
+    shutter's open fraction of the frame interval (0.5 = a 180-degree
+    shutter); the other options are ``synthetic_hard_frame``'s."""
+    dt = 1.0 / max(num_frames, 1)
+    for i in range(num_frames):
+        yield synthetic_hard_frame(h, w, i * dt, seed,
+                                   shutter_dt=motion_blur * dt, **kw)

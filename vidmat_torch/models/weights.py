@@ -12,8 +12,9 @@ package: ``fast_demo``, the s2d=2 serving model; ``synthetic_demo``, the
 s2d=1 default model; ``plate_demo``, the clean-plate conditioned s2d=2
 model; ``trimap_demo``, the per-image trimap model, non-recurrent;
 ``trimap_prop_demo``, the recurrent s2d=2 trimap-propagation model;
-``seg_demo``, the s2d=1 base model co-trained with a segmentation head)
-are flattened Flax trees, one npz entry per leaf keyed by its path
+``seg_demo``, the s2d=1 base model co-trained with a segmentation head;
+``errormap_demo``, the error-map refiner trained against synthetic_demo's
+coarse output) are flattened Flax trees, one npz entry per leaf keyed by its path
 (``params/encoder/stem/conv/kernel``), so they load with numpy alone.
 Unlike the JAX package's oracle bridge this one keeps the ``seg_head``
 subtree: a network built from a co-trained tree has the segmentation
@@ -230,6 +231,38 @@ def folded_planar_params(cfg: ModelConfig, variables: Dict[str, Any],
                                              dtype),
                            "scale": torch.ones_like(sb), "bias": sb}
     return out
+
+
+def default_refiner_path() -> str:
+    """Path of the shipped error-map refiner (``errormap_demo``)."""
+    return os.path.join(_CKPT_DIR, "errormap_demo.npz")
+
+
+def default_refiner_variables() -> Dict[str, Any]:
+    """The shipped error-map refiner's weights, or raise: random-weight
+    refinement would silently degrade the alpha, so it is refused
+    (vidmat/pipeline/video.py ``_load_default_refiner``)."""
+    path = default_refiner_path()
+    if not os.path.isfile(path):
+        raise ValueError(
+            "refine.mode='errormap' needs trained refiner weights: pass "
+            "refiner_variables=... (the default checkpoint "
+            f"{path} is not present). Random-weight refinement would "
+            "silently degrade the alpha, so it is refused.")
+    return load_npz(path)
+
+
+def build_refiner(variables: Dict[str, Any], num_patches: int,
+                  patch_size: int, device="cpu"):
+    """The error-map refiner (``refine.errormap.ErrorMapRefiner``) in eval
+    mode holding ``variables``, the JAX refiner's variables (``params``
+    and ``batch_stats``, nested dicts of numpy arrays)."""
+    from vidmat_torch.refine.errormap import ErrorMapRefiner
+
+    ref = ErrorMapRefiner(num_patches=num_patches, patch_size=patch_size)
+    ref.load_state_dict(state_dict_from_jax(variables))
+    ref.requires_grad_(False)
+    return ref.eval().to(device)
 
 
 def build_network(cfg: ModelConfig, variables: Dict[str, Any],

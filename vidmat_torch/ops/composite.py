@@ -43,10 +43,21 @@ def pack_rgba(rgba_u8: torch.Tensor) -> torch.Tensor:
     return rgba_u8.contiguous().view(torch.uint32)[..., 0]
 
 
+@functools.lru_cache(maxsize=None)
+def _color_tensor(color: tuple, device: torch.device) -> torch.Tensor:
+    # Made once per device: a host-to-device copy inside a captured CUDA
+    # graph (the pipeline's chunk) is not allowed.
+    return torch.tensor(color, dtype=torch.float32, device=device)
+
+
 def _bg_tensor(bg: Background, like: torch.Tensor) -> torch.Tensor:
     """The background as a float32 tensor on ``like``'s device: (3,),
-    (H, W, 3) or (N, H, W, 3)."""
-    t = torch.as_tensor(bg, dtype=torch.float32, device=like.device)
+    (H, W, 3) or (N, H, W, 3). A color given as numbers is made once per
+    device."""
+    if not torch.is_tensor(bg) and np.ndim(bg) == 1:
+        t = _color_tensor(tuple(float(v) for v in bg), like.device)
+    else:
+        t = torch.as_tensor(bg, dtype=torch.float32, device=like.device)
     n, h, w, _ = like.shape
     if t.shape not in ((3,), (h, w, 3), (n, h, w, 3)):
         raise ValueError(f"background must be (3,), ({h}, {w}, 3) or "

@@ -36,6 +36,14 @@ def _norm_params(c: int, scale, offset) -> tuple[list, list]:
     return scale, offset
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_tensors(scale: tuple, offset: tuple, device: torch.device):
+    # Made once per device: a host-to-device copy inside a captured CUDA
+    # graph (the pipeline's chunk) is not allowed.
+    return (torch.tensor(scale, dtype=torch.float32, device=device),
+            torch.tensor(offset, dtype=torch.float32, device=device))
+
+
 def ingest_pool_normalize_plain(frames_u8: torch.Tensor, pool: int = 1,
                                 scale: Optional[Sequence[float]] = None,
                                 offset: Optional[Sequence[float]] = None,
@@ -52,10 +60,9 @@ def ingest_pool_normalize_plain(frames_u8: torch.Tensor, pool: int = 1,
         n, h // pool, pool, w // pool, pool, c).sum((2, 4)).float()
     if pool > 1:
         x = x * (1.0 / (pool * pool))
-    dev = frames_u8.device
-    x = x * torch.tensor(scale, dtype=torch.float32, device=dev)
-    x = x + torch.tensor(offset, dtype=torch.float32, device=dev)
-    return x.to(out_dtype)
+    scale_t, offset_t = _norm_tensors(tuple(scale), tuple(offset),
+                                      frames_u8.device)
+    return (x * scale_t + offset_t).to(out_dtype)
 
 
 def ingest_pool_normalize(frames_u8: torch.Tensor, pool: int = 1,

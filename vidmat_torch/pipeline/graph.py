@@ -1,17 +1,28 @@
 """One CUDA graph launch per chunk (counterpart of the JAX package's single
-jitted ``chunk_step``, vidmat/pipeline/video.py:374-395 and :540-548).
+jitted ``chunk_step`` and ``step``, vidmat/pipeline/video.py:374-395 and
+:536-582).
 
-The planar chunk body makes some sixty PyTorch calls per frame from
-Python (``ServingPlan.chunk_body``); replaying them as one captured graph
-leaves the host one ``cudaGraphLaunch`` per chunk. ``ChunkGraph`` captures
-the body over static tensors: the device input chunk, the recurrent
-state (updated in place by ``copy_`` at the end of the captured region)
-and the output, which each replay rewrites.
+A chunk body makes tens of PyTorch calls per frame from Python: the
+planar chunk body (``ServingPlan.chunk_body``) some sixty, K calls of a
+per-frame body (``per_frame_chunk``) as many each, the 4K tiled body
+about two hundred. Replaying them as one captured graph leaves the host
+one ``cudaGraphLaunch`` per chunk. ``ChunkGraph`` captures the body over
+static tensors: the device inputs (the frame chunk, and the background
+chunk of a background video), the recurrent state (updated in place by
+``copy_`` at the end of the captured region) and the outputs, which each
+replay rewrites.
 
 The kernel wrappers count launches in Python, where they enqueue. A
 capture only records the launches, so ``ChunkGraph`` takes the counts the
 capture added off again and adds them back on every replay, which is
 where those kernels run.
+
+The capture runs on a side stream between ``capture_begin`` and
+``capture_end``, as ``torch.cuda.graph`` does, without that context's
+emptying of the device and pinned-host caching allocators on entry: a
+pipeline captures one graph per bucket, and each emptying frees the
+cached pinned chunks and device blocks of earlier runs, which the next
+allocation then pays for again (``cudaHostAlloc``, ``cudaMalloc``).
 """
 
 from __future__ import annotations
@@ -34,33 +45,78 @@ def kernel_wrappers() -> List[Callable]:
             int8_planar.int8_conv]
 
 
+_capture_stream = None
+
+
+def _side_stream() -> torch.cuda.Stream:
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    return _capture_stream
+
+
 def _counts(fns):
     return [(fn.launches, dict(getattr(fn, "mode_launches", {})))
             for fn in fns]
 
 
+def _cat(outs):
+    """Per-frame outputs (tensors, or tuples of tensors) joined along the
+    frame axis."""
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(ts) for ts in zip(*outs))
+    return torch.cat(outs)
+
+
+def per_frame_chunk(body: Callable, bg_dynamic: bool = False) -> Callable:
+    """K calls of a per-frame serving body as one chunk body, in frame
+    order, the state carried from each to the next (the JAX package's
+    ``lax.scan`` of its per-frame body). Returns fn(frames, state) ->
+    (out, state), or with ``bg_dynamic`` fn(frames, bgs, state): frame j
+    composites over bgs[j]. The outputs are joined along the frame
+    axis."""
+    def run(frames, *rest):
+        *bgs, state = rest
+        outs = []
+        for j in range(frames.shape[0]):
+            extra = (bgs[0][j:j + 1],) if bg_dynamic else ()
+            out, state = body(frames[j:j + 1], state, *extra)
+            outs.append(out)
+        return _cat(outs), state
+
+    return run
+
+
 class ChunkGraph:
     """A captured chunk body, replayed once per chunk.
 
-    body(frames, state) -> (out, new_state): the chunk body. It must have
-    run eagerly on this device first (the warm-up: it builds and loads
-    every kernel, sets their shared-memory attributes and fills the
+    body(*static_in, state) -> (out, new_state): the chunk body. It must
+    have run eagerly on this device first (the warm-up: it builds and
+    loads every kernel, sets their shared-memory attributes and fills the
     caches a capture may not fill). static_in: the device input chunk the
-    caller copies each chunk into. state: the recurrent state to go on
-    from (a tuple of tensors, or None); its tensors become the graph's
-    static state. A failed capture raises."""
+    caller copies each chunk into, or a tuple of such inputs. state: the
+    recurrent state to go on from (a tuple of tensors, or None); its
+    tensors become the graph's static state. A failed capture raises.
+    ``per_replay`` lists (wrapper, launches, mode launches) of one
+    replay."""
 
-    def __init__(self, body: Callable, static_in: torch.Tensor, state):
+    def __init__(self, body: Callable, static_in, state):
         self.static_in = static_in
+        ins = static_in if isinstance(static_in, tuple) else (static_in,)
         self.state = state
         fns = kernel_wrappers()
         before = _counts(fns)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(self.graph):
-            out, new_state = body(static_in, state)
-            if state is not None:
-                for s, t in zip(state, new_state):
-                    s.copy_(t)
+        torch.cuda.synchronize()
+        with torch.inference_mode(), torch.cuda.stream(_side_stream()):
+            self.graph.capture_begin()
+            try:
+                out, new_state = body(*ins, state)
+                if state is not None:
+                    for s, t in zip(state, new_state):
+                        s.copy_(t)
+            finally:
+                self.graph.capture_end()
         self.out = out
         self.per_replay = []
         for fn, (n0, m0), (n1, m1) in zip(fns, before, _counts(fns)):
@@ -71,14 +127,23 @@ class ChunkGraph:
             if n1 != n0:
                 self.per_replay.append((fn, n1 - n0, modes))
 
-    def __call__(self, state):
-        """Replay on the chunk in ``static_in`` from ``state`` (copied into
-        the static state unless it is that state). Returns (out, state):
-        the static output and state, valid until the next replay."""
+    def load_state(self, state) -> None:
+        """Copy ``state`` into the static state (a reset or a restored
+        carry); the next replay goes on from it."""
         if state is not self.state and state is not None:
             with torch.inference_mode():
                 for s, t in zip(self.state, state):
                     s.copy_(t)
+
+    def launches_per_replay(self) -> dict:
+        """{wrapper name: launches} of one replay."""
+        return {fn.__name__: n for fn, n, _ in self.per_replay}
+
+    def __call__(self, state):
+        """Replay on the inputs in ``static_in`` from ``state`` (copied into
+        the static state unless it is that state). Returns (out, state):
+        the static output and state, valid until the next replay."""
+        self.load_state(state)
         self.graph.replay()
         for fn, n, modes in self.per_replay:
             fn.launches += n

@@ -56,10 +56,14 @@ guide, the tails and the composite see the RGB only (:348-351, 478-482,
 ingest, the trunk with the co-trained ``seg_head`` (the state advances as
 in the matting pass), a bilinear upsample of the logits and a sigmoid.
 
+Error-map refinement (``refine.mode="errormap"``, :575-581): below full
+resolution the error-map refiner (``refine/errormap.py``) refines the
+upsampled alpha in its worst patches, or, with no refiner, the bilinear
+tail runs; either way through ``finish_float`` (no fused tail).
+
 ``use_pallas=False`` takes the branch the JAX package takes without its
 kernels: no fused tail, no packed output (the uint8 tuple), every stage
-and the net on its plain version (:227-244). Error-map refinement (A.11)
-raises NotImplementedError naming its ROADMAP item. The JAX package's
+and the net on its plain version (:227-244). The JAX package's
 scoped-VMEM fit rule for the fused tails (``refine_tiles_fit``) is a TPU
 limit the CUDA kernels do not have: every integer pool > 1 takes a fused
 tail.
@@ -74,7 +78,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from vidmat_torch._device import in_full_fp32
+from vidmat_torch._device import full_fp32, in_full_fp32
 from vidmat_torch.config import ModelConfig, RefineConfig
 from vidmat_torch.models.planar import PlanarNetwork
 from vidmat_torch.ops.composite import (composite_rgba,
@@ -154,6 +158,7 @@ def build_serving_body(
     output_seg: bool = False,
     use_pallas: Optional[bool] = None,
     kernels: bool = True,
+    refiner: Optional[torch.nn.Module] = None,
 ) -> Tuple[Callable, ServingPlan]:
     """Build the serving body for a static (h, w, ratio) bucket.
 
@@ -199,6 +204,12 @@ def build_serving_body(
               versions on CPU tensors. False: the stages (and the planar
               net's convs) call the plain PyTorch versions on any device,
               the reference the kernel path is held against on the card.
+    refiner:  the error-map refiner (``refine.errormap.ErrorMapRefiner``
+              on the net's device) for refine.mode == "errormap": below
+              full resolution the alpha is its patch-refined upsample and
+              the foreground the bilinear one (stepfactory.py:575-578);
+              None takes the bilinear tail, as in the JAX package. Its
+              convolutions run in full float32 in every body.
 
     Returns (body, plan) where
       body(frame (N, h, w, C) uint8 (float32 with float_frames), state
@@ -211,9 +222,7 @@ def build_serving_body(
           | (alpha (N, h, w, 1), fgr (N, h, w, 3)) float32  if float_output
           | (alpha_u8 (N, h, w, 1), fgr_u8 (N, h, w, 3), rgba (N, h, w, 4))
     """
-    if refine.mode == "errormap":
-        raise _unported("error-map refinement", "A.11")
-    if refine.mode not in ("guided", "none"):
+    if refine.mode not in ("guided", "none", "errormap"):
         raise ValueError(f"unknown refine mode {refine.mode!r}")
     if bg_dynamic and bg is not None:
         raise ValueError("bg_dynamic takes bg per call; build with bg=None")
@@ -447,6 +456,11 @@ def build_serving_body(
         fgr_u8 = torch.round(fgr * 255.0).to(torch.uint8)
         return alpha_u8, fgr_u8, rgba
 
+    def rgb_full(frame):
+        """The frame's RGB as float in [0, 1]."""
+        return (frame[..., :3].float() if float_frames
+                else frame[..., :3].float() * (1.0 / 255.0))
+
     @torch.inference_mode()
     def body_impl(frame, state, bgv):
         x = ingest_x(frame)
@@ -463,8 +477,7 @@ def build_serving_body(
             alpha, fgr = float_tail(frame[..., :3], *coeffs(x, alpha, fgr),
                                     pool)
         elif not full and refine.mode == "guided":
-            rgb = (frame[..., :3].float() if float_frames
-                   else frame[..., :3].float() * (1.0 / 255.0))
+            rgb = rgb_full(frame)
             if tile_size and pool:
                 # Tiled full-resolution refinement off the fused tails
                 # (stepfactory.py:560-569).
@@ -477,6 +490,13 @@ def build_serving_body(
                                              refine.guided_radius,
                                              refine.guided_eps,
                                              kernels=kernels)
+        elif not full and refine.mode == "errormap" and refiner is not None:
+            # The refiner sees the ingested coarse RGB in float32 and the
+            # full-resolution frame in [0, 1] (stepfactory.py:575-578).
+            with full_fp32():
+                alpha, _ = refiner(rgb_full(frame), x[..., :3].float(),
+                                   alpha)
+            fgr = resize_bilinear(fgr, h, w)
         elif not full:
             alpha = resize_bilinear(alpha, h, w)
             fgr = resize_bilinear(fgr, h, w)

@@ -5,7 +5,15 @@ zero state, cropped (``matte_image``).
 
 ``VideoStepper``: one frame per ``step``; the recurrent state stays on
 the device between calls. The body comes from ``build_serving_body`` in
-float-output mode (or the segmentation body with ``output="seg"``).
+float-output mode (or the segmentation body with ``output="seg"``). Each
+frame (and its trimap channel) is written into one reused pinned host
+slot (``io/native.py`` ``pad_into``) and sent to a static device input.
+On CUDA the first step runs the body eagerly (the warm-up) and is then
+captured as a CUDA graph (``graph.ChunkGraph`` with one frame): every
+later step is one copy in, one graph launch and the copies out. The
+static-skip body picks its branch on the host and stays eager. The
+caller gets host arrays of its own (``.cpu()`` copies), which later
+steps do not touch.
 Trimap-conditioned models take a trimap per step; the recurrent
 propagation family takes one on keyframes and an all-unknown trimap in
 between (vidmat/pipeline/stepper.py:212-232). ``tile_size`` gives the
@@ -26,6 +34,7 @@ against on the card).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,9 +43,11 @@ import torch
 from vidmat_torch._device import full_fp32, resolve_device
 from vidmat_torch.config import ModelConfig, RefineConfig
 from vidmat_torch.io.backgrounds import prepare_plate_u8
+from vidmat_torch.io.native import pad_into
 from vidmat_torch.models.weights import (build_network, default_variables,
                                          seg_default_variables)
 from vidmat_torch.ops.resize import downsample_ratio_shape
+from vidmat_torch.pipeline.graph import ChunkGraph
 from vidmat_torch.pipeline.stepfactory import build_serving_body
 from vidmat_torch.pipeline.trimap import canon_trimap_u8
 
@@ -132,6 +143,10 @@ class VideoStepper:
     trunk and state advance); ``step`` returns (mask probability (H, W, 1)
     float32, None)."""
 
+    #: capture the step as a CUDA graph after the first (False: every step
+    #: through the eager body, the reference the graph is held to)
+    capture = True
+
     def __init__(self, cfg: ModelConfig, height: int, width: int,
                  variables=None, downsample_ratio: float = 1.0,
                  dtype: str = "float32", guided_radius: int = 4,
@@ -183,17 +198,38 @@ class VideoStepper:
             bg_plate=(None if bg_plate is None
                       else prepare_plate_u8(bg_plate, height, width)),
             kernels=kernels and not self._parity)
+        # The reused input: a pinned host slot and its device copy.
+        cuda = self.device.type == "cuda"
+        c = 4 if cfg.use_trimap else 3
+        self._host = torch.empty(
+            (1, height, width, c),
+            dtype=torch.float32 if self._parity else torch.uint8,
+            pin_memory=cuda)
+        self._dev = (torch.empty_like(self._host, device=self.device)
+                     if cuda else self._host)
+        self._sent = torch.cuda.Event() if cuda else None
+        self._graph = None
+        self.capture_ms = None  # the step's capture, once made
         self.reset()
 
     def reset(self) -> None:
-        self.state = self._plan.make_state(1)
+        """Start from a zero carry (a scene cut, a new stream)."""
+        self._set_state(self._plan.make_state(1))
 
-    def _device_frame(self, frame: np.ndarray,
-                      trimap: Optional[np.ndarray] = None) -> torch.Tensor:
-        """(1, H, W, C) on the device: float32 in [0, 1] in parity mode,
-        uint8 in serving mode (float frames as round(clip(v) * 255)). A
-        trimap-conditioned model gets the trimap as a fourth channel (an
-        all-unknown one where the recurrent family is given none)."""
+    def _set_state(self, state) -> None:
+        """Go on from ``state``; with a captured step it is copied into the
+        graph's static state, which the step updates in place."""
+        if self._graph is not None:
+            self._graph.load_state(state)
+            state = self._graph.state
+        self.state = state
+
+    def _host_frame(self, frame: np.ndarray,
+                    trimap: Optional[np.ndarray] = None) -> np.ndarray:
+        """(H, W, C): float32 in [0, 1] in parity mode, uint8 in serving
+        mode (float frames as round(clip(v) * 255)). A trimap-conditioned
+        model gets the trimap as a fourth channel (an all-unknown one
+        where the recurrent family is given none)."""
         if not self.cfg.use_trimap:
             if trimap is not None:
                 raise ValueError(
@@ -220,8 +256,45 @@ class VideoStepper:
             arr = np.round(np.clip(frame, 0.0, 1.0) * 255.0).astype(np.uint8)
         else:
             arr = frame
-        t = torch.from_numpy(np.ascontiguousarray(arr))[None]
-        return t.to(self.device)
+        if arr.shape != tuple(self._host.shape[1:]):
+            raise ValueError(f"frame {arr.shape} does not match the "
+                             f"session's {tuple(self._host.shape[1:])}")
+        return arr
+
+    def _device_frame(self, frame: np.ndarray,
+                      trimap: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Write the frame into the pinned slot (once the last copy out of
+        it is done) and send it to the static (1, H, W, C) device input,
+        which is returned."""
+        arr = self._host_frame(frame, trimap)
+        if self._sent is not None:
+            self._sent.synchronize()
+        slot = self._host[0].numpy()
+        if self._parity:
+            np.copyto(slot, arr)
+        else:
+            pad_into(np.ascontiguousarray(arr), slot)
+        if self._sent is not None:
+            self._dev.copy_(self._host, non_blocking=True)
+            self._sent.record()
+        return self._dev
+
+    def _run(self, x: torch.Tensor):
+        """The body on the staged input: the graph's replay once
+        captured, else eagerly. Returns its device output."""
+        if self._graph is not None:
+            out, self.state = self._graph(self.state)
+        else:
+            out, self.state = self._step(x, self.state)
+        return out
+
+    def _capture_after_warm_up(self) -> None:
+        if (self._graph is None and self.capture
+                and self.device.type == "cuda" and not self._plan.static_skip):
+            t0 = time.perf_counter()
+            self._graph = ChunkGraph(self._step, self._dev, self.state)
+            self.state = self._graph.state
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def step(self, frame: np.ndarray, trimap: Optional[np.ndarray] = None
              ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -229,12 +302,14 @@ class VideoStepper:
         models): (H, W) uint8 {0, 128, 255} or float {0, 0.5, 1}. Returns
         host alpha (H, W, 1) and fgr (H, W, 3), float32 in [0, 1];
         output="seg" returns (mask (H, W, 1) float32, None)."""
-        out, self.state = self._step(self._device_frame(frame, trimap),
-                                     self.state)
+        out = self._run(self._device_frame(frame, trimap))
         if self._seg:
-            return out[0].cpu().numpy(), None
-        alpha, fgr = out
-        return alpha[0].cpu().numpy(), fgr[0].cpu().numpy()
+            res = out[0].cpu().numpy(), None
+        else:
+            alpha, fgr = out
+            res = alpha[0].cpu().numpy(), fgr[0].cpu().numpy()
+        self._capture_after_warm_up()
+        return res
 
     # -- mid-video resume: the carry in the port's own npz format --
 
@@ -273,5 +348,5 @@ class VideoStepper:
         if self._plan.static_skip:
             self.state = (ns, self._plan.make_state(1)[1])
         else:
-            self.state = ns
+            self._set_state(ns)
         return int(saved["frame_index"])

@@ -1,7 +1,8 @@
 """Trimaps: the canonical byte form of a user trimap and a marker for
 pre-trimmed trimap streams (counterpart of vidmat/pipeline/trimap.py), and
-trimaps from rough masks (counterpart of ``trimap_from_mask`` and
-``_box_dilate`` in vidmat/train/data.py). numpy only.
+trimaps from rough masks and from ground-truth alpha (counterpart of
+``trimap_from_mask``, ``alpha_to_trimap`` and ``_box_dilate`` in
+vidmat/train/data.py). numpy only.
 
 The byte convention: uint8 {0, 128, 255} == float {0, 0.5, 1} for
 background / unknown / foreground."""
@@ -83,4 +84,22 @@ def trimap_from_mask(mask: np.ndarray, band=0.04) -> np.ndarray:
     near_bg = _box_dilate(~fg, r)
     tri = np.where(fg & ~near_bg, 1.0, 0.0).astype(np.float32)
     tri[near_fg & near_bg] = 0.5
+    return tri[..., None]
+
+
+def alpha_to_trimap(alpha: np.ndarray, band: float = 0.08,
+                    lo: float = 0.05, hi: float = 0.95) -> np.ndarray:
+    """A {0, 0.5, 1} trimap from ground-truth alpha (vidmat/train/data.py
+    ``alpha_to_trimap``): definite foreground and background where the
+    alpha is saturated, unknown in a box-dilated band around the edge;
+    the unknown band of the quality gates.
+
+    alpha: (H, W) or (H, W, 1). band: the dilation radius as a fraction of
+    the short side. Returns (H, W, 1) float32."""
+    a = alpha[..., 0] if alpha.ndim == 3 else alpha
+    h, w = a.shape
+    r = max(1, int(band * min(h, w)))
+    dilated = _box_dilate((a > lo) & (a < hi), r)
+    tri = np.where(a >= hi, 1.0, 0.0).astype(np.float32)
+    tri[dilated] = 0.5
     return tri[..., None]

@@ -16,26 +16,29 @@
     chunk t+1
   - chunk_size K groups K frames per dispatch and records one latency
     observation per group. Where the plan has a chunk body (the planar
-    net on the fused packed tail), a full chunk is one call: the
+    net on the fused packed tail), a full chunk is one call of it: the
     stateless stages run once over the K frames and the recurrent decoder
-    per frame. On CUDA the first full chunk runs it eagerly (the warm-up)
-    and the body is then captured as a CUDA graph (``graph.ChunkGraph``):
-    each later chunk is one copy in, one graph launch and one copy out,
-    on one stream. Otherwise (e.g. ``clip_480p``'s full-resolution tail)
-    the per-frame body runs K times. A partial last chunk drains per
-    frame. Set-up (building a bucket's body, pinning its buffers,
-    capturing its graph) falls in the first latency observation, as in
-    the JAX package's loop, and is also reported as ``setup_ms`` (the
-    capture also as ``graph_capture_ms``)
+    per frame. Otherwise the chunk is K calls of the per-frame body
+    (``graph.per_frame_chunk``, the JAX package's scan; chunk 1 is its
+    per-frame ``step``). On CUDA the first full chunk of a bucket runs
+    eagerly (the warm-up) and is then captured as one CUDA graph
+    (``graph.ChunkGraph``): each later chunk is one copy in (two with a
+    background video), one graph launch and one copy out, on one
+    stream. The static-skip body picks its branch on the host, so it
+    stays eager. A partial last chunk drains per frame, eagerly. Set-up
+    (building a bucket's body, pinning its buffers, capturing its graph)
+    falls in the first latency observation, as in the JAX package's
+    loop, and is also reported as ``setup_ms`` (the capture also as
+    ``graph_capture_ms``)
   - output_foreground takes the body's uint8 tuple (alpha, fgr, rgba);
     otherwise one packed RGBA word (or the alpha byte) per pixel comes
     back
   - backgrounds of the composition, by precedence bg_blur > bg_video >
     bg_image > bg_color (vidmat/pipeline/video.py:320-330): a blur of the
-    source frame made on the device, a per-frame image sent with each
-    frame (the per-frame body, in lockstep with the frames, looped if the
-    background clip is shorter), one image baked into the body, or a
-    color. A clean plate (the plate-conditioned family) is prepared once
+    source frame made on the device, a per-frame image (in lockstep with
+    the frames, looped if the background clip is shorter; staged K deep
+    like the frames, one copy per chunk), one image baked into the body,
+    or a color. A clean plate (the plate-conditioned family) is prepared once
     per bucket and baked into the body
   - trimap-conditioned models take ``trimap_source``: a per-frame trimap
     stream, trimmed as the input is, or one keyframe trimap (the
@@ -60,8 +63,11 @@ from vidmat_torch.io.backgrounds import (BgFrameSource, prepare_bg_image,
 from vidmat_torch.io.native import pad_into, unpack_rgba
 from vidmat_torch.io.reader import _IMG_EXTS, FrameSource, read_image
 from vidmat_torch.io.writer import open_sink
-from vidmat_torch.models.weights import build_network, default_variables
-from vidmat_torch.pipeline.graph import ChunkGraph
+from vidmat_torch.models.weights import (build_network, build_refiner,
+                                         default_refiner_variables,
+                                         default_variables)
+from vidmat_torch.ops.resize import downsample_ratio_shape
+from vidmat_torch.pipeline.graph import ChunkGraph, per_frame_chunk
 from vidmat_torch.pipeline.stepfactory import (ServingPlan, _unported,
                                                build_serving_body)
 from vidmat_torch.pipeline.trimap import PreTrimmedTrimaps, canon_trimap_u8
@@ -194,6 +200,9 @@ class Bucket:
     plan: ServingPlan
     frames: Uploads
     outs: Downloads
+    # One full chunk: the plan's chunk body, or K calls of the per-frame
+    # body; fn(frames[, bgs], state) -> (out, state).
+    chunk: Callable
     bgs: Optional[Uploads] = None
     graph: Optional[ChunkGraph] = None
 
@@ -218,11 +227,17 @@ class VideoPipeline:
     requires it): an input of the net, not a background.
     ``pipe_cfg.use_pallas=False`` runs the net as F.conv2d and every stage
     on its plain version (the JAX package's branch without kernels).
-    Error-map refinement (``refine.mode="errormap"``, ``refiner_variables``)
-    and a ``StreamConfig`` raise NotImplementedError (ROADMAP A.11,
-    A.12).
+    refiner_variables: the error-map refiner's weights (nested dict of
+    numpy arrays in the JAX package's layout) for
+    ``refine.mode="errormap"``; None loads the shipped errormap_demo;
+    ignored in the other modes. A ``StreamConfig`` raises
+    NotImplementedError (ROADMAP A.12).
     device: "cuda" (default; raises without a CUDA device) or "cpu" (the
     plain PyTorch versions of the kernels)."""
+
+    #: replay one CUDA graph per full chunk on CUDA (False: every chunk
+    #: through the eager bodies, the reference the graphs are held to)
+    capture = True
 
     def __init__(self, model_cfg: Optional[ModelConfig] = None,
                  pipe_cfg: Optional[PipelineConfig] = None,
@@ -238,9 +253,6 @@ class VideoPipeline:
             raise _unported("multi-stream serving (StreamConfig)", "A.12")
         self.model_cfg = model_cfg or ModelConfig()
         self.pipe_cfg = pipe_cfg or PipelineConfig()
-        if (self.pipe_cfg.refine.mode == "errormap"
-                or refiner_variables is not None):
-            raise _unported("error-map refinement", "A.11")
         if self.model_cfg.use_bg_plate and bg_plate is None:
             raise ValueError(
                 "ModelConfig(use_bg_plate=True) needs the pre-captured "
@@ -272,6 +284,13 @@ class VideoPipeline:
         self.bg_blur = bg_blur
         self.bg_plate = bg_plate
         self._step_cache = {}
+        # The error-map refiner's patch budget and size, and its weights
+        # (ignored outside errormap mode, as in the JAX package).
+        self._refiner_k = self._refiner_p = None
+        self._refiner_vars = refiner_variables
+        if self.pipe_cfg.refine.mode == "errormap":
+            self._refiner_k = self.pipe_cfg.refine.errormap_patches
+            self._refiner_p = self.pipe_cfg.refine.errormap_patch_size
 
     def _build_step(self, h: int, w: int, ratio: float,
                     need_fgr: bool = False, alpha_only: bool = False
@@ -294,15 +313,40 @@ class VideoPipeline:
                 alpha_only=alpha_only, tile_size=cfg.tile_size,
                 tile_overlap=cfg.tile_overlap,
                 static_skip_eps=cfg.static_skip_eps,
-                use_pallas=cfg.use_pallas)
+                use_pallas=cfg.use_pallas,
+                refiner=self._refiner_for(h, w, ratio))
             k = max(1, cfg.chunk_size)
             c = 4 if self.model_cfg.use_trimap else 3
+            chunk = (plan.chunk_body if k > 1 and plan.chunk_body is not None
+                     else per_frame_chunk(body, self._bg_dynamic))
             self._step_cache[key] = Bucket(
                 body, plan, Uploads((k, h, w, c), torch.uint8, self.device),
-                Downloads(k, self.device),
-                bgs=(Uploads((1, h, w, 3), torch.float32, self.device)
+                Downloads(k, self.device), chunk,
+                bgs=(Uploads((k, h, w, 3), torch.float32, self.device)
                      if self._bg_dynamic else None))
         return self._step_cache[key]
+
+    def _refiner_for(self, h: int, w: int, ratio: float):
+        """The error-map refiner of a bucket (vidmat/pipeline/video.py:
+        331-351): None outside errormap mode and where the net runs at
+        full resolution. The patch budget is clamped to half the frame's
+        patch slots where it exceeds them (and stays clamped, as in the
+        JAX package); without ``refiner_variables`` the shipped
+        errormap_demo is loaded, or a ValueError raised."""
+        if self._refiner_k is None:
+            return None
+        net_hw = ((h, w) if ratio >= 1.0
+                  else downsample_ratio_shape(h, w, ratio))
+        if net_hw == (h, w):
+            return None
+        p = self._refiner_p
+        slots = (h // p) * (w // p)
+        if self._refiner_k > slots:
+            self._refiner_k = max(1, slots // 2)
+        if self._refiner_vars is None:
+            self._refiner_vars = default_refiner_variables()
+        return build_refiner(self._refiner_vars, self._refiner_k, p,
+                             device=self.device)
 
     @property
     def _bg_dynamic(self) -> bool:
@@ -369,6 +413,7 @@ class VideoPipeline:
         state = bg_src = crop = host = None
         pending = None  # device-to-host handle of the previous group
         capture_ms = None
+        replays = 0
 
         def flush(handle):
             """Write every frame of one device-to-host copy (owned copies:
@@ -401,36 +446,50 @@ class VideoPipeline:
                         writers["comp"].write(rgba)
             b.outs.release(handle)
 
-        def frame_body(frames):
-            """Run the per-frame body over the (N, h, w, 3) device frames
-            in order; returns their device-to-host handle."""
+        def send_bgs(n):
+            """The next n backgrounds of a background video, staged and
+            sent to the device as one copy; None without one."""
+            if bg_src is None:
+                return None
+            slot = b.bgs.slot()
+            for j in range(n):
+                slot[j].copy_(torch.from_numpy(bg_src.next()[0]))
+            return b.bgs.send(n)
+
+        def frame_body(frames, bgs):
+            """Run the per-frame body eagerly over the (N, h, w, C) device
+            frames in order; returns their device-to-host handle."""
             nonlocal state
             i = None
             for j in range(frames.shape[0]):
                 args = (frames[j:j + 1], state)
-                if bg_src is not None:
-                    b.bgs.slot().copy_(torch.from_numpy(bg_src.next()))
-                    args += (b.bgs.send(1),)
+                if bgs is not None:
+                    args += (bgs[j:j + 1],)
                 out, state = b.body(*args)
                 if i is None:
                     i = b.outs.open(out)
                 b.outs.put(i, j, out)
             return b.outs.close(i, frames.shape[0], isinstance(out, tuple))
 
-        def chunk_body(frames):
-            """One full chunk through the chunk body: the graph's replay
-            once captured; eagerly (and then captured, on CUDA) before."""
-            nonlocal state, capture_ms
+        def chunk_body(frames, bgs):
+            """One full chunk: the graph's replay once captured; eagerly
+            (and then captured, on CUDA) before."""
+            nonlocal state, capture_ms, replays
             if b.graph is not None:
                 out, state = b.graph(state)
+                replays += 1
             else:
-                out, state = b.plan.chunk_body(frames, state)
+                ins = (frames,) if bgs is None else (frames, bgs)
+                out, state = b.chunk(*ins, state)
             i = b.outs.open(out)
             b.outs.put(i, 0, out)
-            handle = b.outs.close(i, frames.shape[0], False)
-            if b.graph is None and self.device.type == "cuda":
+            handle = b.outs.close(i, frames.shape[0], isinstance(out, tuple))
+            if (b.graph is None and self.device.type == "cuda"
+                    and self.capture and not b.plan.static_skip):
                 t0 = time.perf_counter()
-                b.graph = ChunkGraph(b.plan.chunk_body, b.frames.dev, state)
+                ins = (b.frames.dev if bgs is None
+                       else (b.frames.dev, b.bgs.dev))
+                b.graph = ChunkGraph(b.chunk, ins, state)
                 state = b.graph.state
                 capture_ms = (time.perf_counter() - t0) * 1e3
             return handle
@@ -497,8 +556,7 @@ class VideoPipeline:
                 continue
             frames = b.frames.send(k)
             staged = 0
-            use_chunk = k > 1 and b.plan.chunk_body is not None
-            handle = chunk_body(frames) if use_chunk else frame_body(frames)
+            handle = chunk_body(frames, send_bgs(k))
             if pending is not None:
                 flush(pending)  # the host writes group t-1 while t computes
             pending = handle
@@ -511,8 +569,10 @@ class VideoPipeline:
         # its time so the fps denominator includes the tail.
         if staged:
             frames = b.frames.send(staged)
+            bgs = send_bgs(staged)
             for j in range(staged):
-                handle = frame_body(frames[j:j + 1])
+                handle = frame_body(frames[j:j + 1],
+                                    None if bgs is None else bgs[j:j + 1])
                 if pending is not None:
                     flush(pending)
                 pending = handle
@@ -529,6 +589,9 @@ class VideoPipeline:
         if capture_ms is not None:
             out["graph_capture_ms"] = capture_ms
             out["setup_ms"] += capture_ms
+        if b is not None and b.graph is not None:
+            out["graph_replays"] = replays
+            out["graph_launches_per_replay"] = b.graph.launches_per_replay()
         if b is not None and b.plan.static_skip:
             out["static_skipped"] = state[1][3]
         out["device"] = (torch.cuda.get_device_name(self.device)
