@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Benchmark of the PyTorch port (vidmat_torch) on one CUDA card.
 
-    python3 bench_torch.py [--mode 1080p|4k|4k_tiled|480p|e2e] [--quick]
+    python3 bench_torch.py [--mode 1080p|4k|4k_tiled|480p|e2e|multistream]
+                           [--quick]
                            [--chunk K]
                            [--net planar|xla] [--bg-blur RADIUS]
                            [--device cuda|cpu]
@@ -36,14 +37,18 @@ Modes:
       the frames: staging, H2D, the graph, D2H and the sink, no video
       encode (the card's machine has no cv2); ``h2d_ms_per_frame`` is the
       median of 5 pinned copies of one frame.
-  multistream  not ported yet (ROADMAP A.12); smoke: ``python3
-      chip_smoke.py``.
+  multistream  the ``multistream`` preset (``bench.py``'s): 8 streams of
+      1088x1920 at ratio 0.25 as one (8, 1088, 1920, 3) batch a round,
+      the per-frame body (packed tail, no background) on a
+      device-resident ring, one graph replay a round on the card;
+      ``value`` is the aggregate fps (8 frames a round), ``p50_ms`` the
+      round's time. Chunk 1 only.
 
---quick runs 256x512 frames (pool 4 at the 1080p ratio, pool 8 in the 4K
-modes, whose tiles shrink to 128 with an overlap of 32) and short
-chains. Prints one JSON line with ``bench.py``'s keys. ``vs_baseline`` is
-against the repository's 200 fps target for 1080p (a target, not a
-measurement of any device).
+--quick runs 256x512 frames (pool 4 at the 1080p ratio and in the
+multistream mode, pool 8 in the 4K modes, whose tiles shrink to 128 with
+an overlap of 32) and short chains. Prints one JSON line with
+``bench.py``'s keys. ``vs_baseline`` is against the repository's 200 fps
+target for 1080p (a target, not a measurement of any device).
 """
 
 from __future__ import annotations
@@ -130,23 +135,28 @@ def bench_e2e(dev: torch.device, quick: bool) -> dict:
     }
 
 
-def _dispatcher(plan, body, chunk: int, h: int, w: int, dev, ring0):
+def _dispatcher(plan, body, chunk: int, h: int, w: int, dev, ring0,
+                batch: int = 1):
     """The callable the pipeline dispatches per group of ``chunk`` frames
     on a device chunk, and what it is: the chunk body where the plan has
-    one, else ``chunk`` calls of the per-frame body; on the card one
-    replay of it captured as a CUDA graph, as the pipeline runs it."""
+    one, else ``chunk`` calls of the per-frame body; with ``batch`` > 1
+    streams the per-frame body on a (batch, h, w, 3) round. On the card
+    one replay of it captured as a CUDA graph, as the pipeline runs it."""
     from vidmat_torch.pipeline.graph import ChunkGraph, per_frame_chunk
 
-    if chunk > 1 and plan.chunk_body is not None:
+    if batch > 1:
+        fn = body
+        what = eager = f"per-frame body on {batch} streams"
+    elif chunk > 1 and plan.chunk_body is not None:
         fn, what, eager = plan.chunk_body, "chunk body", "eager chunk body"
     else:
         fn = per_frame_chunk(body)
         what = eager = "per-frame body" + (f" x{chunk}" if chunk > 1 else "")
     if dev.type != "cuda":
         return fn, eager
-    static_in = torch.empty((chunk, h, w, 3), dtype=torch.uint8, device=dev)
+    static_in = torch.empty(ring0.shape, dtype=torch.uint8, device=dev)
     static_in.copy_(ring0)
-    _, st = fn(static_in, plan.make_state(1))  # warm-up
+    _, st = fn(static_in, plan.make_state(batch))  # warm-up
     graph = ChunkGraph(fn, static_in, st)
 
     def replay(frames, state):
@@ -162,9 +172,13 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
     from vidmat_torch.pipeline.stepfactory import build_serving_body
 
     preset_name = {"1080p": "video_1080p", "480p": "clip_480p",
-                   "4k": "video_4k", "4k_tiled": "video_4k"}[mode]
-    cfg, pcfg = PRESETS[preset_name]()
+                   "4k": "video_4k", "4k_tiled": "video_4k",
+                   "multistream": "multistream"}[mode]
+    cfg, pcfg, *scfg = PRESETS[preset_name]()
     label = preset_name
+    # Streams a round: the multistream preset's batch of 1088x1920
+    # streams (bench.py:534-538), one stream elsewhere.
+    batch = scfg[0].num_streams if scfg else 1
     tile = {}
     if mode == "4k_tiled":
         tile = dict(tile_size=pcfg.tile_size, tile_overlap=pcfg.tile_overlap)
@@ -180,9 +194,12 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
         h, w, frames_timed, max_pairs = 480, 864, 240, 21
     elif mode in ("4k", "4k_tiled"):
         h, w, frames_timed, max_pairs = 2176, 3840, 120, 21
+    elif scfg:
+        h, w, frames_timed, max_pairs = (scfg[0].height, scfg[0].width, 120,
+                                         21)
     else:
         h, w, frames_timed, max_pairs = 1088, 1920, 240, 21
-    ratio = pcfg.downsample_ratio
+    ratio = scfg[0].downsample_ratio if scfg else pcfg.downsample_ratio
     if args.net is not None and args.net != cfg.conv_impl:
         cfg = dataclasses.replace(cfg, conv_impl=args.net)
         label += f" (--net={args.net} override)"
@@ -197,21 +214,24 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
                                     bg_blur=args.bg_blur, **tile)
     chunk = max(1, args.chunk if args.chunk is not None
                 else pcfg.chunk_size)
+    if batch > 1 and chunk > 1:
+        raise ValueError("--mode multistream dispatches one round (chunk 1)")
     g = torch.Generator().manual_seed(0)
 
     def make_ring(k):
-        return [torch.randint(0, 256, (k, h, w, 3), generator=g,
+        return [torch.randint(0, 256, (k * batch, h, w, 3), generator=g,
                               dtype=torch.uint8).to(dev) for _ in range(4)]
 
     def measure(step_fn, k):
-        """Per-frame seconds of chained dispatches of k frames, amortized:
-        (T_long - T_short) / (frames_long - frames_short), median over
+        """Seconds per dispatch of one frame of each of the ``batch``
+        streams (a round) in chained dispatches of k rounds, amortized:
+        (T_long - T_short) / (rounds_long - rounds_short), median over
         repeats until the interquartile range is within 30% of the
         median (at most max_pairs)."""
         ring = make_ring(k)
 
         def run_chain(n_frames):
-            state = plan.make_state(1)
+            state = plan.make_state(batch)
             _sync(dev)
             t0 = time.perf_counter()
             for i in range(n_frames // k):
@@ -239,9 +259,9 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
         return float(np.median(valid)), valid, len(samples) - len(valid)
 
     step, dispatch = _dispatcher(plan, body, chunk, h, w, dev,
-                                 make_ring(chunk)[0])
+                                 make_ring(chunk)[0], batch)
     spf, valid, n_dropped = measure(step, chunk)
-    fps = 1.0 / spf
+    fps = batch / spf
     name = mode
     if args.quick:
         name += "-quick"
@@ -251,11 +271,13 @@ def bench_ring(mode: str, args, dev: torch.device) -> dict:
         "unit": "fps/gpu",
         "vs_baseline": round(fps / TARGET_FPS, 3),
         "p50_ms": round(spf * 1e3, 4),
-        "fps_min": round(1.0 / max(valid), 2),
-        "fps_max": round(1.0 / min(valid), 2),
+        "fps_min": round(batch / max(valid), 2),
+        "fps_max": round(batch / min(valid), 2),
         "n_dropped_samples": n_dropped,
         **_device_fields(dev),
-        "resolution": f"{w}x{h}",
+        "resolution": f"{w}x{h}" + (f" x{batch} streams" if batch > 1
+                                    else ""),
+        "batch": batch,
         "downsample_ratio": ratio,
         "dtype": pcfg.dtype,
         "conv_impl": cfg.conv_impl,
@@ -289,9 +311,6 @@ def main(argv=None) -> int:
                     help="the portrait-blur tail (coarse-mode refine)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.mode == "multistream":
-        raise NotImplementedError(
-            "--mode multistream is not ported yet (ROADMAP A.12)")
     if args.mode == "smoke":
         print("the port's kernel smoke run is python3 chip_smoke.py",
               file=sys.stderr)

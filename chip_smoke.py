@@ -31,7 +31,12 @@ Phases (any failure exits nonzero and prints no result line):
      8x16x144x240, on a ragged 37x53 and 20x72 (W not a multiple of 16)
      and on 2x16x144x240 one byte off alignment: the scalar staging
      path), plus ragged shapes per kernel (the planar ones at the plate
-     family's 24 input channels too)
+     family's 24 input channels too); then the same at the multistream
+     round's launch shapes, N = 8 streams of 1088x1920: ingest and GF
+     bit-exact, the planar kernels at the per-frame body's 9 sites over
+     the batch (the decoder on a carry that is not zero) with 0 bf16
+     values unequal to the sequential order, the packed tail over a
+     color and in coarse mode within 1 byte, the float tail within 1e-5
   3. the serving chunk body (ingest, planar encoder, per-frame decoder,
      guided-filter coefficients, fused tail) at 1920x1088 on fast_demo in
      bf16, kernel path against the same body on the plain versions, over
@@ -115,7 +120,9 @@ Phases (any failure exits nonzero and prints no result line):
      streaming), each of those rows with its ratio to its copy; for the
      tensor-core planar
      kernels also the tile edge, block count and shared memory each
-     site's launch chose
+     site's launch chose; then the rows at the multistream round's
+     shapes (N = 8: ingest, GF, the packed tail over a color and in
+     coarse mode, the float tail, the planar kernels at their 9 sites)
   7. where a frame's time goes on the planar chunk body: host time per
      stage (pad and stage, H2D, replay enqueue, D2H wait) for the graph
      with the pipeline's staging, twice; the body's wall time, eager and
@@ -166,7 +173,30 @@ Phases (any failure exits nonzero and prints no result line):
      difference); the refiner in full float32 under PyTorch's default
      flags (card against CPU, max |d| <= 1e-4, TF32 logged); the
      refiner's device time (profiler) and its stages
-  T. bench_torch.py's 1080p, 480p, e2e, 4k and 4k_tiled records
+  M. MultiStreamMatting on the multistream preset: 8 streams of
+     1088x1920 (fast_demo, ratio 0.25, bf16, chunk 1), one graph replay a
+     round: (a) bg_color (the packed fused tail), 16 rounds: aggregate
+     and per-stream fps, each stage of a round waited (pad into the
+     pinned slot, H2D, replay enqueue, replay, D2H wait, unpack), capture
+     ms, launches per replay; (b) no background (the float tail), 8
+     rounds; (c) chunk 4 against chunk 1 with resets planted mid-chunk
+     (0 bytes unequal); (d) reset isolation (streams not reset equal the
+     run without resets, 0 bytes unequal; a reset stream a fresh
+     one-stream instance, within 1); (e) serve on 8 sources of 24 frames
+     (10 for two): frames delivered per stream, the summary, the bytes
+     of (a)'s rounds; (f) bg_blur=16, trimap_demo on 4-channel frames and
+     plate_demo with a plate per stream, 4 rounds each. Each path: its
+     graph against its eager bodies (0 bytes unequal), streams against a
+     one-stream instance (max 1), the plain twin in the kernels' order
+     (worst stream-frame mean <= 0.5 LSB, max <= 2), launches (counts set
+     to 0 just before) equal to the replay's per round
+  R. RealtimeMatting(1080, 1920) on the video_1080p model at ratio 0.25,
+     bf16: a lockstep source (none dropped) against a VideoStepper with
+     the same finish (0 bytes unequal), launches; an unpaced 64-frame
+     source and one paced at 30 fps (0 dropped): produced, processed,
+     dropped, p50 / p99 ms
+  T. bench_torch.py's 1080p, 480p, e2e, 4k, 4k_tiled and multistream
+     records
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -176,6 +206,8 @@ CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -659,17 +691,12 @@ def coarse_input(net, chunk_u8):
                  mode="replicate").permute(0, 2, 3, 1)
 
 
-def capture_sites(net, net_unfused, xp):
-    """The arguments of every planar call the network input ``xp`` (a
-    chunk of frames, s2d-padded) gives: the encoder over the chunk, the
-    decoder on its first frame and, unless ``net_unfused`` is None, the
-    unfused network's planar_gru calls, recorded through the plain
-    versions. Returns {site: (op key, args)}."""
-    import torch
-
+@contextlib.contextmanager
+def recording_planar(calls):
+    """Within: every planar call the networks make through their plain
+    versions is appended to ``calls`` as (op key, args)."""
     import vidmat_torch.models.planar as pm
 
-    calls = []
     saved = dict(pm._PLAIN)
 
     def recorder(key, fn):
@@ -680,16 +707,57 @@ def capture_sites(net, net_unfused, xp):
 
     for key, fn in saved.items():
         pm._PLAIN[key] = recorder(key, fn)
-    with torch.inference_mode():
-        st = net.init_state(1, *xp.shape[1:3])
-        net.decode(net.encode(xp, plain=True).frame(0), st, plain=True)
+    try:
+        yield
+    finally:
+        pm._PLAIN.update(saved)
+
+
+@contextlib.contextmanager
+def sequential_twins():
+    """Within: the planar plain versions sum in the kernels' fixed order
+    (``sequential=True``, their oracle in phase 2)."""
+    import vidmat_torch.models.planar as pm
+
+    saved = dict(pm._PLAIN)
+    pm._PLAIN.update({k: functools.partial(fn, sequential=True)
+                      for k, fn in saved.items()})
+    try:
+        yield
+    finally:
+        pm._PLAIN.update(saved)
+
+
+def capture_sites(net, net_unfused, xp, batch_decode=False):
+    """The arguments of every planar call the network input ``xp`` (a
+    chunk of frames, s2d-padded) gives: the encoder over the chunk, the
+    decoder on its first frame and, unless ``net_unfused`` is None, the
+    unfused network's planar_gru calls, recorded through the plain
+    versions. ``batch_decode``: the decoder over the whole batch (the
+    multistream round's per-frame body), on the carry one decode of the
+    same batch left (a hidden state that is not zero), of any decoder
+    (planar_conv stages without recurrence). Returns {site: (op key,
+    args)}."""
+    import torch
+
+    calls = []
+    with torch.inference_mode(), recording_planar(calls):
+        enc = net.encode(xp, plain=True)
+        st = net.init_state(xp.shape[0] if batch_decode else 1,
+                            *xp.shape[1:3])
+        if batch_decode:
+            n = len(calls)
+            _, _, st = net.decode(enc, st, plain=True)
+            del calls[n:]
+        net.decode(enc if batch_decode else enc.frame(0), st, plain=True)
         fused = list(calls)
         calls.clear()
         if net_unfused is not None:
             enc = net_unfused.encode(xp, plain=True)
             net_unfused.decode(enc.frame(0), st, plain=True)
-    pm._PLAIN.update(saved)
-    assert [k for k, _ in fused] == [k for _, k in SITES], fused
+    # A non-recurrent decoder (trimap_demo) calls planar_conv at d3..d1.
+    assert len(fused) == len(SITES) and (batch_decode or [
+        k for k, _ in fused] == [k for _, k in SITES]), fused
     gru = [c for c in calls if c[0] == "gru"]
     assert len(gru) == (0 if net_unfused is None else len(GRU_SITES))
     return {name: call for (name, _), call in zip(SITES + GRU_SITES,
@@ -1526,8 +1594,8 @@ def twin_bytes(net, mcfg, pcfg, frames, outs, dev, bgs=None, **kw):
 
 def plate_input(net, chunk_u8, plate_u8):
     """The plate net's input for a chunk of padded frames: the plain
-    ingest of the frames and of the plate at pool 4, concatenated,
-    edge-padded to the s2d grid."""
+    ingest of the frames and of the plate (one, or one per frame) at pool
+    4, concatenated, edge-padded to the s2d grid."""
     import torch
     import torch.nn.functional as F
 
@@ -2306,10 +2374,6 @@ def phase_errormap(kernels, gpu, dev):
     # (a hook on the refiner's inputs). Two plain bodies: the planar twins
     # summing in cuDNN's order (as the other phases' twins), and in the
     # kernels' fixed order (sequential=True, their oracle in phase 2).
-    import functools
-
-    import vidmat_torch.models.planar as planar_net
-
     net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
                         device=dev)
     rcfg = pcfg.refine
@@ -2320,9 +2384,6 @@ def phase_errormap(kernels, gpu, dev):
         lambda mod, args, out: rec.__setitem__("err", out)),
         ref.register_forward_pre_hook(
             lambda mod, args: rec.__setitem__("args", args))]
-    cudnn_twins = dict(planar_net._PLAIN)
-    seq_twins = {key: functools.partial(fn, sequential=True)
-                 for key, fn in cudnn_twins.items()}
     bodies = {}
     for name, kern in (("kernels", True), ("cudnn", False),
                        ("sequential", False)):
@@ -2337,12 +2398,9 @@ def phase_errormap(kernels, gpu, dev):
         x = torch.from_numpy(f[None]).to(dev)
         got = {}
         for name, bs in bodies.items():
-            planar_net._PLAIN.update(seq_twins if name == "sequential"
-                                     else cudnn_twins)
-            try:
+            with (sequential_twins() if name == "sequential"
+                  else contextlib.nullcontext()):
                 out, bs[1] = bs[0](x, bs[1])
-            finally:
-                planar_net._PLAIN.update(cudnn_twins)
             err = rec["err"].permute(0, 2, 3, 1)
             grid = resize_bilinear(err, H // p, W // p).reshape(-1)
             got[name] = (out[0].cpu().numpy().astype(np.int16), err, grid,
@@ -2791,10 +2849,12 @@ def floor_line(moved):
     return res
 
 
-def phase_timing(inputs, sites, tail, bg_inputs, inp4k):
+def phase_timing(inputs, sites, tail, bg_inputs, inp4k, inputs8, sites8):
     rows = tail_rows(inputs, bg_inputs, tail)
     rows.update(rows_4k(inp4k))
+    rows.update(rows_n8(inputs8))
     chunk = f"{CHUNK} frames"
+    n8 = f"{MS_STREAMS} frames"
     # A copy_ of the bytes of each bytes-bound tail row at its launch shape.
     floor = floor_line({
         f"{name} ({label})": rows[name][label]["bytes"]
@@ -2805,7 +2865,10 @@ def phase_timing(inputs, sites, tail, bg_inputs, inp4k):
                             ("composite_rgba_packed 1088x1920", "1 frame"),
                             ("int8_conv", "1 frame"),
                             ("ingest_pool_normalize (4K)", "1 frame"),
-                            ("fused_refine_composite (4K)", "1 frame"))})
+                            ("fused_refine_composite (4K)", "1 frame"),
+                            ("ingest_pool_normalize (8 streams)", n8),
+                            ("fused_refine_composite (8 streams)", n8),
+                            ("fused_refine_float (8 streams)", n8))})
     out = {"floor": floor}
     for name, cases in rows.items():
         res = {label: time_case(case) for label, case in cases.items()}
@@ -2824,17 +2887,26 @@ def phase_timing(inputs, sites, tail, bg_inputs, inp4k):
                 + (f", {t['copy_ratio']:.2f}x a copy_ of its bytes"
                    if copy else "") + f"); library call: {lib}")
         # The kernels line carries the shape the row's path launches (the
-        # last case), and the one-frame time beside it.
+        # last case), and the one-frame time beside it where there is one.
         launch = list(res)[-1]
-        out[name] = dict(res[launch], shape=launch,
-                         ms_1frame=res["1 frame"]["ms"],
-                         bound_ms_1frame=res["1 frame"]["bound_ms"])
+        out[name] = dict(res[launch], shape=launch)
+        if "1 frame" in res:
+            out[name].update(ms_1frame=res["1 frame"]["ms"],
+                             bound_ms_1frame=res["1 frame"]["bound_ms"])
+    out.update(time_sites(sites, "planar_sites.json"))
+    out.update({f"{k} (8 streams)": v for k, v in time_sites(
+        sites8, "planar_sites_8streams.json", f" x{MS_STREAMS}").items()})
+    return out
 
-    # Planar kernels: per call site, with the launch the tensor-core
-    # kernels chose there, then summed per kernel (one call at each of its
-    # sites: a chunk's encoder calls, one frame's decoder). Operations
-    # count 2 per multiply-add against the bf16 tensor-core peak; bytes
-    # against HBM.
+
+def time_sites(sites, fname, tag=""):
+    """Planar kernels: per call site, with the launch the tensor-core
+    kernels chose there, then summed per kernel (one call at each of its
+    sites: a chunk's encoder calls and one frame's decoder on the main
+    path; the whole batch's at the multistream round). Operations count 2
+    per multiply-add against the bf16 tensor-core peak; bytes against
+    HBM. Writes the per-site rows to ``fname`` in OUT_DIR; returns {kernel
+    name: summed row}."""
     ops = planar_ops()
     per_site = {}
     for site, (key, args) in sites.items():
@@ -2854,10 +2926,11 @@ def phase_timing(inputs, sites, tail, bg_inputs, inp4k):
                 + (f", {p['nb']} output channels a block" if "nb" in p
                    else "")
                 + f", {p['blocks']} blocks, {p['smem'] / 1024:.1f} KB shared")
-        log(f"[6] {site:8s} {kern.__name__:16s} {row['ms']:.4f} ms (cold "
-            f"L2), plain {row['plain_ms']:.4f}, cuDNN conv(s) "
+        log(f"[6] {site + tag:8s} {kern.__name__:16s} {row['ms']:.4f} ms "
+            f"(cold L2), plain {row['plain_ms']:.4f}, cuDNN conv(s) "
             f"{row['library_ms']:.4f}, bound {max(t_bytes, t_ops):.4f} ms "
             f"({nb / 1e6:.2f} MB, {macs / 1e6:.1f} M MAC){plan}")
+    out = {}
     for name in sorted({r["kernel"] for r in per_site.values()}):
         rs = [r for r in per_site.values() if r["kernel"] == name]
         t_bytes = sum(r["t_bytes"] for r in rs)
@@ -2869,7 +2942,7 @@ def phase_timing(inputs, sites, tail, bg_inputs, inp4k):
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             sites=len(rs))
-    with open(os.path.join(OUT_DIR, "planar_sites.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         json.dump(per_site, f, indent=1)
     return out
 
@@ -3229,8 +3302,6 @@ def phase_image(dev):
     MattingSession(128, 192, dtype="float32") on the card against the CPU
     over 4 frames (max |d| <= 1e-4), with the port's scope and, logged
     beside it, with the scope removed (TF32 allowed)."""
-    import contextlib
-
     import numpy as np
     import torch
 
@@ -3333,21 +3404,623 @@ def phase_image(dev):
     return res
 
 
+# The multistream preset (vidmat/config.py:196-207): 8 streams of
+# 1088x1920, the video_1080p model at ratio 0.25, bf16, chunk 1: each round
+# the per-frame body on an (8, 1088, 1920, 3) batch. Stream i shows frame
+# (r + 2 i) mod 16 of a 16-frame synthetic clip at round r.
+MS_STREAMS, MS_ROUNDS, MS_POOL = 8, 16, 16
+GREEN = (0.0, 1.0, 0.0)
+RT_FRAMES = 16
+
+
+def stream_pool(n=MS_POOL, seed=21):
+    """n synthetic 1920x1080 source frames and their ground-truth alphas,
+    made on 4 host threads (numpy releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vidmat_torch.io.fixtures import synthetic_frame
+
+    with ThreadPoolExecutor(4) as ex:
+        out = list(ex.map(lambda i: synthetic_frame(FRAME_H, FRAME_W, i / n,
+                                                    seed), range(n)))
+    return [f for f, _ in out], [a[..., 0] for _, a in out]
+
+
+def ms_round(pool, r, s=MS_STREAMS):
+    """Round r's source frames: stream i shows pool[(r + 2 i) mod n]."""
+    return [pool[(r + 2 * i) % len(pool)] for i in range(s)]
+
+
+def ms_batch(pool, r):
+    """Round r as an (8, 1088, 1920, C) uint8 batch padded to the bucket."""
+    from vidmat_torch.io.native import pad_stack
+
+    return pad_stack(ms_round(pool, r), H, W)
+
+
+def byte_diff(got, want):
+    """(max |d|, values unequal, mean |d|) of two uint8 arrays."""
+    import numpy as np
+
+    unequal = int(np.count_nonzero(got != want))
+    if not unequal:
+        return 0, 0, 0.0
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(d.max()), unequal, float(d.mean())
+
+
+def ms_build(kernels=True, num_streams=MS_STREAMS, **kw):
+    """MultiStreamMatting on the multistream preset (num_streams x
+    1088x1920, fast_demo, ratio 0.25, bf16, chunk 1), with the options
+    ``kw``. kernels=False: the same bodies on the plain versions (the
+    class's build_serving_body called with kernels=False), every dispatch
+    eager."""
+    import vidmat_torch.parallel.multistream as msm
+    from vidmat_torch import preset_multistream
+
+    m, p, sc = preset_multistream()
+    assert (sc.num_streams, sc.height, sc.width) == (MS_STREAMS, H, W), sc
+    args = dict(cfg=m, downsample_ratio=sc.downsample_ratio,
+                refine=p.refine, dtype=p.dtype, chunk=p.chunk_size)
+    args.update(kw)
+    if kernels:
+        return msm.MultiStreamMatting(num_streams, sc.height, sc.width,
+                                      **args)
+    orig = msm.build_serving_body
+    msm.build_serving_body = functools.partial(orig, kernels=False)
+    try:
+        twin = msm.MultiStreamMatting(num_streams, sc.height, sc.width,
+                                      **args)
+    finally:
+        msm.build_serving_body = orig
+    twin.capture = False
+    return twin
+
+
+def ms_steps(ms, batches, resets=None):
+    """``ms.step`` over the rounds ``batches`` (K at a time at chunk K)
+    with reset rows {round: streams}; returns each round's host outputs
+    and each dispatch's seconds."""
+    import numpy as np
+
+    k, outs, secs = ms.chunk, [], []
+    for r0 in range(0, len(batches), k):
+        rows = np.zeros((k, ms.s), bool)
+        for j in range(k):
+            rows[j, list((resets or {}).get(r0 + j, ()))] = True
+        t0 = time.perf_counter()
+        if k == 1:
+            outs.append(ms.step(batches[r0], rows[0]))
+        else:
+            a, o = ms.step(np.stack(batches[r0:r0 + k]), rows)
+            outs.extend((a[j], o[j]) for j in range(k))
+        secs.append(time.perf_counter() - t0)
+    return outs, secs
+
+
+def ms_path(label, kernels, batches, kw, one_streams=(3,), one_kw=None,
+            plain_rounds=2, site_input=None):
+    """One multistream serving path on ``batches``: the graph run (the
+    first round eager, then the captured round replayed), its launches
+    (counts set to 0 just before it and read just after: each replay's
+    launches once per round), the same rounds through the eager bodies (0
+    bytes unequal), the streams ``one_streams`` each through a one-stream
+    instance (options ``one_kw(i)``, default ``kw``; bytes within 1), and
+    the first ``plain_rounds`` rounds through the plain twin summing in
+    the kernels' order (worst stream-frame mean |d| <= 0.5 LSB, max <=
+    2). ``site_input(net)``: the net input of round 0 (coarse, s2d
+    padded), for a model whose planar sites phase 2 does not hold at N =
+    8: each planar call of its round against the sequential order (0 bf16
+    values unequal). Logs and returns the numbers and the graph run's
+    outputs."""
+    import numpy as np
+
+    from vidmat_torch.ops.refine import fused_refine_composite
+
+    ms = ms_build(**kw)
+    zero_counts(kernels)
+    outs, secs = ms_steps(ms, batches)
+    launches = counts(kernels)
+    modes = {k: v for k, v in fused_refine_composite.mode_launches.items()
+             if v}
+    g = ms._graphs[ms.chunk]
+    per = g.launches_per_replay()
+    rounds = len(batches)
+    assert {k: v * rounds for k, v in per.items()} == {
+        k: v for k, v in launches.items() if v}, (label, per, launches)
+    fps = MS_STREAMS * (rounds - 1) / sum(secs[1:])
+
+    eager = ms_build(**kw)
+    eager.capture = False
+    e_outs, e_secs = ms_steps(eager, batches)
+    assert not eager._graphs
+    unequal = sum(byte_diff(g_, e_)[1] for o, e in zip(outs, e_outs)
+                  for g_, e_ in zip(o, e))
+    e_fps = MS_STREAMS * (rounds - 1) / sum(e_secs[1:])
+    del e_outs
+
+    one_max = one_unequal = 0
+    for i in one_streams:
+        one = ms_build(num_streams=1, **(one_kw(i) if one_kw else kw))
+        for r, b in enumerate(batches):
+            for g_, w in zip(one.step(b[i:i + 1]), outs[r]):
+                m, u, _ = byte_diff(g_[0], w[i])
+                one_max, one_unequal = max(one_max, m), one_unequal + u
+
+    twin = ms_build(kernels=False, **kw)
+    worst_mean = worst_max = 0.0
+    with sequential_twins():
+        for r in range(plain_rounds):
+            for g_, w in zip(twin.step(batches[r]), outs[r]):
+                for i in range(MS_STREAMS):
+                    m, _, mean = byte_diff(w[i], g_[i])
+                    worst_mean = max(worst_mean, mean)
+                    worst_max = max(worst_max, m)
+    log(f"[M] ({label}) {rounds} rounds of {MS_STREAMS} x {W}x{H}: "
+        f"{fps:.2f} frames/s aggregate ({fps / MS_STREAMS:.2f} a stream) "
+        f"over the rounds after the first (which took "
+        f"{1e3 * secs[0]:.1f} ms: the eager warm-up and the capture, "
+        f"{ms.capture_ms:.1f} ms), eager bodies {e_fps:.2f}; launches "
+        f"per replay {per}, refine modes {modes}; bytes unequal to the "
+        f"eager bodies {unequal}; streams {list(one_streams)} through a "
+        f"one-stream instance: max |d| {one_max}, {one_unequal} bytes "
+        f"unequal; plain twin (sequential order), {plain_rounds} rounds: "
+        f"worst stream-frame mean |d| {worst_mean:.4g}, max {worst_max}")
+    assert unequal == 0, (label, unequal)
+    assert one_max <= 1, (label, one_max)
+    assert worst_mean <= 0.5 and worst_max <= 2, (label, worst_mean,
+                                                    worst_max)
+    for o in outs[0]:
+        assert o.dtype == np.uint8 and o.shape[:3] == (MS_STREAMS, H, W)
+    if site_input is not None:
+        import torch
+
+        from vidmat_torch.models.weights import (build_network,
+                                                 default_variables)
+
+        net = build_network(kw["cfg"], default_variables(kw["cfg"]),
+                            dtype=torch.bfloat16, device="cuda")
+        sites = capture_sites(net, None, site_input(net), batch_decode=True)
+        site_unequal = {}
+        for site, (key, args) in sites.items():
+            _, u, _ = check_planar(key, args)
+            site_unequal[site] = u
+        log(f"    ({label}) planar sites at N = {MS_STREAMS}, bf16 values "
+            f"unequal to the sequential order: {site_unequal}")
+        assert not any(site_unequal.values()), site_unequal
+    GRAPHS[f"M: {label}"] = dict(
+        per_replay=per, capture_ms=ms.capture_ms, fps=fps, eager_fps=e_fps,
+        first_round_ms=1e3 * secs[0], rounds=rounds, unequal=unequal,
+        one_stream_max=one_max, one_stream_unequal=one_unequal,
+        plain_mean=worst_mean, plain_max=worst_max)
+    return dict(GRAPHS[f"M: {label}"], launches=launches, modes=modes,
+                outs=outs, ms=ms)
+
+
+def ms_split(ms, pool, rounds):
+    """Per round ms of the captured round's stages, each waited: "pad" (the
+    8 source frames edge-padded into the pinned slot), "h2d", "enqueue"
+    (the replay's host time), "replay" (waited on the device), "d2h" (the
+    packed words into pinned buffers, waited) and "unpack" (to owned
+    RGBA on the host)."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch.io.native import unpack_rgba
+
+    t = dict(pad=0.0, h2d=0.0, enqueue=0.0, replay=0.0, d2h=0.0,
+             unpack=0.0)
+    reset = np.zeros(ms.s, bool)
+    downs = ms._staging(1)[2]
+    for r in range(rounds):
+        a = time.perf_counter()
+        ms._stage(1, [ms_round(pool, r)], reset)
+        b = time.perf_counter()
+        ms._send(1)
+        torch.cuda.synchronize()
+        c = time.perf_counter()
+        out = ms._run(1)
+        d = time.perf_counter()
+        torch.cuda.synchronize()
+        e = time.perf_counter()
+        i = downs.open(out)
+        downs.put(i, 0, out)
+        handle = downs.close(i, out.shape[0], False)
+        arr = downs.read(handle)
+        f = time.perf_counter()
+        unpack_rgba(arr)
+        downs.release(handle)
+        g = time.perf_counter()
+        for k, v in zip(t, (b - a, c - b, d - c, e - d, f - e, g - f)):
+            t[k] += v
+    return {k: 1e3 * v / rounds for k, v in t.items()}
+
+
+def phase_multistream(kernels, gpu, dev, pool):
+    """Phase M: MultiStreamMatting on the multistream preset, 8 streams of
+    1088x1920 (fast_demo, ratio 0.25, bf16, chunk 1), one graph replay a
+    round. (a) bg_color, the packed fused tail, 16 rounds: fps, the stages
+    of a round, every stream against a one-stream instance; (b) no
+    background (the float tail at N = 8), 8 rounds; (c) chunk 4 against
+    chunk 1 with resets planted mid-chunk (0 bytes unequal); (d) reset
+    isolation (the streams not reset equal the run without resets, 0
+    bytes unequal; a reset stream equals a fresh one-stream instance
+    from its reset on, within 1); (e) serve on 8 sources of 24 frames (10
+    for two of them); (f) bg_blur=16, trimap_demo on 4-channel frames and
+    plate_demo with a plate per stream, 4 rounds each. Each path through
+    ms_path's checks. Returns the numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vidmat_torch import ModelConfig
+    from vidmat_torch.io.native import pad_stack
+    from vidmat_torch.models.weights import plate_default_config
+
+    frames, alphas = pool
+    batches = [ms_batch(frames, r) for r in range(MS_ROUNDS)]
+    res = {}
+    a = ms_path("a: bg_color, packed tail", kernels, batches,
+                dict(bg_color=GREEN), one_streams=range(MS_STREAMS))
+    res["a"] = a
+    assert a["modes"].get("color") == MS_ROUNDS, a["modes"]
+    for name in ("ingest_pool_normalize", "guided_filter_coeffs",
+                 "fused_refine_composite", "planar_conv", "planar_conv2",
+                 "planar_conv_gru"):
+        assert a["launches"][name] > 0, (name, a["launches"])
+    split = [ms_split(a["ms"], frames, MS_ROUNDS) for _ in range(2)]
+    for sp in split:
+        log(f"    per round (8 frames), graph, each stage waited: "
+            f"{sum(sp.values()):.3f} ms = pad into the pinned slot "
+            f"{sp['pad']:.3f} + H2D {sp['h2d']:.3f} + replay enqueue "
+            f"{sp['enqueue']:.3f} + replay (device) {sp['replay']:.3f} + "
+            f"D2H wait {sp['d2h']:.3f} + unpack {sp['unpack']:.3f} "
+            f"({gpu})")
+    res["split"] = split
+
+    b = ms_path("b: no background, float tail", kernels, batches[:8], {})
+    assert b["launches"]["fused_refine_float"] == 8, b["launches"]
+    assert b["launches"]["fused_refine_composite"] == 0, b["launches"]
+    assert b["outs"][0][1].shape == (MS_STREAMS, H, W, 3)
+    res["b"] = b
+    del b["outs"]
+
+    # (d) resets at rounds 2 (stream 6) and 5 (stream 3); (c) the same
+    # through chunk 4 (both mid-chunk).
+    resets = {2: (6,), 5: (3,)}
+    reset_at = {6: 2, 3: 5}
+    d_outs, _ = ms_steps(ms_build(bg_color=GREEN), batches[:8], resets)
+    kept = reset_unequal = 0
+    one_max = one_unequal = 0
+    for i in range(MS_STREAMS):
+        start = reset_at.get(i, 8)
+        for r in range(start):
+            kept += sum(byte_diff(x[i], y[i])[1]
+                        for x, y in zip(d_outs[r], a["outs"][r]))
+        if start < 8:
+            one = ms_build(num_streams=1, bg_color=GREEN)
+            for r in range(start, 8):
+                for x, y in zip(one.step(batches[r][i:i + 1]), d_outs[r]):
+                    m, u, _ = byte_diff(x[0], y[i])
+                    one_max, one_unequal = max(one_max, m), one_unequal + u
+    log(f"[M] (d: reset isolation) streams 6 and 3 reset at rounds 2 and "
+        f"5 of 8: bytes unequal to the run without resets, before each "
+        f"stream's reset and on the streams not reset: {kept}; the reset "
+        f"streams from their reset on against a fresh one-stream "
+        f"instance: max |d| {one_max}, {one_unequal} bytes unequal")
+    assert kept == 0 and one_max <= 1, (kept, one_max)
+    c = ms_build(bg_color=GREEN, chunk=4)
+    zero_counts(kernels)
+    c_outs, _ = ms_steps(c, batches[:8], resets)
+    c_launches = counts(kernels)
+    c_unequal = sum(byte_diff(x, y)[1] for o, p in zip(c_outs, d_outs)
+                    for x, y in zip(o, p))
+    c_per = c._graphs[4].launches_per_replay()
+    log(f"[M] (c: chunk 4) 2 dispatches of 4 rounds (the first eager, the "
+        f"second one replay of the 4-round graph, capture "
+        f"{c.capture_ms:.1f} ms, launches per replay {c_per}) against "
+        f"chunk 1, the same resets: {c_unequal} bytes unequal; launches "
+        f"{c_launches}")
+    assert c_unequal == 0, c_unequal
+    assert {k: 2 * v for k, v in c_per.items()} == {
+        k: v for k, v in c_launches.items() if v}, (c_per, c_launches)
+    GRAPHS["M: c: chunk 4"] = dict(per_replay=c_per,
+                                   capture_ms=c.capture_ms,
+                                   unequal=c_unequal)
+    del d_outs, c_outs
+
+    # (e) serve: streams 6 and 7 end after 10 frames. Rounds before 16
+    # show the frames of (a)'s rounds: their bytes must equal (a)'s.
+    lengths = [24] * 6 + [10] * 2
+    srcs = [[frames[(r + 2 * i) % len(frames)] for r in range(n)]
+            for i, n in enumerate(lengths)]
+    got = {i: [] for i in range(MS_STREAMS)}
+    mism = []
+
+    def on_output(i, n, alpha, out):
+        got[i].append(n)
+        if n < MS_ROUNDS:
+            mism.append(byte_diff(out, a["outs"][n][1][i])[1]
+                        + byte_diff(alpha, a["outs"][n][0][i])[1])
+
+    e = ms_build(bg_color=GREEN)
+    t0 = time.perf_counter()
+    summary = e.serve(srcs, on_output=on_output)
+    wall = time.perf_counter() - t0
+    log(f"[M] (e: serve) 8 sources of {lengths} {FRAME_W}x{FRAME_H} "
+        f"frames: "
+        f"{summary['stream_fps']:.2f} frames/s aggregate "
+        f"({summary['fps']:.2f} rounds/s, p50 {summary['p50_ms']:.3f} ms, "
+        f"p99 {summary['p99_ms']:.3f} ms a round, first round included), "
+        f"wall {wall:.2f} s; batch_steps {summary['batch_steps']}; frames "
+        f"delivered {[len(v) for v in got.values()]}; bytes unequal to "
+        f"(a)'s rounds {sum(mism)} ({gpu})")
+    # The round in which the last streams end still runs (their slots
+    # recycle with a reset flag) and delivers nothing, as in the JAX
+    # package.
+    assert summary["batch_steps"] == max(lengths) + 1, summary
+    assert summary["stream_fps"] == summary["fps"] * MS_STREAMS, summary
+    assert all(got[i] == list(range(n)) for i, n in enumerate(lengths)), got
+    assert sum(mism) == 0 and len(mism) == sum(min(n, MS_ROUNDS)
+                                               for n in lengths)
+    res["e"] = dict(summary=summary, wall=wall)
+    del a["outs"]
+
+    # (f) 4 rounds each.
+    blur = ms_path("f: bg_blur=16", kernels, batches[:4], dict(bg_blur=16))
+    assert blur["modes"].get("coarse") == 4, blur["modes"]
+    tri_cfg = ModelConfig(use_trimap=True, recurrent=False,
+                          conv_impl="planar")
+
+    def with_trimap(r):
+        src = ms_round(frames, r)
+        al = ms_round(alphas, r)
+        tri = [np.where(x > 0.99, 255, np.where(x < 0.01, 0, 128)).astype(
+            np.uint8)[..., None] for x in al]
+        return pad_stack([np.concatenate([f, t], -1)
+                          for f, t in zip(src, tri)], H, W)
+
+    tri_batches = [with_trimap(r) for r in range(4)]
+    tri = ms_path("f: trimap_demo, 4-channel frames", kernels, tri_batches,
+                  dict(cfg=tri_cfg, bg_color=GREEN),
+                  site_input=lambda net: coarse_input(
+                      net, torch.from_numpy(tri_batches[0]).cuda()))
+    plate_cfg = dataclasses.replace(plate_default_config(),
+                                    conv_impl="planar")
+    plates = pad_stack([frames[2 * i + 1] for i in range(MS_STREAMS)], H,
+                       W)
+    plate = ms_path("f: plate_demo, a plate per stream", kernels,
+                    batches[:4], dict(cfg=plate_cfg, bg_color=GREEN,
+                                      bg_plate=plates),
+                    one_kw=lambda i: dict(cfg=plate_cfg, bg_color=GREEN,
+                                          bg_plate=plates[i]),
+                    site_input=lambda net: plate_input(
+                        net, torch.from_numpy(batches[0]).cuda(),
+                        torch.from_numpy(plates).cuda()))
+    for r in (blur, tri, plate):
+        del r["outs"], r["ms"]
+    res["f"] = dict(blur=blur, trimap=tri, plate=plate)
+    del a["ms"]
+    return res
+
+
+def phase_realtime(kernels, gpu, dev, pool):
+    """Phase R: RealtimeMatting(1080, 1920) on the video_1080p model at
+    ratio 0.25 in bf16 (ingest, planar net, GF, fused_refine_float; the
+    step captured at the warm-up). (a) A lockstep source (frame t+1 only
+    after frame t came out, so none is dropped): alpha and composite
+    bytes equal to a VideoStepper stepped frame by frame with the same
+    finish, launches (counts set to 0 just before); (b) an unpaced
+    64-frame source; (c) a source paced at 30 fps: 0 dropped. Logs
+    produced, processed, dropped and p50 / p99 ms."""
+    import threading
+
+    import numpy as np
+
+    from vidmat_torch import RealtimeMatting, preset_video_1080p
+    from vidmat_torch.pipeline.stepper import VideoStepper
+
+    frames = pool[0]
+    mcfg = preset_video_1080p()[0]
+    rt = RealtimeMatting(FRAME_H, FRAME_W, model_cfg=mcfg,
+                         downsample_ratio=RATIO, dtype="bfloat16")
+    got, done = [], threading.Event()
+
+    def lockstep():
+        for f in frames[:RT_FRAMES]:
+            yield f
+            if not done.wait(60.0):
+                raise TimeoutError("no output within 60 s")
+            done.clear()
+
+    def on_frame(a8, comp):
+        got.append((a8, comp))
+        done.set()
+
+    zero_counts(kernels)
+    sa = rt.run(lockstep(), on_frame=on_frame)
+    launches = counts(kernels)
+    per = rt._stepper._graph.launches_per_replay()
+    # The warm-up's eager step launches as a replay does.
+    want = expect(kernels, dict(PLANAR_PER_FRAME, ingest_pool_normalize=1,
+                                guided_filter_coeffs=1, fused_refine_float=1),
+                  RT_FRAMES + 1)
+    st = VideoStepper(mcfg, H, W, downsample_ratio=RATIO, dtype="bfloat16",
+                      device=dev)
+    unequal = 0
+    for f, (a8, comp) in zip(frames, got):
+        wa, wc = rt._finish(*st.step_device(f))
+        unequal += int((wa != a8).sum()) + int((wc != comp).sum())
+        assert a8.shape == (FRAME_H, FRAME_W) and comp.shape == (
+            FRAME_H, FRAME_W, 3)
+    rt.reset()
+    sb = rt.run([frames[j % len(frames)] for j in range(64)])
+    rt.reset()
+    sc = rt.run([frames[j % len(frames)] for j in range(32)], pace_fps=30.0)
+
+    def line(s):
+        return (f"produced {s['produced']}, processed {s['processed']}, "
+                f"dropped {s['dropped']}, {s['achieved_fps']:.2f} fps, "
+                f"p50 {s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms")
+
+    log(f"[R] RealtimeMatting 1920x1080 (bucket {W}x{H}) video_1080p bf16: "
+        f"(a) lockstep {RT_FRAMES} frames: {line(sa)}; alpha and composite "
+        f"bytes unequal to a VideoStepper with the same finish {unequal}; "
+        f"launches {launches} (per replay {per}, capture "
+        f"{rt._stepper.capture_ms:.1f} ms); (b) unpaced 64 frames: "
+        f"{line(sb)}; (c) paced 30 fps, 32 frames: {line(sc)} ({gpu})")
+    assert sa["dropped"] == 0 and sa["processed"] == RT_FRAMES, sa
+    assert launches == want, (launches, want)
+    assert unequal == 0, unequal
+    assert sb["produced"] == 64 and sb["processed"] + sb["dropped"] == 64
+    assert sc["dropped"] == 0 and sc["processed"] == 32, sc
+    GRAPHS["R: realtime step"] = dict(per_replay=per,
+                                      capture_ms=rt._stepper.capture_ms,
+                                      lockstep=sa, unpaced=sb, paced=sc,
+                                      unequal=unequal)
+    return dict(launches=launches, lockstep=sa, unpaced=sb, paced=sc)
+
+
+def phase_kernels_n8(net, dev, pool):
+    """Phase 2 at the multistream round's launch shapes, N = 8 streams of
+    1088x1920 (round 0 of phase M): ingest (bit-exact), the planar kernels
+    at the per-frame body's 9 call sites over the whole batch (the decoder
+    on a carry that is not zero) against the sequential order (0 bf16
+    values unequal), GF (bit-exact, one launch), the packed tail over a
+    color and in coarse mode (bg_blur=16) within 1 byte, and the float
+    tail within 1e-5. Returns ({row name: max |d|}, the timing inputs,
+    the planar sites)."""
+    import torch
+
+    from vidmat_torch.ops.gf import guided_filter_coeffs_plain
+    from vidmat_torch.ops.guided_filter import box_blur, gray_guide
+    from vidmat_torch.ops.ingest import (ingest_pool_normalize,
+                                         ingest_pool_normalize_plain)
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain,
+                                         fused_refine_float,
+                                         fused_refine_float_plain)
+
+    batch = torch.from_numpy(ms_batch(pool[0], 0)).to(dev)
+    x = ingest_pool_normalize(batch, pool=4)
+    want = ingest_pool_normalize_plain(batch, pool=4)
+    assert torch.equal(x, want), "ingest: not bit-exact at N = 8"
+    errs = {"ingest_pool_normalize (8 streams)": 0.0}
+    xp = coarse_input(net, batch)
+    sites = capture_sites(net, None, xp, batch_decode=True)
+    for site, (key, args) in sites.items():
+        kern = planar_ops()[key][0]
+        e, unequal, lib = check_planar(key, args)
+        row = f"{kern.__name__} (8 streams)"
+        errs[row] = max(errs.get(row, 0.0), e)
+        x0 = args[0] if key == "gru" else args[0][0]
+        log(f"    N=8 {site:8s} {kern.__name__:16s} {tuple(x0.shape)} max "
+            f"|d| {e:.3g} vs the sequential twin, {unequal} values unequal; "
+            f"cuDNN twin max |d| {lib:.3g}")
+        assert unequal == 0, (site, unequal)
+    nh, nw = x.shape[1:3]
+    with torch.inference_mode():
+        st = net.init_state(MS_STREAMS, *xp.shape[1:3])
+        alpha, fgr, _ = net(xp, st, plain=True)
+    guide = gray_guide(want.float()).contiguous()
+    p = torch.cat([alpha[:, :nh, :nw], fgr[:, :nh, :nw]], -1).float()
+    p = p.contiguous()
+    ka, kb = gf_one_launch(guide, p)
+    ma, mb = guided_filter_coeffs_plain(guide, p)
+    assert torch.equal(ka, ma) and torch.equal(kb, mb), "GF at N = 8"
+    errs["guided_filter_coeffs (8 streams)"] = 0.0
+    coarse = box_blur(want.float(), 4)
+    for row, bg in (("fused_refine_composite (8 streams)", GREEN),
+                    ("fused_refine_composite (coarse, 8 streams)", coarse)):
+        k = fused_refine_composite(batch, ma, mb, bg, 4)
+        q = fused_refine_composite_plain(batch, ma, mb, bg, 4)
+        d = (k.view(torch.uint8).int() - q.view(torch.uint8).int()).abs()
+        errs[row] = float(d.max())
+        log(f"    N=8 {row}: bytes mean |d| {float(d.float().mean()):.3g} "
+            f"max {int(d.max())}, {int((d > 0).sum())} of {d.numel()} "
+            "bytes unequal to the plain twin")
+    ka_, kf = fused_refine_float(batch, ma, mb, 4)
+    pa, pf = fused_refine_float_plain(batch, ma, mb, 4)
+    errs["fused_refine_float (8 streams)"] = float(max(
+        (ka_ - pa).abs().max(), (kf - pf).abs().max()))
+    torch.cuda.synchronize()
+    log(f"[2] N = {MS_STREAMS} launch shapes (multistream round) vs plain: "
+        f"{json.dumps(errs)}")
+    assert errs["fused_refine_composite (8 streams)"] <= 1, errs
+    assert errs["fused_refine_composite (coarse, 8 streams)"] <= 1, errs
+    assert errs["fused_refine_float (8 streams)"] <= 1e-5, errs
+    return errs, dict(batch=batch, x=x, guide=guide, p=p, ma=ma, mb=mb,
+                      coarse=coarse, alpha=pa, fgr=pf), sites
+
+
+def rows_n8(inp):
+    """Phase 6's rows of the tail kernels at the multistream round's launch
+    shapes (8 x 1088x1920, pool 4): ingest, GF, the packed tail over a
+    color and in coarse mode, and the float tail (no background)."""
+    from vidmat_torch.ops.gf import (guided_filter_coeffs,
+                                     guided_filter_coeffs_plain)
+    from vidmat_torch.ops.ingest import (ingest_pool_normalize,
+                                         ingest_pool_normalize_plain)
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain,
+                                         fused_refine_float,
+                                         fused_refine_float_plain)
+
+    fr, x, gd, pp, a, b, cbg = (inp[k] for k in (
+        "batch", "x", "guide", "p", "ma", "mb", "coarse"))
+    label = f"{MS_STREAMS} frames"
+    px = fr.shape[0] * fr.shape[1] * fr.shape[2]
+    packed = fused_refine_composite(fr, a, b, GREEN, 4)
+    refine_ops = 8 * 9 + 6 + 16 + 9 + 12
+    taps = 2 * (2 * 4 + 1)
+    return {
+        "ingest_pool_normalize (8 streams)": {label: dict(
+            kernel=lambda: ingest_pool_normalize(fr, pool=4),
+            plain=lambda: ingest_pool_normalize_plain(fr, pool=4),
+            bytes=nbytes(fr, x), ops=fr.numel() + 4 * x.numel(),
+            peak=F32_FLOPS_PER_S)},
+        "guided_filter_coeffs (8 streams)": {label: dict(
+            kernel=lambda: guided_filter_coeffs(gd, pp),
+            plain=lambda: guided_filter_coeffs_plain(gd, pp),
+            bytes=nbytes(gd, pp, a, b),
+            ops=gd.numel() * (18 * taps + 5 + 18 + 24),
+            peak=F32_FLOPS_PER_S)},
+        "fused_refine_composite (8 streams)": {label: dict(
+            kernel=lambda: fused_refine_composite(fr, a, b, GREEN, 4),
+            plain=lambda: fused_refine_composite_plain(fr, a, b, GREEN, 4),
+            bytes=nbytes(fr, a, b, packed), ops=px * refine_ops,
+            peak=F32_FLOPS_PER_S)},
+        "fused_refine_composite (coarse, 8 streams)": {label: dict(
+            kernel=lambda: fused_refine_composite(fr, a, b, cbg, 4),
+            plain=lambda: fused_refine_composite_plain(fr, a, b, cbg, 4),
+            bytes=nbytes(fr, a, b, cbg, packed), ops=px * (refine_ops + 33),
+            peak=F32_FLOPS_PER_S)},
+        "fused_refine_float (8 streams)": {label: dict(
+            kernel=lambda: fused_refine_float(fr, a, b, 4),
+            plain=lambda: fused_refine_float_plain(fr, a, b, 4),
+            bytes=nbytes(fr, a, b, inp["alpha"], inp["fgr"]),
+            ops=px * (8 * 9 + 6 + 16), peak=F32_FLOPS_PER_S)},
+    }
+
+
 def phase_bench():
-    """bench_torch.py's 1080p, 480p, e2e, 4k and 4k_tiled records, each on
-    its own line (the port's bench run in this process)."""
-    import contextlib
+    """bench_torch.py's 1080p, 480p, e2e, 4k, 4k_tiled and multistream
+    records, each on its own line (the port's bench run in this
+    process)."""
     import io
 
     import bench_torch
 
     recs = {}
-    for mode in ("1080p", "480p", "e2e", "4k", "4k_tiled"):
+    for mode in ("1080p", "480p", "e2e", "4k", "4k_tiled", "multistream"):
         buf = io.StringIO()
+        t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             assert bench_torch.main(["--mode", mode]) == 0
         rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-        log(f"[T] bench_torch.py --mode {mode}: {json.dumps(rec)}")
+        log(f"[T] bench_torch.py --mode {mode} ({time.perf_counter() - t0:.1f}"
+            f" s): {json.dumps(rec)}")
         assert rec["value"] > 0 and rec["device"] != "cpu", rec
         recs[mode] = rec
     return recs
@@ -3384,6 +4057,14 @@ def main() -> int:
     errs.update(bg_errs)
     errs4k, inp4k = phase_4k_kernels(net, dev)
     errs.update(errs4k)
+    t0 = time.perf_counter()
+    pool = stream_pool()
+    log(f"[M] {MS_POOL} stream frames 1920x1080 made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    errs8, inputs8, sites8 = phase_kernels_n8(net, dev, pool)
+    errs.update(errs8)
+    log(f"[2] the N = 8 checks, their frames included, took "
+        f"{time.perf_counter() - t0:.1f} s")
     phase_body(net, dev)
     kernels = kernel_wrappers()
     _, _, launches, _ = phase_main_path(kernels, net)
@@ -3398,8 +4079,16 @@ def main() -> int:
     k4 = phase_4k(kernels, gpu, dev)
     phase_trimap(kernels, gpu, dev)
     errormap = phase_errormap(kernels, gpu, dev)
+    t0 = time.perf_counter()
+    multi = phase_multistream(kernels, gpu, dev, pool)
+    t1 = time.perf_counter()
+    phase_realtime(kernels, gpu, dev, pool)
+    log(f"[M] phase M took {t1 - t0:.1f} s, phase R "
+        f"{time.perf_counter() - t1:.1f} s")
+    del pool
     probe, int8_launches = phase_int8_probe(kernels)
-    times = phase_timing(inputs, sites, tail, bg_inputs, inp4k)
+    times = phase_timing(inputs, sites, tail, bg_inputs, inp4k, inputs8,
+                         sites8)
     int8_ms = probe["int8-planes"]["ms"]
     log(f"[Q] int8 leg {int8_ms:.4f} ms = "
         f"{int8_ms / probe['bf16-planes']['ms']:.3f}x the bf16 leg "
@@ -3449,6 +4138,23 @@ def main() -> int:
                      ("fused_refine_composite (4K)",
                       "fused_refine_composite")):
         paths[name] = (k4["launches"][fn], path4k)
+    # The N = 8 rows: launches of phase M's paths (each run with the
+    # counts set to 0 just before it).
+    path_m = (f"MultiStreamMatting multistream preset, {MS_STREAMS} x "
+              f"{W}x{H}")
+    for fn in ("ingest_pool_normalize", "guided_filter_coeffs",
+               "fused_refine_composite", "planar_conv", "planar_conv2",
+               "planar_conv_gru"):
+        paths[f"{fn} (8 streams)"] = (multi["a"]["launches"][fn],
+                                      f"{path_m}, bg_color, {MS_ROUNDS} "
+                                      "rounds")
+    paths["fused_refine_float (8 streams)"] = (
+        multi["b"]["launches"]["fused_refine_float"],
+        f"{path_m}, no background, 8 rounds")
+    paths["fused_refine_composite (coarse, 8 streams)"] = (
+        multi["f"]["blur"]["modes"]["coarse"],
+        f"{path_m}, bg_blur=16, 4 rounds")
+
     meta = {
         "ingest_pool_normalize": ("vidmat_torch/csrc/ingest.cu",
                                   "vidmat/ops/pallas/ingest_kernel.py:140"),
@@ -3486,6 +4192,12 @@ def main() -> int:
         "int8_conv": ("vidmat_torch/csrc/int8_conv.cu",
                       "tools/bench_int8_planes.py:81"),
     }
+    meta.update({f"{k} (8 streams)": meta[k] for k in (
+        "ingest_pool_normalize", "guided_filter_coeffs",
+        "fused_refine_composite", "fused_refine_float", "planar_conv",
+        "planar_conv2", "planar_conv_gru")})
+    meta["fused_refine_composite (coarse, 8 streams)"] = meta[
+        "fused_refine_composite"]
     rows = []
     for name, (src, rep) in meta.items():
         t = times[name]

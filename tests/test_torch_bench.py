@@ -1,7 +1,6 @@
 """``bench_torch.py`` on the CPU (``--quick --device cpu``): each mode
-prints one JSON line with ``bench.py``'s keys (the 4K modes too); the
-unported mode (multistream) raises naming its ROADMAP item; without a card it raises unless given
-``--device cpu``."""
+prints one JSON line with ``bench.py``'s keys (the 4K and multistream
+modes too); without a card it raises unless given ``--device cpu``."""
 
 import json
 
@@ -36,21 +35,25 @@ def test_bench_prints_one_record(mode, capsys):
         assert rec["frames"] == 24
 
 
-@pytest.mark.parametrize("mode,item", [("4k", None), ("4k_tiled", None),
-                                       ("multistream", "A.12")])
-def test_unported_modes_raise(mode, item, capsys):
-    """multistream raises naming its item; the 4K modes (once A.8 raises)
-    print their record: video_4k at pool 8, tiled or not."""
+@pytest.mark.parametrize("mode", ["4k", "4k_tiled", "multistream"])
+def test_unported_modes_raise(mode, capsys):
+    """The modes that once raised naming their item print their record:
+    video_4k at pool 8, tiled or not (A.8), and the multistream preset's
+    8 streams a round (A.12)."""
     argv = ["--mode", mode, "--device", "cpu"]
-    if item:
-        with pytest.raises(NotImplementedError, match=item):
-            bench_torch.main(argv)
-        return
     assert bench_torch.main(argv + ["--quick"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     rec = json.loads(lines[0])
     assert RING_KEYS <= set(rec), rec
+    assert rec["unit"] == "fps/gpu" and rec["value"] > 0
+    if mode == "multistream":
+        assert rec["preset"].startswith("multistream")
+        assert rec["batch"] == 8 and rec["chunk"] == 1
+        assert rec["resolution"] == "512x256 x8 streams"
+        assert rec["downsample_ratio"] == 0.25
+        assert rec["dispatch"] == "per-frame body on 8 streams"
+        return
     assert rec["preset"].startswith("video_4k") and rec["value"] > 0
     assert rec["downsample_ratio"] == 0.125 and rec["chunk"] == 1
     assert rec["dispatch"] == "per-frame body"

@@ -642,13 +642,17 @@ PLANTED_CONV = [((12,), 16, 3, 2, 36, 60, 4), ((64,), 64, 1, 1, 9, 15, 4),
                 ((64, 40), 48, 3, 1, 18, 30, 1), ((5, 3), 20, 3, 2, 13, 21, 2)]
 
 
+@pytest.mark.parametrize("batch", [None, 8])
 @pytest.mark.parametrize("case", range(len(PLANTED_CONV)))
-def test_planar_conv_rounds_planted_ties_as_sequential_order(dev, case):
+def test_planar_conv_rounds_planted_ties_as_sequential_order(dev, case,
+                                                             batch):
     """The tensor-core planar_conv equals the sequential order exactly,
-    with its weights packed beforehand or by the wrapper."""
+    with its weights packed beforehand or by the wrapper; at the case's
+    batch and at 8 (the multistream preset's streams)."""
     from vidmat_torch.ops import planar as P
 
     cins, cout, k, stride, h, w, n = PLANTED_CONV[case]
+    n = batch or n
     g = torch.Generator().manual_seed(27 + case)
     cin = sum(cins)
     xs = _planted_input(g, n, cins, h, w, dev)
@@ -677,14 +681,15 @@ PLANTED_CONV_GRU = [((64, 40), 24, 18, 30), ((16, 16, 16), 12, 36, 60),
                     ((5, 7), 6, 13, 21)]
 
 
+@pytest.mark.parametrize("n", [2, 8])
 @pytest.mark.parametrize("case", range(len(PLANTED_CONV2)))
-def test_planar_conv2_rounds_planted_ties_as_sequential_order(dev, case):
+def test_planar_conv2_rounds_planted_ties_as_sequential_order(dev, case, n):
     from vidmat_torch.ops import planar as P
 
     cins, cmid, cout, stride, h, w = PLANTED_CONV2[case]
     g = torch.Generator().manual_seed(7 + case)
     cin = sum(cins)
-    xs = _planted_input(g, 2, cins, h, w, dev)
+    xs = _planted_input(g, n, cins, h, w, dev)
     # mid: 1, 2^-8 and a few tiny channels passed on, then ties and free
     # values; out: ties over those, free values over all of mid.
     npass = min(cin - 2, cmid // 4)
@@ -711,8 +716,10 @@ def test_planar_conv2_rounds_planted_ties_as_sequential_order(dev, case):
     assert torch.equal(got, seq)
 
 
+@pytest.mark.parametrize("n", [1, 8])
 @pytest.mark.parametrize("case", range(len(PLANTED_CONV_GRU)))
-def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(dev, case):
+def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(dev, case,
+                                                                 n):
     """Also fused = unfused: planar_conv then planar_gru give the fused
     stage's a and h'."""
     from vidmat_torch.ops import planar as P
@@ -720,10 +727,10 @@ def test_planar_conv_gru_rounds_planted_ties_as_sequential_order(dev, case):
     cins, c, h, w = PLANTED_CONV_GRU[case]
     g = torch.Generator().manual_seed(17 + case)
     cin = sum(cins)
-    xs = _planted_input(g, 1, cins, h, w, dev)
+    xs = _planted_input(g, n, cins, h, w, dev)
     half = ["tie"] * (c // 2) + ["free"] * (c - c // 2)
     wt, sc, bi = _planted_conv(g, cin, list(range(2, cin)), half + half, dev)
-    hp = _rand(g, (1, c, h, w), dev, torch.bfloat16, 0.5)
+    hp = _rand(g, (n, c, h, w), dev, torch.bfloat16, 0.5)
     gw = _gru_args(g, c, dev, torch.bfloat16)
 
     a, hn = P.planar_conv_gru(xs, wt, sc, bi, hp, *gw)
@@ -822,15 +829,16 @@ SAME_SIGN = [("conv", (64,), 3, 1, 18, 30), ("conv", (64, 40), 3, 2, 18, 30),
              ("conv_gru", (64, 40), 24, 1, 18, 30)]
 
 
+@pytest.mark.parametrize("n", [1, 8])
 @pytest.mark.parametrize("case", range(len(SAME_SIGN)))
 def test_planar_kernels_round_same_sign_tiny_terms_as_sequential_order(
-        dev, case):
+        dev, case, n):
     from vidmat_torch.ops import planar as P
 
     key, cins, kc, stride, h, w = SAME_SIGN[case]
     g = torch.Generator().manual_seed(40 + case)
     cin = sum(cins)
-    xs = _same_sign_input(g, 1, cins, h, w, dev)
+    xs = _same_sign_input(g, n, cins, h, w, dev)
     if key == "conv":
         roles = ["tie"] * 12 + ["free"] * 4
         wt, sc, bi = _same_sign_conv(g, cin, roles, kc, dev)
@@ -850,7 +858,7 @@ def test_planar_kernels_round_same_sign_tiny_terms_as_sequential_order(
     else:
         half = ["tie"] * (kc // 2) + ["free"] * (kc - kc // 2)
         wt, sc, bi = _same_sign_conv(g, cin, half + half, 3, dev)
-        hp = _rand(g, (1, kc, h, w), dev, torch.bfloat16, 0.5)
+        hp = _rand(g, (n, kc, h, w), dev, torch.bfloat16, 0.5)
         args = (xs, wt, sc, bi, hp, *_gru_args(g, kc, dev, torch.bfloat16))
         got = P.planar_conv_gru(*args)
         seq = P.planar_conv_gru_plain(*args, sequential=True)
@@ -928,8 +936,10 @@ def _cancel_conv(g, cin, roles, k, dev):
     return w.to(dev, torch.bfloat16), scale.to(dev), bias.to(dev)
 
 
+@pytest.mark.parametrize("n", [1, 8])
 @pytest.mark.parametrize("case", range(len(SAME_SIGN)))
-def test_planar_kernels_round_cancelling_sums_as_sequential_order(dev, case):
+def test_planar_kernels_round_cancelling_sums_as_sequential_order(dev, case,
+                                                                  n):
     """The same kernels and widths as the same-sign cases, on sums whose
     big terms cancel after the sequential order dropped the tiny ones."""
     from vidmat_torch.ops import planar as P
@@ -937,7 +947,7 @@ def test_planar_kernels_round_cancelling_sums_as_sequential_order(dev, case):
     key, cins, kc, stride, h, w = SAME_SIGN[case]
     g = torch.Generator().manual_seed(60 + case)
     cin = sum(cins)
-    xs = _cancel_input(g, 1, cins, h, w, dev)
+    xs = _cancel_input(g, n, cins, h, w, dev)
     if key == "conv":
         wt, sc, bi = _cancel_conv(g, cin, ["tie"] * 12 + ["free"] * 4, kc,
                                   dev)
@@ -955,7 +965,7 @@ def test_planar_kernels_round_cancelling_sums_as_sequential_order(dev, case):
     else:
         half = ["tie"] * (kc // 2) + ["free"] * (kc - kc // 2)
         wt, sc, bi = _cancel_conv(g, cin, half + half, 3, dev)
-        hp = _rand(g, (1, kc, h, w), dev, torch.bfloat16, 0.5)
+        hp = _rand(g, (n, kc, h, w), dev, torch.bfloat16, 0.5)
         args = (xs, wt, sc, bi, hp, *_gru_args(g, kc, dev, torch.bfloat16))
         got = P.planar_conv_gru(*args)
         seq = P.planar_conv_gru_plain(*args, sequential=True)
@@ -1370,3 +1380,126 @@ def test_errormap_refiner_full_fp32_under_default_tf32_flags(dev):
                 for a, b in zip(fa, fb))
     print(f"bf16 errormap body, TF32 allowed vs off: max |d| {worst:.3g}")
     assert worst <= 1e-4, worst
+
+
+# ---- multi-stream and live serving (slice 13) ----
+
+
+def _multistream(dev, s, **kw):
+    from vidmat_torch import MultiStreamMatting, preset_multistream
+
+    m, p, sc = preset_multistream()
+    kw.setdefault("bg_color", (0.0, 1.0, 0.0))
+    return MultiStreamMatting(s, sc.height, sc.width, cfg=m,
+                              downsample_ratio=sc.downsample_ratio,
+                              refine=p.refine, dtype=p.dtype, device=dev,
+                              **kw)
+
+
+def _stream_frames(rounds, s, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, (s, 1088, 1920, 3), np.uint8)
+            for _ in range(rounds)]
+
+
+@pytest.mark.parametrize("bg", ["color", "none"])
+def test_multistream_batch_of_8_equals_one_stream(dev, bg):
+    """The multistream preset at 8 x 1088x1920 (the planar kernels, GF and
+    the packed tail, or without a background the float tail, at N = 8):
+    each stream's bytes within 1 of the same stream through a one-stream
+    instance, over 3 rounds (a reset of stream 3 in the last)."""
+    import numpy as np
+
+    kw = {} if bg == "color" else {"bg_color": None}
+    eight, one = _multistream(dev, 8, **kw), _multistream(dev, 1, **kw)
+    reset = np.zeros(8, bool)
+    worst = unequal = 0
+    for t, f in enumerate(_stream_frames(3, 8, seed=30)):
+        if t == 2:
+            reset[3] = True
+        got = eight.step(f, reset)
+        want = one.step(f[3:4], reset[3:4])
+        for g, w in zip(got, want):
+            d = np.abs(g[3].astype(int) - w[0].astype(int))
+            worst, unequal = max(worst, int(d.max())), unequal + int(
+                (d > 0).sum())
+    print(f"multistream ({bg}) stream 3 of 8 vs one stream: max |d| "
+          f"{worst}, {unequal} bytes unequal")
+    assert worst <= 1
+
+
+def test_multistream_graphs_equal_eager_bodies(dev):
+    """The per-round graph and the 2-round graph against the same dispatches
+    through the eager bodies (capture off), resets planted mid-chunk: 0
+    bytes unequal; a replay counts each kernel's launches once per
+    round."""
+    import numpy as np
+
+    from vidmat_torch.parallel.multistream import MultiStreamMatting
+
+    frames = np.stack(_stream_frames(6, 8, seed=31))
+    reset = np.zeros((6, 8), bool)
+    reset[1, 2] = reset[3, 5] = reset[4, 0] = True
+    outs = {}
+    for capture in (True, False):
+        MultiStreamMatting.capture = capture
+        try:
+            one, two = _multistream(dev, 8), _multistream(dev, 8, chunk=2)
+            outs[capture] = (
+                [one.step(frames[t], reset[t]) for t in range(6)],
+                [two.step(frames[t:t + 2], reset[t:t + 2])
+                 for t in range(0, 6, 2)])
+        finally:
+            MultiStreamMatting.capture = True
+        assert (1 in one._graphs) == capture
+        assert (2 in two._graphs) == capture
+    for (a, b) in zip(outs[True][0] + outs[True][1],
+                      outs[False][0] + outs[False][1]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for t in range(6):
+        for x, y in zip(outs[True][0][t], outs[True][1][t // 2]):
+            np.testing.assert_array_equal(x, y[t % 2])
+
+
+def test_realtime_lockstep_equals_the_stepper(dev):
+    """RealtimeMatting(1080, 1920) on the video_1080p model: frames sent one
+    at a time (none dropped) give the alpha and composite bytes of a
+    VideoStepper stepped frame by frame with the same finish (its captured
+    step against the realtime driver's)."""
+    import threading
+
+    import numpy as np
+
+    from vidmat_torch import RealtimeMatting, preset_video_1080p
+    from vidmat_torch.io.fixtures import synthetic_frames_only
+    from vidmat_torch.pipeline.stepper import VideoStepper
+
+    mcfg = preset_video_1080p()[0]
+    frames = list(synthetic_frames_only(1080, 1920, 6, seed=32))
+    rt = RealtimeMatting(1080, 1920, model_cfg=mcfg, downsample_ratio=0.25,
+                         device=dev)
+    got, done = [], threading.Event()
+
+    def src():
+        for f in frames:
+            yield f
+            assert done.wait(60.0)
+            done.clear()
+
+    def on_frame(a, c):
+        got.append((a, c))
+        done.set()
+
+    stats = rt.run(src(), on_frame=on_frame)
+    assert stats["dropped"] == 0 and stats["processed"] == 6
+    st = VideoStepper(mcfg, 1088, 1920, downsample_ratio=0.25,
+                      dtype="bfloat16", device=dev)
+    for f, (a, c) in zip(frames, got):
+        padded = np.pad(f, ((0, 8), (0, 0), (0, 0)), "edge")
+        a8, comp = rt._finish(*st.step_device(padded))
+        np.testing.assert_array_equal(a, a8)
+        np.testing.assert_array_equal(c, comp)
+    assert st._graph is not None and rt._stepper._graph is not None

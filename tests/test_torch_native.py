@@ -2,8 +2,9 @@
 ``vidmat_torch/csrc/framestage.cpp``) against numpy and the JAX package's
 own tier (``vidmat/io/native.py``) on the CPU: edge padding bit-equal to
 ``np.pad(..., mode="edge")`` on strided, ragged and exact-size frames, of
-3 channels and of 4 (a frame carrying its trimap), and packed RGBA
-unpacked to the same bytes."""
+3 channels and of 4 (a frame carrying its trimap), a padded batch equal
+to the JAX ``pad_stack``'s, and packed RGBA unpacked to the same
+bytes."""
 
 import numpy as np
 import pytest
@@ -79,6 +80,23 @@ def test_pad_into_a_slot_of_a_chunk_equals_jax_pad_stack():
     for i, f in enumerate(frames):
         pad_into(f, chunk[i])
     np.testing.assert_array_equal(chunk, pad_stack(frames, 96, 160))
+
+
+@pytest.mark.parametrize("c", [3, 4])
+def test_pad_stack_equals_jax_pad_stack(c):
+    """``pad_stack`` (a new (S, out_h, out_w, C) array, the JAX signature)
+    equals the JAX package's on frames of 3 channels and of 4 (RGB and a
+    trimap byte), one of them strided."""
+    from vidmat.io.native import pad_stack as j_pad_stack
+
+    from vidmat_torch.io.native import pad_stack
+
+    rng = np.random.RandomState(c)
+    frames = [rng.randint(0, 256, (90, 150, c), np.uint8) for _ in range(3)]
+    frames.append(rng.randint(0, 256, (90, 170, c), np.uint8)[:, 7:157])
+    got = pad_stack(frames, 96, 160)
+    assert got.shape == (4, 96, 160, c) and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, j_pad_stack(frames, 96, 160))
 
 
 def test_pad_into_refuses_what_it_cannot_take():

@@ -1,10 +1,14 @@
 """The port's public surface against the JAX package's, name for name
-(ROADMAP C.4): every parameter of ``convert_video``, ``matte_image``,
-``MattingSession.__init__`` and ``.step``, every field of the
-configuration dataclasses with its default, and every preset, each
-returning equal dataclasses. What is not ported yet (multi-stream
-serving, A.12) raises ``NotImplementedError`` naming its ROADMAP item;
-error-map refinement (A.11) runs as in the JAX package."""
+(ROADMAP C.4, C.6): every parameter of ``convert_video``,
+``matte_image``, ``MattingSession.__init__`` and ``.step``,
+``MultiStreamMatting.__init__``, ``.step`` and ``.serve``, and
+``RealtimeMatting.__init__`` and ``.run``, every field of the
+configuration dataclasses with its default, every preset, each returning
+equal dataclasses, and the package's seven lazy exports. What is not
+ported yet (the parts of A.12 that need more than one card) raises
+``NotImplementedError`` naming its ROADMAP item; error-map refinement
+(A.11) runs as in the JAX package, and a ``StreamConfig`` is served by
+``MultiStreamMatting``."""
 
 import dataclasses
 import inspect
@@ -18,7 +22,11 @@ import vidmat_torch
 import vidmat_torch.config as tconfig
 
 ENTRY_POINTS = [("convert_video", None), ("matte_image", None),
-                ("MattingSession", "__init__"), ("MattingSession", "step")]
+                ("MattingSession", "__init__"), ("MattingSession", "step"),
+                ("MultiStreamMatting", "__init__"),
+                ("MultiStreamMatting", "step"),
+                ("MultiStreamMatting", "serve"),
+                ("RealtimeMatting", "__init__"), ("RealtimeMatting", "run")]
 CONFIGS = ["ModelConfig", "RefineConfig", "PipelineConfig", "StreamConfig"]
 
 
@@ -39,7 +47,10 @@ def test_entry_point_parameters_exist_with_equal_defaults(name, method):
     # The port adds only the device to pick the card or the CPU.
     assert set(got) - set(want) <= {"device"}
     for k, v in want.items():
-        assert got[k] == v, (k, got[k], v)
+        if dataclasses.is_dataclass(v):  # a config default: equal fields
+            assert dataclasses.asdict(got[k]) == dataclasses.asdict(v), k
+        else:
+            assert got[k] == v, (k, got[k], v)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -73,6 +84,50 @@ def test_presets_equal_jax(key):
     assert getattr(vidmat_torch, f"preset_{key}") is tconfig.PRESETS[key]
 
 
+# The JAX package's lazy exports (vidmat/__init__.py:27-57): the port's
+# object, or NotImplementedError naming the ROADMAP item of what needs
+# more than one card.
+LAZY = {"MattingNetwork": "vidmat_torch.models.matting_net",
+        "trimap_from_mask": "vidmat_torch.pipeline.trimap",
+        "MultiStreamMatting": "vidmat_torch.parallel.multistream",
+        "RealtimeMatting": "vidmat_torch.pipeline.realtime",
+        "make_mesh": None, "PipelinedMatting": None,
+        "PipelinedStreams": None}
+
+
+@pytest.mark.parametrize("name", list(LAZY) + ["no_such_name"])
+def test_lazy_exports_resolve_or_name_their_item(name):
+    """C.6: each of the seven resolves as in the JAX package, or raises
+    naming A.12; any other name raises AttributeError, as there. None
+    of the four modules is imported by ``import vidmat_torch``."""
+    import importlib
+    import subprocess
+    import sys
+
+    if name == "no_such_name":
+        with pytest.raises(AttributeError):
+            getattr(vidmat, name)
+        with pytest.raises(AttributeError):
+            getattr(vidmat_torch, name)
+        code = ("import sys, vidmat_torch; print(sorted(m for m in "
+                f"{sorted(v for v in LAZY.values() if v)!r} "
+                "if m in sys.modules))")
+        out = subprocess.run([sys.executable, "-c", code], check=True,
+                             capture_output=True, text=True).stdout
+        assert out.strip() == "[]", out
+        return
+    assert name in vars(vidmat).get("__getattr__").__code__.co_consts
+    if LAZY[name] is None:
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP A\.12 \(more than one card\)"):
+            getattr(vidmat_torch, name)
+        return
+    got = getattr(vidmat_torch, name)
+    assert got is getattr(importlib.import_module(LAZY[name]), name)
+    assert hasattr(vidmat_torch, name)
+    assert got.__name__ == getattr(vidmat, name).__name__
+
+
 FRAMES = [np.zeros((32, 32, 3), np.uint8)]
 
 
@@ -82,7 +137,9 @@ def test_unported_options_raise_naming_their_item(case):
     """Error-map refinement (A.11) is ported: the preset runs, a
     ``refiner_variables`` outside errormap mode is ignored, and the body
     with no refiner is the JAX package's bilinear tail. Multi-stream
-    serving (A.12) still raises naming its item."""
+    serving's one-card part (A.12) is ported: the preset's
+    ``MultiStreamMatting`` steps, and ``convert_video`` given its
+    ``StreamConfig`` raises TypeError naming that class."""
     from vidmat_torch import convert_video
 
     if case == "errormap preset":
@@ -137,5 +194,15 @@ def test_unported_options_raise_naming_their_item(case):
         m, p, s = tconfig.preset_multistream()
         assert dataclasses.asdict(s) == dataclasses.asdict(
             jconfig.StreamConfig())
-        with pytest.raises(NotImplementedError, match="A.12"):
-            convert_video(FRAMES, model_cfg=m, pipe_cfg=s, device="cpu")
+        ms = vidmat_torch.MultiStreamMatting(
+            s.num_streams, 64, 64, cfg=m, downsample_ratio=s.downsample_ratio,
+            refine=p.refine, dtype=p.dtype, chunk=p.chunk_size,
+            bg_color=(0.0, 1.0, 0.0), device="cpu")
+        frames = np.stack([np.full((64, 64, 3), 30 * i, np.uint8)
+                           for i in range(s.num_streams)])
+        alpha, rgba = ms.step(frames)
+        assert alpha.shape == (s.num_streams, 64, 64, 1)
+        assert rgba.shape == (s.num_streams, 64, 64, 4)
+        with pytest.raises(TypeError, match="MultiStreamMatting"):
+            convert_video(FRAMES, model_cfg=m, pipe_cfg=tconfig.StreamConfig(),
+                          device="cpu")

@@ -3,18 +3,20 @@
 A second package beside ``vidmat`` (the JAX reference, which it never
 imports). ``matte_image`` mattes one image in float32 (the base, trimap
 and clean-plate families); ``convert_video`` serves the JAX package's
-defaults and the ``video_1080p``, ``video_4k`` (tiled) and ``clip_480p``
-presets, with color, image, video and portrait-blur backgrounds, the
-clean-plate family, trimap video (from trimaps or rough masks) and the
-segmentation stream, the planar chunk body as one CUDA graph launch per
-chunk; ``MattingSession`` streams float mattes (or segmentation masks).
-The public surface is the JAX package's, name for name; what is not
-ported yet (error-map refinement, multi-stream serving) raises
-NotImplementedError naming its ROADMAP item. Every TPU kernel of those paths
-(ingest, the planar convs, guided-filter coefficients, the refine tails,
-composite) runs as a hand-written CUDA kernel (``vidmat_torch/csrc``).
-Entry points run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``.
+defaults and the ``video_1080p``, ``video_1080p_errormap``, ``video_4k``
+(tiled) and ``clip_480p`` presets, with color, image, video and
+portrait-blur backgrounds, the clean-plate family, trimap video (from
+trimaps or rough masks) and the segmentation stream, every full chunk as
+one CUDA graph launch; ``MattingSession`` streams float mattes (or
+segmentation masks); ``MultiStreamMatting`` serves S streams as one
+batch (the ``multistream`` preset) and ``RealtimeMatting`` a live source
+with latest-wins scheduling. The public surface is the JAX package's,
+name for name; what is not ported yet (the parts of multi-stream serving
+that need more than one card) raises NotImplementedError naming its
+ROADMAP item. Every TPU kernel of those paths (ingest, the planar convs,
+guided-filter coefficients, the refine tails, composite) runs as a
+hand-written CUDA kernel (``vidmat_torch/csrc``). Entry points run on the
+card (``device="cuda"``) unless the caller passes ``device="cpu"``.
 """
 
 from vidmat_torch.api import (MattingSession, convert_video,  # noqa: F401
@@ -25,3 +27,31 @@ from vidmat_torch.config import (PRESETS, ModelConfig,  # noqa: F401
                                  preset_pr1_image, preset_video_1080p,
                                  preset_video_1080p_errormap,
                                  preset_video_4k)
+
+#: the names the JAX package exports lazily that need more than one card
+_MULTI_CARD = ("make_mesh", "PipelinedMatting", "PipelinedStreams")
+
+
+def __getattr__(name):
+    # The JAX package's lazy exports (vidmat/__init__.py), imported on
+    # first use.
+    if name == "MultiStreamMatting":
+        from vidmat_torch.parallel.multistream import MultiStreamMatting
+
+        return MultiStreamMatting
+    if name == "RealtimeMatting":
+        from vidmat_torch.pipeline.realtime import RealtimeMatting
+
+        return RealtimeMatting
+    if name == "MattingNetwork":
+        from vidmat_torch.models.matting_net import MattingNetwork
+
+        return MattingNetwork
+    if name == "trimap_from_mask":
+        from vidmat_torch.pipeline.trimap import trimap_from_mask
+
+        return trimap_from_mask
+    if name in _MULTI_CARD:
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP A.12 (more than one card))")
+    raise AttributeError(name)

@@ -15,8 +15,8 @@ trimaps, or the segmentation mask with ``output="seg"``). Both take the
 clean-plate family (``bg_plate``, shipped ``plate_demo``);
 ``convert_video`` composites over a color, an image, a background video
 or a blur of the source frame. The signatures are the JAX package's, plus
-``device``; multi-stream serving (a ``StreamConfig``) raises
-NotImplementedError naming its ROADMAP item (A.12).
+``device``; a ``StreamConfig`` raises TypeError naming
+``MultiStreamMatting``, the class that serves it.
 """
 
 from __future__ import annotations

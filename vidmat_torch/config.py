@@ -14,11 +14,12 @@ refinement), ``preset_clip_480p`` (``synthetic_demo`` at full resolution),
 ``preset_pr1_image`` (the single-image rung),
 ``preset_video_1080p_errormap`` (error-map refinement with the shipped
 ``errormap_demo`` refiner on ``synthetic_demo``) and
-``preset_multistream`` (with a ``StreamConfig``, ROADMAP A.12); building
-a pipeline from the last raises ``NotImplementedError`` naming its
-item. ``conv_impl="planar"`` runs the net through the four planar
-conv kernels (``vidmat_torch/models/planar.py``); ``conv_impl="xla"`` runs
-the same variables as ``F.conv2d`` (``vidmat_torch/models/matting_net.py``).
+``preset_multistream`` (with a ``StreamConfig``: 8 streams served as one
+batch by ``MultiStreamMatting``; a pipeline built from it raises
+``TypeError`` naming that class). ``conv_impl="planar"`` runs the net
+through the four planar conv kernels (``vidmat_torch/models/planar.py``);
+``conv_impl="xla"`` runs the same variables as ``F.conv2d``
+(``vidmat_torch/models/matting_net.py``).
 """
 
 from __future__ import annotations
@@ -105,8 +106,8 @@ class PipelineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
-    """Multi-stream serving configuration (ROADMAP A.12: not served by the
-    port yet)."""
+    """Multi-stream serving configuration: S streams of one (height,
+    width) bucket, served by ``MultiStreamMatting``."""
 
     num_streams: int = 8
     height: int = 1088  # padded 1080p (the /16 bucket)
@@ -177,9 +178,10 @@ def preset_video_4k() -> tuple[ModelConfig, PipelineConfig]:
 
 
 def preset_multistream() -> tuple[ModelConfig, PipelineConfig, StreamConfig]:
-    """8 concurrent 1080p streams: the ``video_1080p`` pair at chunk 1 and a
-    ``StreamConfig`` (vidmat/config.py ``preset_multistream``). Not served
-    by the port yet (ROADMAP A.12)."""
+    """8 concurrent 1080p streams on one card: the ``video_1080p`` pair at
+    chunk 1 and a ``StreamConfig`` (vidmat/config.py
+    ``preset_multistream``), served by ``MultiStreamMatting`` (each round
+    the per-frame body on an (8, 1088, 1920, 3) batch)."""
     m, p = preset_video_1080p()
     return m, dataclasses.replace(p, chunk_size=1), StreamConfig()
 

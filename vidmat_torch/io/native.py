@@ -5,7 +5,8 @@ with ``g++ -O3 -fopenmp`` at first use into ``vidmat_torch/build/`` and
 loaded with ``ctypes`` (which releases the GIL for each call), as
 ``ops/_build.py`` loads the kernels. The library's name carries a hash of
 the source and the flags. There is no numpy fallback: a failed build
-raises. ``pad_frame`` (``io/reader.py``) is the numpy version the tests
+raises. ``pad_stack`` pads a batch of frames into a new array.
+``pad_frame`` (``io/reader.py``) is the numpy version the tests
 hold ``pad_into`` to.
 """
 
@@ -16,6 +17,7 @@ import functools
 import hashlib
 import os
 import subprocess
+from typing import Sequence
 
 import numpy as np
 
@@ -81,6 +83,20 @@ def pad_into(frame: np.ndarray, out: np.ndarray) -> None:
     if err:
         raise ValueError(f"cannot pad a {h}x{w} frame into "
                          f"{out.shape[0]}x{out.shape[1]}")
+
+
+def pad_stack(frames: Sequence[np.ndarray], out_h: int,
+              out_w: int) -> np.ndarray:
+    """Edge-pad S (H, W, C) uint8 frames (C = 3 or 4) at the bottom and
+    right and stack them: a new C-contiguous (S, out_h, out_w, C) array
+    (vidmat/io/native.py ``pad_stack``), each slot filled by
+    ``pad_into``. A caller with a batch buffer of its own (a pinned
+    slot) calls ``pad_into`` on its slots instead."""
+    out = np.empty((len(frames), out_h, out_w, frames[0].shape[-1]),
+                   np.uint8)
+    for f, slot in zip(frames, out):
+        pad_into(f, slot)
+    return out
 
 
 def unpack_rgba(packed: np.ndarray) -> np.ndarray:

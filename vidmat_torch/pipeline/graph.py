@@ -5,12 +5,13 @@ jitted ``chunk_step`` and ``step``, vidmat/pipeline/video.py:374-395 and
 A chunk body makes tens of PyTorch calls per frame from Python: the
 planar chunk body (``ServingPlan.chunk_body``) some sixty, K calls of a
 per-frame body (``per_frame_chunk``) as many each, the 4K tiled body
-about two hundred. Replaying them as one captured graph leaves the host
-one ``cudaGraphLaunch`` per chunk. ``ChunkGraph`` captures the body over
-static tensors: the device inputs (the frame chunk, and the background
-chunk of a background video), the recurrent state (updated in place by
-``copy_`` at the end of the captured region) and the outputs, which each
-replay rewrites.
+about two hundred, a multi-stream chunk (``per_round_chunk``) as many as
+its K rounds' bodies. Replaying them as one captured graph leaves the
+host one ``cudaGraphLaunch`` per chunk. ``ChunkGraph`` captures the body
+over static tensors: the device inputs (the frame chunk, the background
+chunk of a background video, a multi-stream round's reset rows), the
+recurrent state (updated in place by ``copy_`` at the end of the
+captured region) and the outputs, which each replay rewrites.
 
 The kernel wrappers count launches in Python, where they enqueue. A
 capture only records the launches, so ``ChunkGraph`` takes the counts the
@@ -83,6 +84,34 @@ def per_frame_chunk(body: Callable, bg_dynamic: bool = False) -> Callable:
             out, state = body(frames[j:j + 1], state, *extra)
             outs.append(out)
         return _cat(outs), state
+
+    return run
+
+
+def _stack(outs):
+    """Per-round outputs (tensors, or tuples of tensors) stacked on a new
+    leading round axis."""
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(ts) for ts in zip(*outs))
+    return torch.stack(outs)
+
+
+def per_round_chunk(round_body: Callable) -> Callable:
+    """K rounds of a multi-stream round body as one chunk body (the JAX
+    package's ``lax.scan`` of its ``frame_step``,
+    vidmat/parallel/multistream.py:157-170). round_body(frames (S, ...),
+    reset (S,), state) -> (out, state) applies its reset row to the state
+    before its frames. Returns fn(frames (K, S, ...), reset (K, S), state)
+    -> (out, state): round j runs with reset row j, the state carried from
+    each round to the next, the outputs stacked on a leading K axis. The
+    reset rows are tensors, so a captured chunk reads each replay's rows
+    from its static input."""
+    def run(frames, reset, state):
+        outs = []
+        for j in range(frames.shape[0]):
+            out, state = round_body(frames[j], reset[j], state)
+            outs.append(out)
+        return _stack(outs), state
 
     return run
 

@@ -121,10 +121,6 @@ class ServingPlan:
     chunk_body: Optional[Callable] = None
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def alpha_byte(packed: torch.Tensor) -> torch.Tensor:
     """The alpha byte of packed words, (N, H, W) uint8: the high byte of
     each little-endian word, i.e. ``packed >> 24``."""

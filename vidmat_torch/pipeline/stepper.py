@@ -13,7 +13,8 @@ captured as a CUDA graph (``graph.ChunkGraph`` with one frame): every
 later step is one copy in, one graph launch and the copies out. The
 static-skip body picks its branch on the host and stays eager. The
 caller gets host arrays of its own (``.cpu()`` copies), which later
-steps do not touch.
+steps do not touch; ``step_device`` leaves the outputs on the device
+(vidmat/pipeline/stepper.py:246-260), for a caller that finishes there.
 Trimap-conditioned models take a trimap per step; the recurrent
 propagation family takes one on keyframes and an all-unknown trimap in
 between (vidmat/pipeline/stepper.py:212-232). ``tile_size`` gives the
@@ -44,6 +45,7 @@ from vidmat_torch._device import full_fp32, resolve_device
 from vidmat_torch.config import ModelConfig, RefineConfig
 from vidmat_torch.io.backgrounds import prepare_plate_u8
 from vidmat_torch.io.native import pad_into
+from vidmat_torch.io.reader import pad_frame
 from vidmat_torch.models.weights import (build_network, default_variables,
                                          seg_default_variables)
 from vidmat_torch.ops.resize import downsample_ratio_shape
@@ -225,11 +227,13 @@ class VideoStepper:
         self.state = state
 
     def _host_frame(self, frame: np.ndarray,
-                    trimap: Optional[np.ndarray] = None) -> np.ndarray:
+                    trimap: Optional[np.ndarray] = None,
+                    pad: bool = False) -> np.ndarray:
         """(H, W, C): float32 in [0, 1] in parity mode, uint8 in serving
         mode (float frames as round(clip(v) * 255)). A trimap-conditioned
         model gets the trimap as a fourth channel (an all-unknown one
-        where the recurrent family is given none)."""
+        where the recurrent family is given none). ``pad``: the frame may
+        be smaller than the session's (H, W); the staging edge-pads it."""
         if not self.cfg.use_trimap:
             if trimap is not None:
                 raise ValueError(
@@ -256,22 +260,28 @@ class VideoStepper:
             arr = np.round(np.clip(frame, 0.0, 1.0) * 255.0).astype(np.uint8)
         else:
             arr = frame
-        if arr.shape != tuple(self._host.shape[1:]):
+        want = tuple(self._host.shape[1:])
+        fits = (arr.ndim == 3 and arr.shape[2] == want[2]
+                and arr.shape[0] <= want[0] and arr.shape[1] <= want[1])
+        if not (fits if pad else arr.shape == want):
             raise ValueError(f"frame {arr.shape} does not match the "
-                             f"session's {tuple(self._host.shape[1:])}")
+                             f"session's {want}")
         return arr
 
     def _device_frame(self, frame: np.ndarray,
-                      trimap: Optional[np.ndarray] = None) -> torch.Tensor:
+                      trimap: Optional[np.ndarray] = None,
+                      pad: bool = False) -> torch.Tensor:
         """Write the frame into the pinned slot (once the last copy out of
-        it is done) and send it to the static (1, H, W, C) device input,
-        which is returned."""
-        arr = self._host_frame(frame, trimap)
+        it is done; edge-padded to the session's size with ``pad``) and
+        send it to the static (1, H, W, C) device input, which is
+        returned."""
+        arr = self._host_frame(frame, trimap, pad)
         if self._sent is not None:
             self._sent.synchronize()
         slot = self._host[0].numpy()
         if self._parity:
-            np.copyto(slot, arr)
+            np.copyto(slot, pad_frame(arr, *slot.shape[:2])[0] if pad
+                      else arr)
         else:
             pad_into(np.ascontiguousarray(arr), slot)
         if self._sent is not None:
@@ -296,20 +306,37 @@ class VideoStepper:
             self.state = self._graph.state
             self.capture_ms = (time.perf_counter() - t0) * 1e3
 
+    def _advance(self, x: torch.Tensor):
+        """The step on the staged input ``x``, captured after its first
+        (eager) run; returns the device output."""
+        out = self._run(x)
+        self._capture_after_warm_up()
+        return out
+
+    def step_device(self, frame: np.ndarray,
+                    trimap: Optional[np.ndarray] = None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Like :meth:`step`, but returns the device tensors ((1, H, W, 1)
+        alpha, (1, H, W, 3) fgr, float32; (mask, None) with output="seg")
+        with no device-to-host copy, for callers that finish on the device
+        (the realtime driver's composite). Once the step is captured they
+        are the graph's static outputs: valid until the next step. A
+        frame smaller than the session's (H, W) is edge-padded to it (the
+        realtime driver's /16 bucket)."""
+        out = self._advance(self._device_frame(frame, trimap, pad=True))
+        return (out, None) if self._seg else out
+
     def step(self, frame: np.ndarray, trimap: Optional[np.ndarray] = None
              ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """frame: (H, W, 3) uint8 or float RGB; trimap (trimap-conditioned
         models): (H, W) uint8 {0, 128, 255} or float {0, 0.5, 1}. Returns
         host alpha (H, W, 1) and fgr (H, W, 3), float32 in [0, 1];
         output="seg" returns (mask (H, W, 1) float32, None)."""
-        out = self._run(self._device_frame(frame, trimap))
+        out = self._advance(self._device_frame(frame, trimap))
         if self._seg:
-            res = out[0].cpu().numpy(), None
-        else:
-            alpha, fgr = out
-            res = alpha[0].cpu().numpy(), fgr[0].cpu().numpy()
-        self._capture_after_warm_up()
-        return res
+            return out[0].cpu().numpy(), None
+        alpha, fgr = out
+        return alpha[0].cpu().numpy(), fgr[0].cpu().numpy()
 
     # -- mid-video resume: the carry in the port's own npz format --
 

@@ -68,7 +68,7 @@ from vidmat_torch.models.weights import (build_network, build_refiner,
                                          default_variables)
 from vidmat_torch.ops.resize import downsample_ratio_shape
 from vidmat_torch.pipeline.graph import ChunkGraph, per_frame_chunk
-from vidmat_torch.pipeline.stepfactory import (ServingPlan, _unported,
+from vidmat_torch.pipeline.stepfactory import (ServingPlan,
                                                build_serving_body)
 from vidmat_torch.pipeline.trimap import PreTrimmedTrimaps, canon_trimap_u8
 from vidmat_torch.utils.metrics import RunMetrics
@@ -230,8 +230,8 @@ class VideoPipeline:
     refiner_variables: the error-map refiner's weights (nested dict of
     numpy arrays in the JAX package's layout) for
     ``refine.mode="errormap"``; None loads the shipped errormap_demo;
-    ignored in the other modes. A ``StreamConfig`` raises
-    NotImplementedError (ROADMAP A.12).
+    ignored in the other modes. A ``StreamConfig`` raises TypeError: it
+    is served by ``MultiStreamMatting``.
     device: "cuda" (default; raises without a CUDA device) or "cpu" (the
     plain PyTorch versions of the kernels)."""
 
@@ -250,7 +250,13 @@ class VideoPipeline:
                  refiner_variables=None,
                  device: Union[str, torch.device] = "cuda"):
         if isinstance(pipe_cfg, StreamConfig):
-            raise _unported("multi-stream serving (StreamConfig)", "A.12")
+            # The JAX package fails here on a missing attribute; the port
+            # names the class that serves the configuration.
+            raise TypeError(
+                "a StreamConfig configures multi-stream serving: serve it "
+                "with vidmat_torch.MultiStreamMatting(s.num_streams, "
+                "s.height, s.width, ...), not convert_video / "
+                "VideoPipeline")
         self.model_cfg = model_cfg or ModelConfig()
         self.pipe_cfg = pipe_cfg or PipelineConfig()
         if self.model_cfg.use_bg_plate and bg_plate is None:
