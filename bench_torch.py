@@ -91,12 +91,18 @@ def _sync(dev: torch.device) -> None:
 
 def bench_e2e(dev: torch.device, quick: bool) -> dict:
     """Host-fed end to end through the pipeline, alpha output."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from vidmat_torch.config import PRESETS
-    from vidmat_torch.io.fixtures import synthetic_frames_only
+    from vidmat_torch.io.fixtures import synthetic_frame
     from vidmat_torch.pipeline.video import VideoPipeline
 
     h, w, n = (256, 512, 24) if quick else (1080, 1920, 120)
-    frames = list(synthetic_frames_only(h, w, n))
+    # synthetic_frames_only's frames, made on 4 host threads (numpy
+    # releases the GIL).
+    with ThreadPoolExecutor(4) as ex:
+        frames = [f for f, _ in ex.map(
+            lambda i: synthetic_frame(h, w, i / n), range(n))]
     cfg, pipe = PRESETS["video_1080p"]()
     pipeline = VideoPipeline(model_cfg=cfg, pipe_cfg=pipe, device=dev)
     # The warm run builds the kernels and captures the chunk graph; the

@@ -195,6 +195,21 @@ Phases (any failure exits nonzero and prints no result line):
      the same finish (0 bytes unequal), launches; an unpaced 64-frame
      source and one paced at 30 fps (0 dropped): produced, processed,
      dropped, p50 / p99 ms
+  D. AOT serving bundles (vidmat_torch/deploy.py, torch.export with the
+     kernels as vidmat_torch:: custom ops): video_1080p exported on the
+     card with chunk 4, each program's vidmat_torch:: node counts (the
+     six main-path kernels at the live chunk graph's launches per replay,
+     no aten convolution); the bundle loaded in a fresh process by the
+     loader alone (no module of the model definition imported) and its
+     convert over 64 synthetic 1920x1080 frames against convert_video on
+     the same frames (0 alpha and composite bytes unequal, launches per
+     replay equal); export s, load ms, fps beside convert_video's; then
+     bg_blur=16, alpha_only, need_fgr, num_streams=8, video_4k tiled,
+     video_1080p_errormap, seg and static skip, a step or two each
+     against the live body (0 bytes unequal); a CPU bundle refused
+  L. python -m vidmat_torch.cli export and bench --quick as subprocesses;
+     VideoEval on the card over 16 1080p frames against its CPU run
+     (relative |d| <= 1e-5, Grad 1e-4), ms per frame
   T. bench_torch.py's 1080p, 480p, e2e, 4k, 4k_tiled and multistream
      records
 
@@ -274,15 +289,24 @@ def phase_build():
                     log(f"    ptxas {name}: {line.strip()}")
 
 
-def clip(n, seed=0):
-    """n synthetic source frames and their ground-truth alphas."""
-    from vidmat_torch.io.fixtures import synthetic_clip
+@functools.lru_cache(maxsize=4)
+def _clip(n, seed):
+    from concurrent.futures import ThreadPoolExecutor
 
-    frames, alphas = [], []
-    for f, a in synthetic_clip(FRAME_H, FRAME_W, n, seed=seed):
-        frames.append(f)
-        alphas.append(a[..., 0])
-    return frames, alphas
+    from vidmat_torch.io.fixtures import synthetic_frame
+
+    with ThreadPoolExecutor(4) as ex:
+        pairs = list(ex.map(lambda i: synthetic_frame(
+            FRAME_H, FRAME_W, i / max(n, 1), seed), range(n)))
+    return tuple(f for f, _ in pairs), tuple(a[..., 0] for _, a in pairs)
+
+
+def clip(n, seed=0):
+    """n synthetic source frames and their ground-truth alphas (the
+    frames of ``synthetic_clip``, made on 4 host threads: numpy releases
+    the GIL; the last few clips are kept, phases 4 and D share one)."""
+    frames, alphas = _clip(n, seed)
+    return list(frames), list(alphas)
 
 
 def padded_clip(n, seed=0):
@@ -4026,6 +4050,308 @@ def phase_bench():
     return recs
 
 
+# AOT serving bundles (vidmat_torch/deploy.py): the main path's bundle is
+# exported at the 1920x1080 stream (the 1088x1920 bucket) with chunk 4,
+# loaded in a fresh process by the loader alone and run over the phase's
+# frames; each variant below is exported with its step program only and
+# run for a step or two against its live body.
+D_FRAMES = 64
+D_EVAL_FRAMES = 16
+D_SKIP_EPS = 0.5 / 255
+
+# The loader-only run: a fresh interpreter that imports the bundle loader
+# and nothing of the model definition, converts the frames saved by the
+# parent and saves what it wrote.
+LOADER_CHILD = r"""
+import json, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+t0 = time.perf_counter()
+from vidmat_torch.deploy import ServingBundle
+t1 = time.perf_counter()
+b = ServingBundle(sys.argv[2], device="cuda")
+load_ms = (time.perf_counter() - t1) * 1e3
+import_ms = (t1 - t0) * 1e3
+frames = np.load(sys.argv[3], mmap_mode="r")
+alphas, comps = [], []
+m = b.convert(iter(frames), output_alpha=alphas.append,
+              output_composition=comps.append)
+np.save(sys.argv[4], np.stack(alphas))
+np.save(sys.argv[5], np.stack(comps))
+bad = sorted(k for k in sys.modules
+             if k.startswith(("vidmat_torch.models", "jax", "vidmat."))
+             or k in ("vidmat", "vidmat_torch.pipeline.stepfactory"))
+print(json.dumps({"load_ms": load_ms, "import_ms": import_ms,
+                  "metrics": m, "bad_modules": bad,
+                  "per_replay": b.launches_per_replay("chunk")}))
+"""
+
+
+def bundle_variants():
+    """label -> (height, width, export_bundle arguments, frames): each
+    variant's bundle at its preset's stream, its step program only."""
+    import dataclasses
+
+    import numpy as np
+
+    from vidmat_torch.config import (ModelConfig, preset_video_1080p,
+                                     preset_video_1080p_errormap,
+                                     preset_video_4k)
+
+    mcfg, pcfg = preset_video_1080p()
+    step = dataclasses.replace(pcfg, chunk_size=1)
+    base = dict(model_cfg=mcfg, pipe_cfg=step)
+    frames = clip(3, seed=5)[0]
+    m4k, p4k = preset_video_4k()
+    merr, perr = preset_video_1080p_errormap()
+    return {
+        "bg_blur=16": (FRAME_H, FRAME_W, dict(base, bg_blur=16), frames[:2]),
+        "alpha_only": (FRAME_H, FRAME_W, dict(base, alpha_only=True),
+                       frames[:2]),
+        "need_fgr": (FRAME_H, FRAME_W, dict(base, need_fgr=True),
+                     frames[:2]),
+        "num_streams=8": (FRAME_H, FRAME_W, dict(base, num_streams=8),
+                          [np.stack([frames[(r + i) % 3] for i in range(8)])
+                           for r in range(2)]),
+        "video_4k tiled": (H4K, W4K, dict(
+            model_cfg=m4k, pipe_cfg=dataclasses.replace(p4k, chunk_size=1)),
+            frames_4k(2)[0]),
+        "video_1080p_errormap": (H, W, dict(
+            model_cfg=merr, pipe_cfg=dataclasses.replace(perr, chunk_size=1)),
+            hard_frames(2)[0]),
+        "seg": (FRAME_H, FRAME_W, dict(
+            model_cfg=ModelConfig(conv_impl="planar"), pipe_cfg=step,
+            output="seg"), frames[:2]),
+        "static skip": (FRAME_H, FRAME_W, dict(
+            base, pipe_cfg=dataclasses.replace(
+                step, static_skip_eps=D_SKIP_EPS)),
+            [frames[0], frames[0], frames[1]]),
+    }
+
+
+def bundle_variant_check(label, h, w, kw, frames, tmp, dev):
+    """Export one variant on the card, load it, step it over ``frames``
+    and hold every output byte to its live body's
+    (``deploy.serving_body``). Returns (export s, bytes unequal, ms per
+    step)."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch.deploy import ServingBundle, export_bundle, serving_body
+
+    path = os.path.join(tmp, label.replace(" ", "_").replace("=", ""))
+    t0 = time.perf_counter()
+    export_bundle(path, h, w, device=dev, **kw)
+    export_s = time.perf_counter() - t0
+    bundle = ServingBundle(path, device=dev)
+    body, plan, _, _ = serving_body(h, w, device=dev, **kw)
+    s = kw.get("num_streams", 1)
+    state = plan.make_state(s)
+    unequal = 0
+    step_ms = []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = bundle.step(f)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        x = f if s > 1 else f[None]
+        padded = np.stack([np.pad(xi, ((0, bundle._ph - h),
+                                       (0, bundle._pw - w), (0, 0)),
+                                  mode="edge") for xi in x])
+        out, state = body(torch.from_numpy(padded).to(dev), state)
+        want = bundle._unpack(out)
+        if s == 1:
+            want = {k: v[0] for k, v in want.items()}
+        assert sorted(got) == sorted(want), (label, sorted(got))
+        for k in got:
+            assert got[k].dtype == want[k].dtype, (label, k)
+            unequal += int(np.sum(got[k] != want[k]))
+    graphed = "step" in bundle._graphs
+    log(f"[D] {label}: {h}x{w}, export {export_s:.1f} s, output "
+        f"{bundle.manifest['output']}, {len(frames)} steps "
+        f"({'eager, then graph replays' if graphed else 'eager'}) "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, bytes unequal to "
+        f"the live body: {unequal}")
+    if torch.device(dev).type == "cuda":
+        assert graphed != bundle.manifest["static_skip"], label
+    return export_s, unequal, step_ms
+
+
+def phase_deploy(kernels, gpu, dev):
+    """Phase D: AOT serving bundles on the card. The main path's bundle
+    (video_1080p, chunk 4): each program's count of vidmat_torch:: nodes
+    (the six main-path kernels, at the live chunk body's launches per
+    replay, and no aten convolution); loaded in a fresh process by the
+    loader alone, convert over the phase's 64 frames against convert_video
+    on the same frames (0 alpha and composite bytes unequal), its
+    launches per replay equal to the live graph's; export s, load ms,
+    fps beside convert_video's. Then one step or two of each variant
+    against its live body (0 bytes unequal), and a CPU bundle refused on
+    the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vidmat_torch import convert_video, preset_video_1080p
+    from vidmat_torch.deploy import ServingBundle, export_bundle
+    from vidmat_torch.ops import library
+
+    tmp = tempfile.mkdtemp(prefix="vidmat_bundles_")
+    try:
+        mcfg, pcfg = preset_video_1080p()
+        path = os.path.join(tmp, "video_1080p")
+        t0 = time.perf_counter()
+        export_bundle(path, FRAME_H, FRAME_W, model_cfg=mcfg, pipe_cfg=pcfg,
+                      device=dev)
+        export_s = time.perf_counter() - t0
+        nodes = {}
+        for prog in ("step", "chunk"):
+            ep = torch.export.load(os.path.join(path, f"{prog}.pt2"))
+            nodes[prog] = library.program_ops(ep.graph_module)
+        log(f"[D] video_1080p bundle exported in {export_s:.1f} s "
+            f"({FRAME_W}x{FRAME_H}, bucket {W}x{H}, chunk {CHUNK}); "
+            f"vidmat_torch:: nodes per program: {json.dumps(nodes)}")
+
+        frames, gt = clip(D_FRAMES, seed=0)
+        convert_video(frames[:8], output_alpha=lambda a: None,
+                      model_cfg=mcfg, pipe_cfg=pcfg)  # warm-up
+        alphas, comps = [], []
+        zero_counts(kernels)
+        live = convert_video(frames, output_alpha=alphas.append,
+                             output_composition=comps.append,
+                             model_cfg=mcfg, pipe_cfg=pcfg)
+        live_launches = counts(kernels)
+        per = live["graph_launches_per_replay"]
+        chunk_nodes = {k: v for k, v in nodes["chunk"].items()}
+        assert set(library.MAIN_PATH) <= set(chunk_nodes), chunk_nodes
+        assert "aten.convolution" not in chunk_nodes, chunk_nodes
+        assert "aten.convolution" not in nodes["step"], nodes["step"]
+        assert chunk_nodes == per, (chunk_nodes, per)
+
+        src = os.path.join(tmp, "frames.npy")
+        np.save(src, np.stack(frames))
+        got_a, got_c = (os.path.join(tmp, f"{k}.npy") for k in ("a", "c"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", LOADER_CHILD, ROOT, path, src, got_a,
+             got_c], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+        ba, bc = np.load(got_a), np.load(got_c)
+        unequal_a = int(np.sum(ba != np.stack(alphas)))
+        unequal_c = int(np.sum(bc != np.stack(comps)))
+        bm = child["metrics"]
+        log(f"[D] loader-only process ({child_s:.1f} s, its modules of the "
+            f"model definition: {child['bad_modules']}): import of the "
+            f"loader (torch included) {child['import_ms']:.1f} ms, load "
+            f"{child['load_ms']:.1f} ms, convert {bm['frames']} frames fps "
+            f"{bm['fps']:.2f} (p50 {bm['p50_ms']:.3f} ms) beside "
+            f"convert_video's {live['fps']:.2f} (p50 "
+            f"{live['p50_ms']:.3f} ms) on the same frames and preset "
+            f"(alpha and composition out, {gpu}); bytes unequal to "
+            f"convert_video: alpha {unequal_a} of {ba.size}, composite "
+            f"{unequal_c} of {bc.size}; launches per replay "
+            f"{child['per_replay']} (convert_video's graph: {per}); "
+            f"convert_video's launches {live_launches}")
+        assert child["bad_modules"] == [], child["bad_modules"]
+        assert bm["frames"] == D_FRAMES, bm
+        assert unequal_a == 0 and unequal_c == 0, (unequal_a, unequal_c)
+        assert child["per_replay"] == per, (child["per_replay"], per)
+
+        variants = {}
+        for label, (h, w, kw, fr) in bundle_variants().items():
+            variants[label] = bundle_variant_check(label, h, w, kw, fr, tmp,
+                                                   dev)
+            assert variants[label][1] == 0, (label, variants[label])
+
+        cpu_path = os.path.join(tmp, "cpu")
+        export_bundle(cpu_path, 48, 64, device="cpu")
+        try:
+            ServingBundle(cpu_path, device=dev)
+        except RuntimeError as e:
+            assert "platform" in str(e), e
+            log(f"[D] a CPU bundle on the card: refused ({e})")
+        else:
+            raise AssertionError("a CPU bundle was served on the card")
+        return dict(export_s=export_s, load_ms=child["load_ms"],
+                    import_ms=child["import_ms"],
+                    bundle_fps=bm["fps"], convert_video_fps=live["fps"],
+                    nodes=nodes, per_replay=per, variants=variants,
+                    alphas=alphas[:D_EVAL_FRAMES], gt=gt[:D_EVAL_FRAMES])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cli_eval(dev, alphas, gt):
+    """Phase L: ``python -m vidmat_torch.cli export`` and ``bench
+    --quick`` as subprocesses on the card; VideoEval on the card over 16
+    1080p frames against its CPU run (the CPU tests' bars: MAD, MSE, SAD
+    and dtSSD within 1e-5 relative, Grad 1e-4), ms per frame."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vidmat_torch.eval import VideoEval
+
+    tmp = tempfile.mkdtemp(prefix="vidmat_cli_")
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "vidmat_torch.cli", "export",
+             os.path.join(tmp, "b"), "--height", str(FRAME_H), "--width",
+             str(FRAME_W), "--preset", "video_1080p", "--chunk", str(CHUNK)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        export_s = time.perf_counter() - t0
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        manifest = json.loads(res.stdout)
+        assert manifest["platforms"] == ["cuda"] and manifest[
+            "chunk"] == CHUNK, manifest
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "vidmat_torch.cli", "bench", "--quick"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        bench_s = time.perf_counter() - t0
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        assert rec["value"] > 0 and rec["device"] != "cpu", rec
+        log(f"[L] cli export ({export_s:.1f} s, compute capability "
+            f"{manifest['compute_capability']}, torch "
+            f"{manifest['torch_version']}); cli bench --quick "
+            f"({bench_s:.1f} s): {json.dumps(rec)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    metrics = ("mad", "mse", "sad", "grad", "dtssd")
+    rows = {}
+    for d in (dev, "cpu"):
+        ev = VideoEval(metrics=metrics, device=d)
+        ev.update(alphas[0], gt[0])  # warm-up
+        ev = VideoEval(metrics=metrics, device=d)
+        if d == dev:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, g in zip(alphas, gt):
+            ev.update(a, g)
+        ms = (time.perf_counter() - t0) * 1e3 / len(alphas)
+        rows[str(d)] = (ev.frames, ev.summary(), ms)
+    worst = 0.0
+    for rc, rh in zip(rows[str(dev)][0], rows["cpu"][0]):
+        assert sorted(rc) == sorted(rh)
+        for k, v in rh.items():
+            rel = abs(rc[k] - v) / max(abs(v), 1e-12)
+            assert rel <= (1e-4 if k == "grad" else 1e-5), (k, rc[k], v)
+            worst = max(worst, rel)
+    log(f"[L] VideoEval {len(alphas)} frames {FRAME_W}x{FRAME_H} "
+        f"({', '.join(metrics)}): card {rows[str(dev)][2]:.2f} ms per "
+        f"frame, CPU {rows['cpu'][2]:.2f}; worst relative |d| card vs CPU "
+        f"{worst:.2e}; summary {json.dumps(rows[str(dev)][1])}")
+    return rows[str(dev)][2]
+
+
 def main() -> int:
     import torch
 
@@ -4086,6 +4412,12 @@ def main() -> int:
     log(f"[M] phase M took {t1 - t0:.1f} s, phase R "
         f"{time.perf_counter() - t1:.1f} s")
     del pool
+    t0 = time.perf_counter()
+    deploy = phase_deploy(kernels, gpu, dev)
+    t1 = time.perf_counter()
+    phase_cli_eval(dev, deploy["alphas"], deploy["gt"])
+    log(f"[D] phase D took {t1 - t0:.1f} s, phase L "
+        f"{time.perf_counter() - t1:.1f} s")
     probe, int8_launches = phase_int8_probe(kernels)
     times = phase_timing(inputs, sites, tail, bg_inputs, inp4k, inputs8,
                          sites8)

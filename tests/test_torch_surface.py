@@ -1,8 +1,11 @@
 """The port's public surface against the JAX package's, name for name
 (ROADMAP C.4, C.6): every parameter of ``convert_video``,
 ``matte_image``, ``MattingSession.__init__`` and ``.step``,
-``MultiStreamMatting.__init__``, ``.step`` and ``.serve``, and
-``RealtimeMatting.__init__`` and ``.run``, every field of the
+``MultiStreamMatting.__init__``, ``.step`` and ``.serve``,
+``RealtimeMatting.__init__`` and ``.run``, ``deploy.export_bundle``,
+``deploy.ServingBundle.__init__``, ``.step``, ``.reset`` and
+``.convert``, ``eval.VideoEval.__init__``, ``.update`` and ``.summary``
+and ``eval.evaluate_sequences``, every field of the
 configuration dataclasses with its default, every preset, each returning
 equal dataclasses, and the package's seven lazy exports. What is not
 ported yet (the parts of A.12 that need more than one card) raises
@@ -26,11 +29,24 @@ ENTRY_POINTS = [("convert_video", None), ("matte_image", None),
                 ("MultiStreamMatting", "__init__"),
                 ("MultiStreamMatting", "step"),
                 ("MultiStreamMatting", "serve"),
-                ("RealtimeMatting", "__init__"), ("RealtimeMatting", "run")]
+                ("RealtimeMatting", "__init__"), ("RealtimeMatting", "run"),
+                ("deploy.export_bundle", None),
+                ("deploy.ServingBundle", "__init__"),
+                ("deploy.ServingBundle", "step"),
+                ("deploy.ServingBundle", "reset"),
+                ("deploy.ServingBundle", "convert"),
+                ("eval.VideoEval", "__init__"), ("eval.VideoEval", "update"),
+                ("eval.VideoEval", "summary"),
+                ("eval.evaluate_sequences", None)]
 CONFIGS = ["ModelConfig", "RefineConfig", "PipelineConfig", "StreamConfig"]
 
 
 def _params(mod, name, method):
+    if "." in name:  # a submodule's name: deploy.export_bundle
+        import importlib
+
+        sub, name = name.rsplit(".", 1)
+        mod = importlib.import_module(f"{mod.__name__}.{sub}")
     fn = getattr(mod, name)
     if method:
         fn = getattr(fn, method)
@@ -126,6 +142,23 @@ def test_lazy_exports_resolve_or_name_their_item(name):
     assert got is getattr(importlib.import_module(LAZY[name]), name)
     assert hasattr(vidmat_torch, name)
     assert got.__name__ == getattr(vidmat, name).__name__
+
+
+def test_import_loads_neither_deploy_eval_nor_cli():
+    """``import vidmat_torch`` imports none of the modules of the bundles,
+    the evaluation and the command line (nor torch.export's loader
+    state): each is imported where it is used."""
+    import subprocess
+    import sys
+
+    mods = ["vidmat_torch.deploy", "vidmat_torch.eval",
+            "vidmat_torch.eval.metrics", "vidmat_torch.cli",
+            "vidmat_torch.ops.library"]
+    code = ("import sys, vidmat_torch; print(sorted(m for m in "
+            f"{mods!r} if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]", out
 
 
 FRAMES = [np.zeros((32, 32, 3), np.uint8)]

@@ -10,13 +10,19 @@ trimaps or rough masks) and the segmentation stream, every full chunk as
 one CUDA graph launch; ``MattingSession`` streams float mattes (or
 segmentation masks); ``MultiStreamMatting`` serves S streams as one
 batch (the ``multistream`` preset) and ``RealtimeMatting`` a live source
-with latest-wins scheduling. The public surface is the JAX package's,
-name for name; what is not ported yet (the parts of multi-stream serving
-that need more than one card) raises NotImplementedError naming its
-ROADMAP item. Every TPU kernel of those paths (ingest, the planar convs,
-guided-filter coefficients, the refine tails, composite) runs as a
-hand-written CUDA kernel (``vidmat_torch/csrc``). Entry points run on the
-card (``device="cuda"``) unless the caller passes ``device="cpu"``.
+with latest-wins scheduling. ``vidmat_torch.deploy`` exports a serving
+body as an AOT bundle (``export_bundle``, ``torch.export``) and serves it
+without the model definition (``ServingBundle``); ``vidmat_torch.eval``
+scores mattes (``VideoEval``, ``evaluate_sequences``);
+``python -m vidmat_torch.cli`` is the command line (nine subcommands,
+``train`` not ported yet). The public surface is the JAX package's, name
+for name; what is not ported yet (training, the parts of multi-stream
+serving that need more than one card) raises naming its ROADMAP item.
+Every TPU kernel of those paths (ingest, the planar convs, guided-filter
+coefficients, the refine tails, composite) runs as a hand-written CUDA
+kernel (``vidmat_torch/csrc``), registered as a ``vidmat_torch::*``
+custom op (``ops/library.py``). Entry points run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``.
 """
 
 from vidmat_torch.api import (MattingSession, convert_video,  # noqa: F401

@@ -1,5 +1,5 @@
-"""Device resolution and the float32 scope shared by the port's public
-entry points."""
+"""Device resolution, the float32 scope shared by the port's public entry
+points, and the per-device constants of its bodies."""
 
 from __future__ import annotations
 
@@ -56,3 +56,24 @@ def in_full_fp32(fn):
         with full_fp32():
             return fn(*args, **kwargs)
     return wrapped
+
+
+def device_constant(fn):
+    """A cache for the tensors a module makes once per device (a
+    host-to-device copy inside a captured CUDA graph is not allowed),
+    keyed by the arguments. While ``torch.export`` traces a body a
+    cached tensor is read (it becomes a constant of the program) but none
+    is stored: a tensor made there is the trace's own. ``deploy.py`` runs
+    a body once before it exports it, so that every constant is cached:
+    a ``torch.cond`` branch cannot hold a tensor made in the trace."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def get(*args):
+        if args in cache:
+            return cache[args]
+        t = fn(*args)
+        if not torch.compiler.is_compiling():
+            cache[args] = t
+        return t
+    return get

@@ -91,8 +91,8 @@ def _mask_to_trimap_source(mask_source, band: float, start: int = 0,
     start + count) before the conversion and marked pre-trimmed."""
     from vidmat_torch.io.reader import FrameSource
     from vidmat_torch.pipeline.trimap import (PreTrimmedTrimaps,
+                                              single_trimap,
                                               trimap_from_mask)
-    from vidmat_torch.pipeline.video import single_trimap
 
     single = single_trimap(mask_source)
     if single is not None:

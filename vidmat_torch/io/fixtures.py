@@ -1,7 +1,7 @@
 """Synthetic video fixtures with closed-form ground-truth alpha
-(counterpart of the moving-disk, clean-plate and hard clips in
-vidmat/io/fixtures.py; numpy only, cv2 for the hard clip's JPEG option
-alone)."""
+(counterpart of the moving-disk, clean-plate, hard and hard clean-plate
+clips in vidmat/io/fixtures.py; numpy only, cv2 for the hard clip's JPEG
+option alone)."""
 
 from __future__ import annotations
 
@@ -269,3 +269,121 @@ def synthetic_hard_clip(h: int, w: int, num_frames: int, seed: int = 0,
     for i in range(num_frames):
         yield synthetic_hard_frame(h, w, i * dt, seed,
                                    shutter_dt=motion_blur * dt, **kw)
+
+
+# The octave-two realism knobs of the quality report's extended hard
+# protocol: clip-level kwargs for synthetic_hard_clip (jpeg needs cv2).
+HARD2 = dict(motion_blur=0.5, light_drift=0.15, jpeg=75)
+
+
+def _hard_plate_render(h: int, w: int, t: float, seed: int, pan: float,
+                       hair: bool
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One noiseless float render of the HARD clean-plate scene at exact
+    time t: (frame (H,W,3), alpha (H,W), plate (H,W,3)).
+
+    The scene is the plate fixture's camouflage task raised to the hard
+    suite's realism: multi-octave background, the subject (disk AND hair
+    filaments) filled with offset-sampled background texture so pixels
+    alone cannot find even the strands — only plate comparison can —
+    plus a slow camera drift (``pan`` = fraction of the frame drifted
+    per unit t). The plate is the background AS CAPTURED AT t=0, so
+    under drift it misregisters by a few pixels over the clip — the
+    tripod-bump failure mode a real pre-captured plate suffers."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    phase = rng.rand(3, 4) * 2 * np.pi
+    hp = rng.rand(3, 2) * 2 * np.pi
+    vx, vy = (rng.rand(2) - 0.5) * 2.0 * pan * np.array([w, h])
+    ox = (0.2 + 0.3 * rng.rand()) * w
+    oy = (0.2 + 0.3 * rng.rand()) * h
+
+    def octaves(sx, sy):
+        base = _texture(sx, sy, h, w, phase)
+        return base + np.stack([
+            0.07 * np.sin(2 * np.pi * sx / w * 23 + hp[c, 0])
+            * np.cos(2 * np.pi * sy / h * 19 + hp[c, 1])
+            for c in range(3)], axis=-1)
+
+    bg = octaves(xx + vx * t, yy + vy * t)
+    plate = octaves(xx, yy)  # captured before the shot (t=0 camera pose)
+    alpha = _disk_hair_alpha(xx, yy, h, w, t, rng, hair)
+    # Camouflage fill: the same two-octave texture sampled at a fixed
+    # per-seed offset (and riding the camera like the background does) —
+    # locally indistinguishable from background in every statistic.
+    fill = octaves(xx + ox + vx * t, yy + oy + vy * t)
+    frame = alpha[..., None] * fill + (1.0 - alpha[..., None]) * bg
+    return frame, alpha, plate
+
+
+# The canonical EXTENDED hard-plate protocol: clip-level kwargs for
+# synthetic_hard_plate_clip.
+HARD_PLATE = dict(motion_blur=0.5, light_drift=0.12, pan=0.03,
+                  plate_jitter=0.03)
+
+
+def synthetic_hard_plate_frame(h: int, w: int, t: float, seed: int = 0,
+                               pan: float = 0.03, hair: bool = True,
+                               noise: float = 0.012,
+                               plate_jitter: float = 0.03,
+                               shutter_dt: float = 0.0,
+                               light_drift: float = 0.0,
+                               ) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]:
+    """One frame of the HARD clean-plate suite.
+
+    Composition of the plate fixture's camouflage premise with the hard
+    suite's realism octaves: camouflaged disk AND camouflaged hair
+    filaments (only the plate can reveal either), two-octave texture, a
+    slow camera drift that misregisters the t=0-captured plate, shutter
+    motion blur (exact time-averaged alpha), exposure drift on the frame
+    (the plate keeps capture-time lighting — exactly the mismatch a real
+    plate suffers), independent sensor noise on frame and plate, and the
+    existing ``plate_jitter`` imperfect-capture model. No occluder: an
+    object absent from the plate is by definition foreground to plate
+    conditioning, so its ground-truth status would be ill-posed.
+
+    Returns (frame_uint8 (H,W,3), alpha_f32 (H,W,1), plate_uint8 (H,W,3)).
+    """
+    if shutter_dt > 0.0:
+        def render(tt):
+            f, a, _ = _hard_plate_render(h, w, tt, seed, pan, hair)
+            return f, a
+
+        frame, alpha = _shutter_average(render, t, shutter_dt)
+        _, _, plate = _hard_plate_render(h, w, t, seed, pan, hair)
+    else:
+        frame, alpha, plate = _hard_plate_render(h, w, t, seed, pan, hair)
+
+    if light_drift > 0.0:
+        frame = frame * _light_drift_gain(t, seed, light_drift)
+    if noise > 0.0:
+        nrng = np.random.RandomState(
+            (seed * 9973 + int(t * 1e4) % 7919) % (2 ** 32 - 1))
+        frame = frame + noise * nrng.randn(h, w, 3).astype(np.float32)
+        prng = np.random.RandomState(seed + 17)  # plate noise: one
+        plate = plate + noise * prng.randn(h, w, 3).astype(np.float32)
+        #       capture => one static noise field, not per-frame
+    if plate_jitter > 0.0:
+        jr = np.random.RandomState(seed + 13)
+        gain = 1.0 + plate_jitter * (2.0 * jr.rand() - 1.0)
+        plate = plate * gain + plate_jitter * jr.randn(h, w, 3).astype(
+            np.float32) * 0.5
+    frame_u8 = np.round(np.clip(frame, 0, 1) * 255).astype(np.uint8)
+    plate_u8 = np.round(np.clip(plate, 0, 1) * 255).astype(np.uint8)
+    return frame_u8, alpha[..., None].astype(np.float32), plate_u8
+
+
+def synthetic_hard_plate_clip(h: int, w: int, num_frames: int,
+                              seed: int = 0, motion_blur: float = 0.0,
+                              **kw) -> Iterator[Tuple[np.ndarray,
+                                                      np.ndarray,
+                                                      np.ndarray]]:
+    """Yield (frame_uint8, gt_alpha, plate_uint8) for the hard
+    clean-plate suite; the plate is constant across the clip (one
+    capture). Pass ``**HARD_PLATE`` for the canonical protocol."""
+    dt = 1.0 / max(num_frames, 1)
+    for i in range(num_frames):
+        yield synthetic_hard_plate_frame(h, w, i * dt, seed,
+                                         shutter_dt=motion_blur * dt,
+                                         **kw)

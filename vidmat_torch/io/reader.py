@@ -42,7 +42,8 @@ def read_image(path: str) -> np.ndarray:
 
 
 class VideoReader:
-    """Iterates (H, W, 3) uint8 RGB frames of a video file (needs cv2)."""
+    """Iterates (H, W, 3) uint8 RGB frames of a video file (needs cv2);
+    ``fps``, ``height`` and ``width`` are the file's."""
 
     def __init__(self, path: str):
         cv2 = require_cv2(f"decoding the video {path!r}")
@@ -51,6 +52,11 @@ class VideoReader:
         if not self.cap.isOpened():
             raise FileNotFoundError(path)
         self.fps = self.cap.get(cv2.CAP_PROP_FPS) or 30.0
+        self.width = int(self.cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(self.cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+
+    def close(self) -> None:
+        self.cap.release()
 
     def __iter__(self) -> Iterator[np.ndarray]:
         while True:

@@ -5,7 +5,8 @@ vidmat/ops/composite.py and vidmat/ops/pallas/composite_kernel.py).
 (vidmat/ops/pallas/composite_kernel.py:95, pallas_call at :78) in all four
 of its modes: a (3,) color, no background (premultiplied), one (H, W, 3)
 image shared by the batch, and per-frame (N, H, W, 3) images. The CUDA
-kernel is ``csrc/composite.cu``; it is bound by bytes. The wrapper
+kernel is ``csrc/composite.cu``; it is bound by bytes. The wrapper calls
+the op ``vidmat_torch::composite_rgba_packed`` (``ops/library.py``), which
 launches it for CUDA tensors and runs ``composite_rgba_packed_plain`` for
 CPU tensors. It packs the unfused serving tails (full-resolution net,
 bilinear and unfused guided upsampling).
@@ -24,7 +25,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from vidmat_torch.ops import _build
+from vidmat_torch._device import device_constant
+from vidmat_torch.ops import _build, library
 
 Background = Union[None, Sequence[float], torch.Tensor]
 
@@ -39,11 +41,12 @@ def _kernel():
 
 
 def pack_rgba(rgba_u8: torch.Tensor) -> torch.Tensor:
-    """(..., 4) uint8 [R, G, B, A] -> (...) uint32 little-endian words."""
-    return rgba_u8.contiguous().view(torch.uint32)[..., 0]
+    """(..., 4) uint8 [R, G, B, A] -> (...) uint32 little-endian words
+    (int32 while a program is traced, ``library.words``)."""
+    return library.words(rgba_u8.contiguous().view(torch.int32)[..., 0])
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _color_tensor(color: tuple, device: torch.device) -> torch.Tensor:
     # Made once per device: a host-to-device copy inside a captured CUDA
     # graph (the pipeline's chunk) is not allowed.
@@ -97,34 +100,44 @@ def composite_rgba_packed(fgr: torch.Tensor, alpha: torch.Tensor,
     images, or None (premultiplied). Returns (N, H, W) uint32
     (little-endian R | G<<8 | B<<16 | A<<24).
 
+    Calls ``vidmat_torch::composite_rgba_packed`` (``ops/library.py``):
     CUDA tensors launch ``csrc/composite.cu``; CPU tensors take the plain
     version."""
-    if fgr.device.type == "cpu" and alpha.device.type == "cpu":
-        return composite_rgba_packed_plain(fgr, alpha, bg)
-    if fgr.device.type != "cuda" or alpha.device != fgr.device:
+    if alpha.device != fgr.device or fgr.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported devices {fgr.device}, {alpha.device}")
-    if (fgr.dim() != 4 or fgr.shape[-1] != 3
+    if fgr.device.type == "cuda" and (
+            fgr.dim() != 4 or fgr.shape[-1] != 3
             or alpha.shape != fgr.shape[:3] + (1,)
             or fgr.dtype != torch.float32 or alpha.dtype != torch.float32):
         raise ValueError("fgr (N, H, W, 3) and alpha (N, H, W, 1), float32")
-    n, h, w, _ = fgr.shape
-    fgr = fgr.contiguous()
-    alpha = alpha.contiguous()
     color = img = None
-    per_frame = 0
     if bg is not None and (bg.dim() if torch.is_tensor(bg)
                            else np.ndim(bg)) == 1:
         if len(bg) != 3:
             raise ValueError("a background color has 3 values")
-        color = ctypes.cast((ctypes.c_float * 3)(*[float(v) for v in bg]),
-                            ctypes.c_void_p)
+        color = [float(v) for v in bg]
     elif bg is not None:
-        img = _bg_tensor(bg, fgr).contiguous()
-        per_frame = int(img.dim() == 4)
-    out = torch.empty((n, h, w), dtype=torch.uint32, device=fgr.device)
+        img = _bg_tensor(bg, fgr)
+    return library.words(torch.ops.vidmat_torch.composite_rgba_packed.default(
+        fgr, alpha, img, color))
+
+
+def _launch_composite_rgba_packed(fgr, alpha, img, color):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
+    n, h, w, _ = fgr.shape
+    fgr = fgr.contiguous()
+    alpha = alpha.contiguous()
+    c_color = None
+    if color is not None:
+        c_color = ctypes.cast((ctypes.c_float * 3)(*color), ctypes.c_void_p)
+    if img is not None:
+        img = img.contiguous()
+    out = torch.empty((n, h, w), dtype=torch.int32, device=fgr.device)
     stream = torch.cuda.current_stream(fgr.device).cuda_stream
-    err = _kernel()(fgr.data_ptr(), alpha.data_ptr(), color,
-                    None if img is None else img.data_ptr(), per_frame,
+    err = _kernel()(fgr.data_ptr(), alpha.data_ptr(), c_color,
+                    None if img is None else img.data_ptr(),
+                    int(img is not None and img.dim() == 4),
                     out.data_ptr(), n, h, w, stream)
     _build.check(err, "composite_rgba_packed")
     composite_rgba_packed.launches += 1

@@ -6,8 +6,10 @@ Replaces the TPU kernel ``guided_filter_coeffs``
 function, two variants of the same math). The CUDA kernel is
 ``csrc/gf_coeffs.cu``: one launch, statistics, a and b and their box means
 in shared memory per output tile; it is bound by bytes, and bit-exact to
-the plain version. ``guided_filter_coeffs`` launches it for CUDA tensors
-and runs ``guided_filter_coeffs_plain`` for CPU tensors.
+the plain version. ``guided_filter_coeffs`` calls the op
+``vidmat_torch::guided_filter_coeffs`` (``ops/library.py``), which
+launches it for CUDA tensors and runs ``guided_filter_coeffs_plain`` for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import functools
 
 import torch
 
-from vidmat_torch.ops import _build
+from vidmat_torch.ops import _build, library
 from vidmat_torch.ops.guided_filter import box_mean
 
 
@@ -62,20 +64,30 @@ def guided_filter_coeffs(guide: torch.Tensor, p: torch.Tensor,
     Returns (mean_a, mean_b), each (N, H, W, 4) float32; the output at any
     resolution is ``upsample(mean_a) * guide_full + upsample(mean_b)``.
 
+    Calls ``vidmat_torch::guided_filter_coeffs`` (``ops/library.py``):
     CUDA tensors launch ``csrc/gf_coeffs.cu`` (radius 0 to
     ``MAX_RADIUS``; a larger one raises); CPU tensors take the plain
     version."""
-    if guide.device.type == "cpu" and p.device.type == "cpu":
-        return guided_filter_coeffs_plain(guide, p, radius, eps)
-    if guide.device.type != "cuda" or p.device != guide.device:
+    if guide.device != p.device or guide.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported devices {guide.device}, {p.device}")
+    if guide.device.type == "cuda":
+        n, h, w, c = p.shape
+        if (guide.shape != (n, h, w, 1) or c != 4
+                or guide.dtype != torch.float32
+                or p.dtype != torch.float32):
+            raise ValueError("guide (N, H, W, 1) and p (N, H, W, 4), "
+                             "float32")
+        if not 0 <= int(radius) <= MAX_RADIUS:
+            raise ValueError(f"radius {radius}: the kernel takes 0 to "
+                             f"{MAX_RADIUS} (its block's shared memory)")
+    return torch.ops.vidmat_torch.guided_filter_coeffs.default(
+        guide, p, int(radius), float(eps))
+
+
+def _launch_guided_filter_coeffs(guide, p, radius, eps):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
     n, h, w, c = p.shape
-    if (guide.shape != (n, h, w, 1) or c != 4 or guide.dtype != torch.float32
-            or p.dtype != torch.float32):
-        raise ValueError("guide (N, H, W, 1) and p (N, H, W, 4), float32")
-    if not 0 <= int(radius) <= MAX_RADIUS:
-        raise ValueError(f"radius {radius}: the kernel takes 0 to "
-                         f"{MAX_RADIUS} (its block's shared memory)")
     guide = guide.contiguous()
     p = p.contiguous()
     if p.data_ptr() % 16:  # one float4 per pixel

@@ -13,13 +13,13 @@ All arrays NHWC float32.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
+from vidmat_torch._device import device_constant
 
-@functools.lru_cache(maxsize=None)
+
+@device_constant
 def _luma_weights(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     # Made once per device: a host-to-device copy inside a captured CUDA
     # graph (the pipeline's chunk body) is not allowed.

@@ -4,8 +4,10 @@ of vidmat/ops/pallas/ingest_kernel.py).
 Replaces the TPU kernel ``ingest_pool_normalize``
 (vidmat/ops/pallas/ingest_kernel.py:140, pallas_call at :122). The CUDA
 kernel is ``csrc/ingest.cu``; it is bound by bytes (the u8 frame read
-once, the pooled grid written once). ``ingest_pool_normalize`` launches it
-for CUDA tensors and runs ``ingest_pool_normalize_plain`` for CPU tensors.
+once, the pooled grid written once). ``ingest_pool_normalize`` calls the
+op ``vidmat_torch::ingest_pool_normalize`` (``ops/library.py``), which
+launches it for CUDA tensors and runs ``ingest_pool_normalize_plain`` for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from vidmat_torch.ops import _build
+from vidmat_torch._device import device_constant
+from vidmat_torch.ops import _build, library
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,7 +39,7 @@ def _norm_params(c: int, scale, offset) -> tuple[list, list]:
     return scale, offset
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _norm_tensors(scale: tuple, offset: tuple, device: torch.device):
     # Made once per device: a host-to-device copy inside a captured CUDA
     # graph (the pipeline's chunk) is not allowed.
@@ -73,21 +76,30 @@ def ingest_pool_normalize(frames_u8: torch.Tensor, pool: int = 1,
     ``out_dtype`` (bfloat16 or float32), normalized per channel as
     ``x * scale + offset`` (default: scale 1/255, offset 0).
 
+    Calls ``vidmat_torch::ingest_pool_normalize`` (``ops/library.py``):
     CUDA tensors launch ``csrc/ingest.cu``; CPU tensors take the plain
     version."""
-    if frames_u8.device.type == "cpu":
-        return ingest_pool_normalize_plain(frames_u8, pool, scale, offset,
-                                           out_dtype)
-    if frames_u8.device.type != "cuda":
+    if frames_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {frames_u8.device}")
-    if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4:
-        raise ValueError("frames must be (N, H, W, C) uint8")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"unsupported out_dtype {out_dtype}")
+    if frames_u8.device.type == "cuda":
+        if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4:
+            raise ValueError("frames must be (N, H, W, C) uint8")
+        if out_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"unsupported out_dtype {out_dtype}")
+        _, h, w, c = frames_u8.shape
+        if h % pool or w % pool or not 1 <= c <= 4:
+            raise ValueError(f"frame {tuple(frames_u8.shape)} / pool "
+                             f"{pool}")
+    scale, offset = _norm_params(frames_u8.shape[-1], scale, offset)
+    return torch.ops.vidmat_torch.ingest_pool_normalize.default(
+        frames_u8, pool, scale, offset, out_dtype)
+
+
+def _launch_ingest_pool_normalize(frames_u8, pool, scale, offset,
+                                  out_dtype):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
     n, h, w, c = frames_u8.shape
-    if h % pool or w % pool or not 1 <= c <= 4:
-        raise ValueError(f"frame {tuple(frames_u8.shape)} / pool {pool}")
-    scale, offset = _norm_params(c, scale, offset)
     frames_u8 = frames_u8.contiguous()
     out = torch.empty((n, h // pool, w // pool, c), dtype=out_dtype,
                       device=frames_u8.device)

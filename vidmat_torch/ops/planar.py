@@ -23,12 +23,14 @@ then the cast to the plane dtype (bfloat16 or float32). In the fused
 kernels an intermediate is cast to the plane dtype exactly where the JAX
 kernel casts it, and is zero outside the image.
 
-Each ``planar_*`` wrapper launches its CUDA kernel (``csrc/planar_conv.cu``,
-``csrc/planar_conv2.cu``, ``csrc/planar_gru.cu``) for CUDA tensors, raises
-on what the kernel does not take, and runs its ``*_plain`` twin for CPU
-tensors only. ``.launches`` counts kernel launches. On bfloat16 planes
-all four run on the tensor cores (``csrc/planar_mma.cuh``), planar_conv
-with its weights packed once into the kernel's staged layout
+Each ``planar_*`` wrapper calls its op (``vidmat_torch::planar_conv``,
+..., ``ops/library.py``), which launches the CUDA kernel
+(``csrc/planar_conv.cu``, ``csrc/planar_conv2.cu``, ``csrc/planar_gru.cu``)
+for CUDA tensors and runs the ``*_plain`` twin for CPU tensors only; the
+wrapper raises on what the kernel does not take. ``.launches`` counts
+kernel launches. On bfloat16 planes all four run on the tensor cores
+(``csrc/planar_mma.cuh``), planar_conv with its weights packed once into
+the kernel's staged layout
 (``pack_conv_weight``); ``planar_conv_plan``, ``planar_conv2_plan`` and
 ``planar_gru_plan`` report the tile, block count and shared memory such a
 launch takes. The bf16 kernels give the values of one fixed summation
@@ -45,7 +47,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from vidmat_torch.ops import _build
+from vidmat_torch.ops import _build, library
 
 _ACTS = {"none": 0, "relu": 1}
 _MAX_INPUTS = 3
@@ -268,48 +270,49 @@ def planar_conv(xs: Sequence[torch.Tensor], w: torch.Tensor,
                 act: str = "relu", packed: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """Fused multi-input conv + affine + activation (planar_conv_plain).
-    CUDA tensors launch ``csrc/planar_conv.cu``; bfloat16 planes read the
-    weights as ``packed`` (``pack_conv_weight(w)``, packed here when not
-    given)."""
+    Calls ``vidmat_torch::planar_conv``: CUDA tensors launch
+    ``csrc/planar_conv.cu``; bfloat16 planes read the weights as
+    ``packed`` (``pack_conv_weight(w)``, packed here when not given)."""
     xs = list(xs)
-    if _on_cpu(*xs, w, scale, bias):
-        return planar_conv_plain(xs, w, scale, bias, stride, act)
+    if not _on_cpu(*xs, w, scale, bias):
+        _, _, _, f32 = _check_planes(xs, w, scale, bias, stride)
+        if not f32:
+            cout, cin, k = w.shape[0], w.shape[1], w.shape[-1]
+            packed = pack_conv_weight(w) if packed is None else packed
+            kp = -(-cin // 16) * 16
+            if (packed.shape != (-(-cout // 8) * 8, k * k * kp + 8)
+                    or packed.dtype != w.dtype or packed.device != w.device
+                    or not packed.is_contiguous()):
+                raise ValueError("packed weights must be "
+                                 "pack_conv_weight(w), contiguous")
+        else:
+            packed = None
+    return torch.ops.vidmat_torch.planar_conv.default(
+        xs, w, scale, bias, stride, act, packed)
+
+
+def _launch_planar_conv(xs, w, scale, bias, stride, act, packed):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
     n, h, wd, f32 = _check_planes(xs, w, scale, bias, stride)
-    cout, cin, k = w.shape[0], w.shape[1], w.shape[-1]
-    wp = None
-    if not f32:
-        wp = pack_conv_weight(w) if packed is None else packed
-        kp = -(-cin // 16) * 16
-        if (wp.shape != (-(-cout // 8) * 8, k * k * kp + 8)
-                or wp.dtype != w.dtype or wp.device != w.device
-                or not wp.is_contiguous() or wp.data_ptr() % 16):
-            raise ValueError("packed weights must be pack_conv_weight(w), "
-                             "contiguous and 16-byte aligned")
+    cout, k = w.shape[0], w.shape[-1]
+    if packed is not None and packed.data_ptr() % 16:
+        raise ValueError("packed weights must be 16-byte aligned")
     oh, ow = _out_hw(h, wd, k, stride)
     out = torch.empty((n, cout, oh, ow), dtype=xs[0].dtype,
                       device=xs[0].device)
     ptrs, cins, n_in = _inputs(xs)
     err = _fn("planar_conv", "vm_planar_conv", (_P, _P, _I) + (_P,) * 5
               + (_I,) * 8 + (_P,))(
-        ptrs, cins, n_in, w.data_ptr(), None if wp is None else
-        wp.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n,
-        h, wd, cout, k, stride, _ACTS[act], f32, _stream(out))
+        ptrs, cins, n_in, w.data_ptr(), None if packed is None else
+        packed.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        n, h, wd, cout, k, stride, _ACTS[act], f32, _stream(out))
     _check_launch(err, "planar_conv")
     planar_conv.launches += 1
     return out
 
 
-def planar_conv2(xs: Sequence[torch.Tensor], w1: torch.Tensor,
-                 scale1: torch.Tensor, bias1: torch.Tensor, w2: torch.Tensor,
-                 scale2: torch.Tensor, bias2: torch.Tensor, stride: int = 1,
-                 act: str = "relu", act2: str = "none") -> torch.Tensor:
-    """Fused conv -> affine -> act -> 3x3 conv -> affine -> act2 with the
-    intermediate kept in shared memory (planar_conv2_plain). CUDA tensors
-    launch ``csrc/planar_conv2.cu``."""
-    xs = list(xs)
-    if _on_cpu(*xs, w1, scale1, bias1, w2, scale2, bias2):
-        return planar_conv2_plain(xs, w1, scale1, bias1, w2, scale2, bias2,
-                                  stride, act, act2)
+def _check_conv2(xs, w1, scale1, bias1, w2, scale2, bias2, stride):
     n, h, wd, f32 = _check_planes(xs, w1, scale1, bias1, stride)
     cmid, cout = w1.shape[0], w2.shape[0]
     if (w1.shape[-1] != 3 or w2.shape != (cout, cmid, 3, 3)
@@ -318,6 +321,31 @@ def planar_conv2(xs: Sequence[torch.Tensor], w1: torch.Tensor,
         raise ValueError(f"both convs must be 3x3, the second ({cout}, "
                          f"{cmid}, 3, 3)")
     _check_affine(cout, w2.device, scale2, bias2)
+    return n, h, wd, f32
+
+
+def planar_conv2(xs: Sequence[torch.Tensor], w1: torch.Tensor,
+                 scale1: torch.Tensor, bias1: torch.Tensor, w2: torch.Tensor,
+                 scale2: torch.Tensor, bias2: torch.Tensor, stride: int = 1,
+                 act: str = "relu", act2: str = "none") -> torch.Tensor:
+    """Fused conv -> affine -> act -> 3x3 conv -> affine -> act2 with the
+    intermediate kept in shared memory (planar_conv2_plain). Calls
+    ``vidmat_torch::planar_conv2``: CUDA tensors launch
+    ``csrc/planar_conv2.cu``."""
+    xs = list(xs)
+    if not _on_cpu(*xs, w1, scale1, bias1, w2, scale2, bias2):
+        _check_conv2(xs, w1, scale1, bias1, w2, scale2, bias2, stride)
+    return torch.ops.vidmat_torch.planar_conv2.default(
+        xs, w1, scale1, bias1, w2, scale2, bias2, stride, act, act2)
+
+
+def _launch_planar_conv2(xs, w1, scale1, bias1, w2, scale2, bias2, stride,
+                         act, act2):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
+    n, h, wd, f32 = _check_conv2(xs, w1, scale1, bias1, w2, scale2, bias2,
+                                 stride)
+    cmid, cout = w1.shape[0], w2.shape[0]
     oh, ow = _out_hw(h, wd, 3, stride)
     out = torch.empty((n, cout, oh, ow), dtype=xs[0].dtype,
                       device=xs[0].device)
@@ -348,22 +376,35 @@ def _check_gru(h, wg, bg, wc, bc, n, hh, ww):
     return c
 
 
+def _check_conv_gru(xs, w, scale, bias, h, wg, bg, wc, bc):
+    n, hh, ww, f32 = _check_planes(xs, w, scale, bias)
+    c = _check_gru(h, wg, bg, wc, bc, n, hh, ww)
+    if w.shape[-1] != 3 or w.shape[0] != 2 * c or h.dtype != xs[0].dtype:
+        raise ValueError(f"conv must be 3x3 with {2 * c} outputs, h in the "
+                         "plane dtype")
+    return n, hh, ww, c, f32
+
+
 def planar_conv_gru(xs: Sequence[torch.Tensor], w: torch.Tensor,
                     scale: torch.Tensor, bias: torch.Tensor, h: torch.Tensor,
                     wg: torch.Tensor, bg: torch.Tensor, wc: torch.Tensor,
                     bc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused decoder stage (planar_conv_gru_plain): conv + split + ConvGRU
     in one launch; the conv's output never reaches device memory except
-    its first half ``a``. CUDA tensors launch ``csrc/planar_gru.cu``."""
+    its first half ``a``. Calls ``vidmat_torch::planar_conv_gru``: CUDA
+    tensors launch ``csrc/planar_gru.cu``."""
     xs = list(xs)
-    if _on_cpu(*xs, w, scale, bias, h, wg, bg, wc, bc):
-        return planar_conv_gru_plain(xs, w, scale, bias, h, wg, bg, wc, bc)
-    n, hh, ww, f32 = _check_planes(xs, w, scale, bias)
-    feats = w.shape[0]
-    c = _check_gru(h, wg, bg, wc, bc, n, hh, ww)
-    if w.shape[-1] != 3 or feats != 2 * c or h.dtype != xs[0].dtype:
-        raise ValueError(f"conv must be 3x3 with {2 * c} outputs, h in the "
-                         "plane dtype")
+    if not _on_cpu(*xs, w, scale, bias, h, wg, bg, wc, bc):
+        _check_conv_gru(xs, w, scale, bias, h, wg, bg, wc, bc)
+    return torch.ops.vidmat_torch.planar_conv_gru.default(
+        xs, w, scale, bias, h, wg, bg, wc, bc)
+
+
+def _launch_planar_conv_gru(xs, w, scale, bias, h, wg, bg, wc, bc):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
+    n, hh, ww, c, f32 = _check_conv_gru(xs, w, scale, bias, h, wg, bg, wc,
+                                        bc)
     a = torch.empty((n, c, hh, ww), dtype=xs[0].dtype, device=h.device)
     h_new = torch.empty_like(h)
     ptrs, cins, n_in = _inputs(xs)
@@ -378,20 +419,32 @@ def planar_conv_gru(xs: Sequence[torch.Tensor], w: torch.Tensor,
     return a, h_new
 
 
-def planar_gru(x: torch.Tensor, h: torch.Tensor, wg: torch.Tensor,
-               bg: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor
-               ) -> torch.Tensor:
-    """Standalone ConvGRU step (planar_gru_plain), x and h (N, C, H, W).
-    CUDA tensors launch ``csrc/planar_gru.cu``."""
-    if _on_cpu(x, h, wg, bg, wc, bc):
-        return planar_gru_plain(x, h, wg, bg, wc, bc)
+def _check_planar_gru(x, h, wg, bg, wc, bc):
     if x.shape != h.shape or x.dtype != h.dtype or x.device != h.device \
             or not x.is_contiguous():
         raise ValueError("x and h must be contiguous, of one shape and dtype")
     if h.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported plane dtype {h.dtype}")
     n, _, hh, ww = h.shape
-    c = _check_gru(h, wg, bg, wc, bc, n, hh, ww)
+    return _check_gru(h, wg, bg, wc, bc, n, hh, ww)
+
+
+def planar_gru(x: torch.Tensor, h: torch.Tensor, wg: torch.Tensor,
+               bg: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor
+               ) -> torch.Tensor:
+    """Standalone ConvGRU step (planar_gru_plain), x and h (N, C, H, W).
+    Calls ``vidmat_torch::planar_gru``: CUDA tensors launch
+    ``csrc/planar_gru.cu``."""
+    if not _on_cpu(x, h, wg, bg, wc, bc):
+        _check_planar_gru(x, h, wg, bg, wc, bc)
+    return torch.ops.vidmat_torch.planar_gru.default(x, h, wg, bg, wc, bc)
+
+
+def _launch_planar_gru(x, h, wg, bg, wc, bc):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
+    c = _check_planar_gru(x, h, wg, bg, wc, bc)
+    n, _, hh, ww = h.shape
     h_new = torch.empty_like(h)
     err = _fn("planar_gru", "vm_planar_gru", (_P,) * 7 + (_I,) * 5 + (_P,))(
         x.data_ptr(), h.data_ptr(), wg.data_ptr(), bg.data_ptr(),

@@ -21,8 +21,10 @@ and of raw-foreground output: float32 alpha and foreground, no composite.
 CUDA kernel: ``csrc/refine_float.cu``.
 
 The two kernels share ``csrc/refine_common.cuh`` (the upsample and the
-guide) and are bound by bytes. Each wrapper launches its kernel for CUDA
-tensors and runs its ``*_plain`` version for CPU tensors.
+guide) and are bound by bytes. Each wrapper calls its op
+(``vidmat_torch::fused_refine_composite``, ``::fused_refine_float``,
+``ops/library.py``), which launches the kernel for CUDA tensors and runs
+the ``*_plain`` version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from vidmat_torch.ops import _build
+from vidmat_torch.ops import _build, library
 from vidmat_torch.ops.composite import composite_rgba_packed_plain
 from vidmat_torch.ops.resize import resize_bilinear
 
@@ -66,8 +68,7 @@ def _check_shapes(frame_u8, a_lr, b_lr, pool):
 
 
 def _check_cuda_inputs(frame_u8, a_lr, b_lr, pool):
-    """Device, dtype, shape and alignment checks of both kernel wrappers;
-    returns the contiguous inputs."""
+    """Device, dtype and shape checks of both kernel wrappers."""
     if frame_u8.device.type != "cuda" or {a_lr.device, b_lr.device} != {
             frame_u8.device}:
         raise ValueError("frame and coefficient grids must share a CUDA "
@@ -76,6 +77,11 @@ def _check_cuda_inputs(frame_u8, a_lr, b_lr, pool):
             or a_lr.dtype != torch.float32 or b_lr.dtype != torch.float32):
         raise ValueError("frame (N, H, W, 3) uint8, grids float32")
     _check_shapes(frame_u8, a_lr, b_lr, pool)
+
+
+def _aligned(frame_u8, a_lr, b_lr):
+    """The launchers' contiguous inputs; the grids must be 16-byte
+    aligned."""
     frame_u8 = frame_u8.contiguous()
     a_lr = a_lr.contiguous()
     b_lr = b_lr.contiguous()
@@ -144,6 +150,22 @@ def fused_refine_composite_plain(frame_u8: torch.Tensor, a_lr: torch.Tensor,
     return composite_rgba_packed_plain(fgr, alpha, bg)
 
 
+def _bg_args(bg: Background, mode: str, device: torch.device):
+    """The background as the op takes it: (tensor or None, color or
+    None)."""
+    if mode == "none":
+        return None, None
+    if mode == "color":
+        return None, [float(v) for v in bg]
+    if device.type == "cuda":
+        if (not torch.is_tensor(bg) or bg.dtype != torch.float32
+                or bg.device != device):
+            raise ValueError(f"a {mode} background must be a float32 tensor "
+                             f"on {device}")
+        return bg, None
+    return torch.as_tensor(bg, dtype=torch.float32, device=device), None
+
+
 def fused_refine_composite(frame_u8: torch.Tensor, a_lr: torch.Tensor,
                            b_lr: torch.Tensor, bg: Background = None,
                            pool: int = 4) -> torch.Tensor:
@@ -154,31 +176,37 @@ def fused_refine_composite(frame_u8: torch.Tensor, a_lr: torch.Tensor,
     (an image or coarse background on CUDA is a float32 tensor on the
     frame's device). Returns (N, H, W) uint32.
 
+    Calls ``vidmat_torch::fused_refine_composite`` (``ops/library.py``):
     CUDA tensors launch ``csrc/refine_composite.cu``; CPU tensors take the
     plain version."""
-    if frame_u8.device.type == "cpu":
-        return fused_refine_composite_plain(frame_u8, a_lr, b_lr, bg, pool)
-    frame_u8, a_lr, b_lr = _check_cuda_inputs(frame_u8, a_lr, b_lr, pool)
+    if frame_u8.device.type == "cuda":
+        _check_cuda_inputs(frame_u8, a_lr, b_lr, pool)
     n, h, w, _ = frame_u8.shape
     mode = background_mode(bg, n, h, w, pool)
-    color = img = coarse = None
+    bg_t, color = _bg_args(bg, mode, frame_u8.device)
+    return library.words(torch.ops.vidmat_torch.fused_refine_composite.default(
+        frame_u8, a_lr, b_lr, bg_t, color, pool))
+
+
+def _launch_fused_refine_composite(frame_u8, a_lr, b_lr, bg, color, pool):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
+    frame_u8, a_lr, b_lr = _aligned(frame_u8, a_lr, b_lr)
+    n, h, w, _ = frame_u8.shape
+    mode = background_mode(color if bg is None else bg, n, h, w, pool)
+    c_color = img = coarse = None
     if mode == "color":
-        color = ctypes.cast((ctypes.c_float * 3)(*[float(v) for v in bg]),
-                            ctypes.c_void_p)
+        c_color = ctypes.cast((ctypes.c_float * 3)(*color), ctypes.c_void_p)
     elif mode != "none":
-        if (not torch.is_tensor(bg) or bg.dtype != torch.float32
-                or bg.device != frame_u8.device):
-            raise ValueError(f"a {mode} background must be a float32 tensor "
-                             f"on {frame_u8.device}")
         bg = bg.contiguous()
         if mode == "coarse":
             coarse = bg.data_ptr()
         else:
             img = bg.data_ptr()
-    out = torch.empty((n, h, w), dtype=torch.uint32, device=frame_u8.device)
+    out = torch.empty((n, h, w), dtype=torch.int32, device=frame_u8.device)
     stream = torch.cuda.current_stream(frame_u8.device).cuda_stream
     err = _kernel()(frame_u8.data_ptr(), a_lr.data_ptr(), b_lr.data_ptr(),
-                    out.data_ptr(), n, h, w, pool, color, img,
+                    out.data_ptr(), n, h, w, pool, c_color, img,
                     int(mode == "per_frame"), coarse, stream)
     _build.check(err, "fused_refine_composite")
     fused_refine_composite.launches += 1
@@ -195,11 +223,19 @@ def fused_refine_float(frame_u8: torch.Tensor, a_lr: torch.Tensor,
     float32 (channels [alpha, r, g, b]). Returns (alpha (N, H, W, 1),
     fgr (N, H, W, 3)) float32 in [0, 1]; no composite, no quantization.
 
-    CUDA tensors launch ``csrc/refine_float.cu``; CPU tensors take the
-    plain version."""
-    if frame_u8.device.type == "cpu":
-        return fused_refine_float_plain(frame_u8, a_lr, b_lr, pool)
-    frame_u8, a_lr, b_lr = _check_cuda_inputs(frame_u8, a_lr, b_lr, pool)
+    Calls ``vidmat_torch::fused_refine_float`` (``ops/library.py``): CUDA
+    tensors launch ``csrc/refine_float.cu``; CPU tensors take the plain
+    version."""
+    if frame_u8.device.type == "cuda":
+        _check_cuda_inputs(frame_u8, a_lr, b_lr, pool)
+    return torch.ops.vidmat_torch.fused_refine_float.default(
+        frame_u8, a_lr, b_lr, pool)
+
+
+def _launch_fused_refine_float(frame_u8, a_lr, b_lr, pool):
+    """The CUDA implementation of the op: one launch of the kernel on the
+    current stream."""
+    frame_u8, a_lr, b_lr = _aligned(frame_u8, a_lr, b_lr)
     n, h, w, _ = frame_u8.shape
     alpha = torch.empty((n, h, w, 1), dtype=torch.float32,
                         device=frame_u8.device)

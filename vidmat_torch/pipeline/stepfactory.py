@@ -28,7 +28,8 @@ which runs the stateless stages (ingest, encoder and bottleneck, GF
 coefficients, the fused tail) once over a K-frame chunk and only the
 recurrent decoder per frame (vidmat/pipeline/stepfactory.py:656-693).
 ``static_skip_eps`` gives the fused tails the static-scene fast path
-(:608-654).
+(:608-654); a body built with ``export=True`` takes its branch with
+``torch.cond`` (the exported bundle's step, ``deploy.py``).
 
 Backgrounds (:199-204, 320-335, 536-551, 636-641, 687-700): a color or an
 (h, w, 3) image baked into the body; a per-call image (``bg_dynamic``, a
@@ -77,6 +78,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from vidmat_torch._device import full_fp32, in_full_fp32
 from vidmat_torch.config import ModelConfig, RefineConfig
@@ -155,6 +157,7 @@ def build_serving_body(
     use_pallas: Optional[bool] = None,
     kernels: bool = True,
     refiner: Optional[torch.nn.Module] = None,
+    export: bool = False,
 ) -> Tuple[Callable, ServingPlan]:
     """Build the serving body for a static (h, w, ratio) bucket.
 
@@ -206,6 +209,10 @@ def build_serving_body(
               the foreground the bilinear one (stepfactory.py:575-578);
               None takes the bilinear tail, as in the JAX package. Its
               convolutions run in full float32 in every body.
+    export:   the body is to be traced by ``torch.export`` (``deploy.py``):
+              the static-skip branch is a ``torch.cond`` on the device
+              and the skip count a tensor (the live body takes the branch
+              on the host and counts in Python).
 
     Returns (body, plan) where
       body(frame (N, h, w, C) uint8 (float32 with float_frames), state
@@ -329,7 +336,8 @@ def build_serving_body(
                             dtype=cdtype, device=dev),
                  torch.zeros((1, net_h, net_w, 4), device=dev),   # mean_a
                  torch.zeros((1, net_h, net_w, 4), device=dev),   # mean_b
-                 0)                                               # skips
+                 torch.zeros((), dtype=torch.int64, device=dev) if export
+                 else 0)                                          # skips
         return make_net_state(1), cache
 
     seg_kw = {}
@@ -418,13 +426,14 @@ def build_serving_body(
     lr_layout = (TileLayout(net_h, net_w, tile_size // pool,
                             tile_overlap // pool) if fused_tiled else None)
 
-    def coeffs(x, alpha, fgr):
+    def coeffs(x, alpha, fgr, guide=None):
         """Guided-filter coefficient grids at the coarse grid for the
-        fused tails; the guide comes from the ingested coarse frame's RGB.
-        Tiled: the statistics per coarse tile, all tiles as one batch,
-        and the coefficient grids feather-blended (stepfactory.py:
-        471-498)."""
-        guide = gray_guide(x[..., :3].float())
+        fused tails; the guide comes from the ingested coarse frame's RGB
+        (or is given). Tiled: the statistics per coarse tile, all tiles
+        as one batch, and the coefficient grids feather-blended
+        (stepfactory.py: 471-498)."""
+        if guide is None:
+            guide = gray_guide(x[..., :3].float())
         p = torch.cat([alpha, fgr], dim=-1)
         if lr_layout is None:
             return gf_coeffs(guide, p, refine.guided_radius,
@@ -498,6 +507,19 @@ def build_serving_body(
             fgr = resize_bilinear(fgr, h, w)
         return finish_float(alpha, fgr, bgv), new_state
 
+    def static_out(frame_u8, x, ma, mb, bgv):
+        """The tail of a static-skip step: on the current frame, from the
+        cached (or new) coefficients."""
+        if use_bg_blur:
+            # The blur of the current frame, not of the coefficients'
+            # reference: the tail always runs on the current frame.
+            bgv = (bg_from_x(x) if use_fused
+                   else resize_bilinear(bg_from_x(x), h, w))
+        if use_fused:
+            return fused_out(frame_u8, ma, mb, bgv)
+        return finish_float(*float_tail(frame_u8[..., :3], ma, mb, pool),
+                            bgv)
+
     @torch.inference_mode()
     def body_static(frame_u8, state, bgv):
         """The net and the coefficients run only when the coarse frame
@@ -514,17 +536,43 @@ def build_serving_body(
             ref_x = x
         else:
             skips += 1
-        if use_bg_blur:
-            # The blur of the current frame, not of the coefficients'
-            # reference: the tail always runs on the current frame.
-            bgv = (bg_from_x(x) if use_fused
-                   else resize_bilinear(bg_from_x(x), h, w))
-        if use_fused:
-            out = fused_out(frame_u8, ma, mb, bgv)
-        else:
-            out = finish_float(*float_tail(frame_u8[..., :3], ma, mb, pool),
-                               bgv)
-        return out, (net_state, (ref_x, ma, mb, skips))
+        return static_out(frame_u8, x, ma, mb, bgv), (
+            net_state, (ref_x, ma, mb, skips))
+
+    @torch.inference_mode()
+    def body_static_cond(frame_u8, state, bgv):
+        """``body_static`` with the branch taken on the device
+        (``torch.cond``), for ``torch.export``: the two branches return
+        new tensors of the same shapes (flat: the tracer checks the
+        strides of its branches' outputs symbolically and refuses those
+        of dense 4-d tensors), the net's state flattened."""
+        net_state, (ref_x, ma, mb, skips) = state
+        x = ingest_x(frame_u8)
+        delta = (x.float() - ref_x.float()).abs().mean()
+        leaves, spec = tree_flatten(net_state)
+        shapes = [t.shape for t in (ref_x, ma, mb, skips, *leaves)]
+        # The guide outside the branch: a branch holds no constant of its
+        # own (gray_guide's weights).
+        guide = gray_guide(x[..., :3].float())
+
+        def flat(*ts):
+            return tuple(t.reshape(-1).clone() for t in ts)
+
+        def compute(x, guide, ref_x, ma, mb, skips, *leaves):
+            alpha, fgr, ns = net_from_x(x, tree_unflatten(list(leaves),
+                                                          spec))
+            return flat(x, *coeffs(x, alpha, fgr, guide), skips,
+                        *tree_flatten(ns)[0])
+
+        def skip(x, guide, ref_x, ma, mb, skips, *leaves):
+            return flat(ref_x, ma, mb, skips + 1, *leaves)
+
+        ref_x, ma, mb, skips, *leaves = (
+            t.reshape(shape) for t, shape in zip(torch.cond(
+                delta > static_skip_eps, compute, skip,
+                (x, guide, ref_x, ma, mb, skips, *leaves)), shapes))
+        return static_out(frame_u8, x, ma, mb, bgv), (
+            tree_unflatten(leaves, spec), (ref_x, ma, mb, skips))
 
     chunk_body = None
     if use_fused and planar and not use_static_skip and not bg_dynamic:
@@ -542,7 +590,8 @@ def build_serving_body(
             return fused_out(frames_u8, ma, mb,
                              bg_from_x(x) if use_bg_blur else bg), state
 
-    impl = body_static if use_static_skip else body_impl
+    impl = (body_impl if not use_static_skip
+            else body_static_cond if export else body_static)
     if cdtype == torch.float32:
         # fp32 serving and the session's parity mode: no TF32 convolutions
         # on the card (the JAX package pins float32).

@@ -1,8 +1,9 @@
 """Trimaps: the canonical byte form of a user trimap and a marker for
-pre-trimmed trimap streams (counterpart of vidmat/pipeline/trimap.py), and
+pre-trimmed trimap streams (counterpart of vidmat/pipeline/trimap.py), the
+keyframe test of a trimap source (``single_trimap``), and
 trimaps from rough masks and from ground-truth alpha (counterpart of
 ``trimap_from_mask``, ``alpha_to_trimap`` and ``_box_dilate`` in
-vidmat/train/data.py). numpy only.
+vidmat/train/data.py). numpy only (cv2 to read a keyframe file).
 
 The byte convention: uint8 {0, 128, 255} == float {0, 0.5, 1} for
 background / unknown / foreground."""
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+
+from vidmat_torch.io.reader import _IMG_EXTS, read_image
 
 
 class PreTrimmedTrimaps:
@@ -25,6 +28,20 @@ class PreTrimmedTrimaps:
 
     def __iter__(self):
         return iter(self.frames)
+
+
+def single_trimap(src) -> Optional[np.ndarray]:
+    """A ``trimap_source`` naming one still (keyframe propagation): an
+    array, or one image file (read with cv2); None for a per-frame stream
+    (video path, image directory or pattern, iterable of frames)."""
+    import os
+
+    if isinstance(src, np.ndarray):
+        return src
+    if (isinstance(src, str) and os.path.isfile(src)
+            and os.path.splitext(src)[1].lower() in _IMG_EXTS):
+        return read_image(src)
+    return None
 
 
 def canon_trimap_u8(tri: np.ndarray, hw: Tuple[int, int],

@@ -61,7 +61,7 @@ from vidmat_torch.config import ModelConfig, PipelineConfig, StreamConfig
 from vidmat_torch.io.backgrounds import (BgFrameSource, prepare_bg_image,
                                          prepare_plate_u8)
 from vidmat_torch.io.native import pad_into, unpack_rgba
-from vidmat_torch.io.reader import _IMG_EXTS, FrameSource, read_image
+from vidmat_torch.io.reader import FrameSource
 from vidmat_torch.io.writer import open_sink
 from vidmat_torch.models.weights import (build_network, build_refiner,
                                          default_refiner_variables,
@@ -70,7 +70,8 @@ from vidmat_torch.ops.resize import downsample_ratio_shape
 from vidmat_torch.pipeline.graph import ChunkGraph, per_frame_chunk
 from vidmat_torch.pipeline.stepfactory import (ServingPlan,
                                                build_serving_body)
-from vidmat_torch.pipeline.trimap import PreTrimmedTrimaps, canon_trimap_u8
+from vidmat_torch.pipeline.trimap import (PreTrimmedTrimaps, canon_trimap_u8,
+                                          single_trimap)
 from vidmat_torch.utils.metrics import RunMetrics
 
 Target = Union[str, Callable[[np.ndarray], None]]
@@ -83,20 +84,6 @@ def auto_downsample_ratio(h: int, w: int) -> float:
     if short <= 512:
         return 1.0
     return max(0.125, 512.0 / short)
-
-
-def single_trimap(src) -> Optional[np.ndarray]:
-    """A ``trimap_source`` naming one still (keyframe propagation): an
-    array, or one image file (read with cv2); None for a per-frame stream
-    (video path, image directory or pattern, iterable of frames)."""
-    import os
-
-    if isinstance(src, np.ndarray):
-        return src
-    if (isinstance(src, str) and os.path.isfile(src)
-            and os.path.splitext(src)[1].lower() in _IMG_EXTS):
-        return read_image(src)
-    return None
 
 
 def attach_trimap(frame: np.ndarray, tri, frame_idx: int) -> np.ndarray:

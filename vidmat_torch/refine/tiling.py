@@ -20,11 +20,12 @@ the first eager call makes them).
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from vidmat_torch._device import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +94,7 @@ def _inv_norm(layout: TileLayout) -> np.ndarray:
     return (1.0 / norm)[None, :, :, None]
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _blend_tensors(layout: TileLayout, dtype: torch.dtype,
                    device: torch.device):
     """(weight (1, th, tw, 1), inv_norm (1, H, W, 1)) on the device."""
