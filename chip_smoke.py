@@ -212,6 +212,17 @@ Phases (any failure exits nonzero and prints no result line):
      (relative |d| <= 1e-5, Grad 1e-4), ms per frame
   T. bench_torch.py's 1080p, 480p, e2e, 4k, 4k_tiled and multistream
      records
+  G. training (vidmat_torch/train) on the fast_demo recipe's model
+     (video_1080p: s2d=2): one float32 train step at 64x64, T=2, N=2
+     with the Laplacian and boundary terms, card against CPU (per-leaf
+     gradients |dg|/|g| <= 1e-4, loss and terms 1e-5 relative, running
+     statistics 1e-5), no hand-written kernel launched over the step;
+     remat on and off (statistics equal, gradients within 1e-5); 50 steps of the recipe on one 128x128 batch
+     (T=4, N=2), the loss falling; six train_on_clips steps interleaving
+     segmentation every third; ``python -m vidmat_torch.cli train``
+     writing an .npz that convert_video serves; step ms, clips/s and
+     peak memory at 64, 128, 256 (T=4, N=2) and 512 px (T=4, N=4), the
+     device's busy share of a step at 128 and 512 px
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -4352,6 +4363,268 @@ def phase_cli_eval(dev, alphas, gt):
     return rows[str(dev)][2]
 
 
+# Training (phase G): the fast_demo recipe's model (video_1080p: s2d=2,
+# encoder (16, 24, 40, 64), decoder (48, 32, 24, 16)).
+G_RECIPE_STEPS = 50
+G_LR = 2e-4
+# (size, T, N) of the logged step times; the last is reported only.
+G_SIZES = ((64, 4, 2), (128, 4, 2), (256, 4, 2), (512, 4, 4))
+
+
+def _capture_optimizer():
+    """An optimizer that keeps the gradients in its state and returns zero
+    updates: a step's gradients, read per leaf."""
+    import torch
+
+    from vidmat_torch.train import optim
+
+    return optim.GradientTransformation(
+        lambda p: {"g": optim.tree_map(optim.zeros_like, p)},
+        lambda g, s, p=None: (optim.tree_map(torch.zeros_like, g),
+                              {"g": g}))
+
+
+def _flat_host(tree):
+    from vidmat_torch.models.weights import (flatten_variables,
+                                             numpy_variables)
+
+    return flatten_variables(numpy_variables(tree))
+
+
+def _grad_step(mcfg, variables, batch, dev, **kw):
+    """One train step with the capturing optimizer: (grads, metrics,
+    batch_stats) on the host."""
+    from vidmat_torch.train.loop import TrainState, make_train_step
+
+    opt = _capture_optimizer()
+    step = make_train_step(mcfg, optimizer=opt, device=dev, **kw)
+    st, m = step(TrainState(variables=variables,
+                            opt_state=opt.init(variables["params"])), *batch)
+    return (_flat_host(st.opt_state["g"]),
+            {k: float(v) for k, v in m.items()},
+            _flat_host(st.variables["batch_stats"]))
+
+
+def _rel(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def train_step_times(mcfg, dev, size, t, n, steps=5, warmup=2,
+                     profile=False):
+    """Median synchronised ms of the fast_demo recipe's step (clip, Adam
+    with warm-up and cosine decay) at (size, T, N), clips/s and the peak
+    device memory of the steps above what was allocated before the
+    training state was made; with ``profile`` also the device time and
+    work items (kernels and copies) of one step (torch.profiler) and
+    their share of the median step (the device's busy share)."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch.models.weights import init_params
+    from vidmat_torch.train import optim
+    from vidmat_torch.train.data import synthetic_clip_batches
+    from vidmat_torch.train.loop import TrainState, make_train_step, to_device
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adam(
+        optim.warmup_cosine_decay_schedule(0.0, G_LR, 5, 4000,
+                                           end_value=G_LR * 1e-2)))
+    step = make_train_step(mcfg, optimizer=opt, device=dev)
+    v = to_device(init_params(mcfg, seed=0), dev)
+    state = TrainState(variables=v, opt_state=opt.init(v["params"]))
+    batch = [torch.from_numpy(x).to(dev) for x in next(
+        synthetic_clip_batches(t=t, n=n, h=size, w=size, seed=1))]
+    for _ in range(warmup):
+        state, m = step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    row = dict(size=size, T=t, N=n, step_ms=ms, clips_per_s=n * 1e3 / ms,
+               peak_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+               loss=float(m["loss"]))
+    if profile:
+        # Where a step's time goes: the device time and work items of one
+        # profiled step against the unprofiled step's wall time (the
+        # device's busy share; the profiler slows the host, not the
+        # device).
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle()
+            t0 = time.perf_counter()
+            state, m = step(state, *batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            settle()
+        kern, copy = device_ms(prof)
+        items = sum(ev.count for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+        row.update(prof_wall_ms=wall, device_ms=kern + copy,
+                   kernel_ms=kern, device_items=items,
+                   busy=(kern + copy) / ms)
+    return row
+
+
+def phase_train(kernels, gpu, dev):
+    """Phase G: training (vidmat_torch/train) on the card, the fast_demo
+    recipe's model. (a) one float32 train step at 64x64, T=2, N=2 with
+    the Laplacian and boundary terms, card against the same step on the
+    CPU (per-leaf gradients |dg|/|g| <= 1e-4, loss and terms 1e-5
+    relative, running statistics 1e-5), with every hand-written kernel's
+    launch count 0 over the step (training runs F.conv2d through
+    autograd); (b) remat on and off (cuDNN deterministic): running
+    statistics equal, gradients within 1e-5 (the order of autograd's
+    sums over frames); (c) 50 steps of the recipe
+    (clip, Adam, warm-up and cosine decay at lr 2e-4) on one fixed batch
+    at 128x128, T=4, N=2: the loss falls; (d) six steps of train_on_clips
+    interleaving segmentation every third step (order mat, mat, seg,
+    mat, mat, seg); (e) ``python -m vidmat_torch.cli train --steps 5`` in
+    a subprocess, its .npz served by convert_video; (f) step ms (median
+    of 5, synchronised), clips/s and peak memory at 64, 128 and 256 px
+    (T=4, N=2) and 512 px (T=4, N=4, reported only)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import vidmat_torch
+    from vidmat_torch.config import ModelConfig, preset_video_1080p
+    from vidmat_torch.models.weights import init_params, load_npz
+    from vidmat_torch.train import optim
+    from vidmat_torch.train.data import (synthetic_clip_batches,
+                                         synthetic_seg_batches)
+    from vidmat_torch.train.loop import (TrainState, make_train_step,
+                                         to_device, train_on_clips)
+
+    t_phase = time.perf_counter()
+    mcfg, _ = preset_video_1080p()
+    variables = init_params(mcfg, seed=0)
+    batch = next(synthetic_clip_batches(t=2, n=2, h=64, w=64, seed=3))
+    kw = dict(laplacian_weight=0.5, boundary_weight=2.0)
+    zero_counts(kernels)
+    g_dev, m_dev, s_dev = _grad_step(mcfg, variables, batch, dev, **kw)
+    step_launches = counts(kernels)
+    g_cpu, m_cpu, s_cpu = _grad_step(mcfg, variables, batch, "cpu", **kw)
+    worst_g = max(_rel(g_dev[k], g_cpu[k]) for k in g_cpu)
+    worst_m = max(abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                  for k in m_cpu)
+    worst_s = max(float(np.abs(s_dev[k] - s_cpu[k]).max()) for k in s_cpu)
+    log(f"[G] (a) one train step 64x64 T=2 N=2 (video_1080p model, "
+        f"laplacian 0.5, boundary 2.0), card against CPU: worst per-leaf "
+        f"|dg|/|g| {worst_g:.3e}, loss and terms {worst_m:.3e} relative, "
+        f"running stats {worst_s:.3e}; loss {m_dev['loss']:.6f}; kernel "
+        f"launches over the step {step_launches}")
+    assert set(g_dev) == set(g_cpu) and set(m_dev) == set(m_cpu)
+    assert worst_g <= 1e-4 and worst_m <= 1e-5 and worst_s <= 1e-5, (
+        worst_g, worst_m, worst_s)
+    assert not any(step_launches.values()), step_launches
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        runs = [_grad_step(mcfg, variables, batch, dev, remat=r, **kw)
+                for r in (True, False)]
+    (g1, m1, s1), (g0, m0, s0) = runs
+    remat_g = max(_rel(g1[k], g0[k]) for k in g0)
+    remat_s = sum(int(np.sum(s1[k] != s0[k])) for k in s0)
+    log(f"[G] (b) remat on against off (cuDNN deterministic): worst "
+        f"per-leaf |dg|/|g| {remat_g:.3e}, running-stat values unequal "
+        f"{remat_s}, loss {m1['loss']:.8f} / {m0['loss']:.8f}")
+    # The recompute folds nothing in (statistics equal); the gradients
+    # differ only by the order autograd sums the frames' contributions.
+    assert remat_g <= 1e-5 and remat_s == 0, (remat_g, remat_s)
+
+    opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adam(
+        optim.warmup_cosine_decay_schedule(
+            0.0, G_LR, min(100, max(1, G_RECIPE_STEPS // 10)),
+            G_RECIPE_STEPS, end_value=G_LR * 1e-2)))
+    step = make_train_step(mcfg, optimizer=opt, device=dev)
+    v = to_device(variables, dev)
+    state = TrainState(variables=v, opt_state=opt.init(v["params"]))
+    fixed = [torch.from_numpy(x).to(dev) for x in next(
+        synthetic_clip_batches(t=4, n=2, h=128, w=128, seed=0))]
+    losses, times = [], []
+    for _ in range(G_RECIPE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, *fixed)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    first, last = losses[0], float(np.mean(losses[-5:]))
+    log(f"[G] (c) fast_demo recipe, {G_RECIPE_STEPS} steps on one batch "
+        f"128x128 T=4 N=2: loss {first:.5f} -> {losses[-1]:.5f} (mean of "
+        f"the last 5 {last:.5f}, {last / first:.3f}x); step ms median "
+        f"{np.median(times[5:]):.2f} (the first {times[0]:.1f})")
+    assert np.all(np.isfinite(losses)) and last < 0.9 * first, losses
+
+    cfg = ModelConfig()
+    kinds = []
+    st = train_on_clips(
+        cfg, synthetic_clip_batches(t=2, n=2, h=64, w=64, seed=1),
+        num_steps=6, variables=init_params(cfg, seed=2), device=dev,
+        seg_data_iter=synthetic_seg_batches(t=2, n=2, h=64, w=64, seed=2),
+        seg_every=3, callback=lambda i, m: kinds.append(
+            "seg" if "seg_bce" in m else "mat"))
+    log(f"[G] (d) train_on_clips, seg every 3rd step: {kinds}; the tree "
+        f"grafted a seg_head: {'seg_head' in st.variables['params']}")
+    assert kinds == ["mat", "mat", "seg", "mat", "mat", "seg"], kinds
+    assert "seg_head" in st.variables["params"]
+
+    tmp = tempfile.mkdtemp(prefix="vidmat_train_")
+    try:
+        out = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "vidmat_torch.cli", "train", "--steps",
+             "5", "--size", "64", "--clip-len", "2", "--batch", "2",
+             "--out", out], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        assert res.stdout.strip().splitlines()[-1] == (
+            f"saved checkpoint to {out}.npz"), res.stdout[-2000:]
+        from vidmat_torch.io.fixtures import synthetic_frames_only
+
+        alphas = []
+        cv = vidmat_torch.convert_video(
+            list(synthetic_frames_only(64, 64, 4)),
+            output_alpha=alphas.append, variables=load_npz(out + ".npz"))
+        assert cv["frames"] == 4 and all(np.isfinite(a).all()
+                                         for a in alphas)
+        log(f"[G] (e) cli train --steps 5 ({cli_s:.1f} s in its process): "
+            f"{res.stdout.strip().splitlines()[-1]}; convert_video on it: "
+            f"{cv['frames']} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rows = [train_step_times(mcfg, dev, *s, profile=s[0] in (128, 512))
+            for s in G_SIZES]
+    for r in rows:
+        log(f"[G] (f) train step {r['size']}x{r['size']} T={r['T']} "
+            f"N={r['N']}: {r['step_ms']:.2f} ms (median of 5, "
+            f"synchronised), {r['clips_per_s']:.2f} clips/s, peak "
+            f"{r['peak_mib']:.1f} MiB ({gpu})")
+        if "busy" in r:
+            log(f"[G] (f) one step profiled at {r['size']}x{r['size']} "
+                f"({r['prof_wall_ms']:.2f} ms under the profiler): device "
+                f"{r['device_ms']:.2f} ms (kernels {r['kernel_ms']:.2f}), "
+                f"{r['device_items']} device work items; busy "
+                f"{100 * r['busy']:.1f}% of the unprofiled step")
+    with open(os.path.join(OUT_DIR, "train.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    log(f"[G] phase G took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4431,6 +4704,7 @@ def main() -> int:
     phase_profile(net, dev)
     phase_image(dev)
     phase_bench()
+    phase_train(kernels, gpu, dev)
     with open(os.path.join(OUT_DIR, "graphs.json"), "w") as f:
         json.dump(dict(GRAPHS, errormap={
             k: v for k, v in errormap.items() if k != "graph"}), f,

@@ -11,8 +11,9 @@
 - Subcommands: each driven with numpy-backed fakes in place of the
   port's video and image readers and writers (the card's machine has no
   cv2; the fakes keep every frame in memory), its outputs equal byte for
-  byte to the API called directly on the same frames; ``train`` and
-  ``multistream --pp`` exit naming their ROADMAP items.
+  byte to the API called directly on the same frames; ``train`` writes
+  the variables ``train_on_clips`` gives, which ``video --checkpoint``
+  serves; ``multistream --pp`` exits naming its ROADMAP item.
 """
 
 import argparse
@@ -298,8 +299,39 @@ def test_evaluate_equals_video_eval(store, tmp_path, capsys):
         assert json.load(f) == got
 
 
+def test_train_writes_a_checkpoint_video_reads(store, tmp_path, capsys):
+    """``train`` (ported with A.15) on synthetic clips writes the port's
+    .npz: the variables of train_on_clips called directly with the same
+    data, and ``video --checkpoint`` serves them as convert_video does."""
+    import vidmat_torch
+    from vidmat_torch import ModelConfig
+    from vidmat_torch.models.weights import flatten_variables, load_npz
+    from vidmat_torch.train.data import synthetic_clip_batches
+    from vidmat_torch.train.loop import train_on_clips
+
+    out = str(tmp_path / "ckpt")
+    assert cli.main(["train", "--steps", "2", "--size", "32", "--clip-len",
+                     "2", "--batch", "1", "--out", out,
+                     "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == (
+        f"saved checkpoint to {out}.npz")
+    got = load_npz(out + ".npz")
+    state = train_on_clips(ModelConfig(), synthetic_clip_batches(
+        t=2, n=1, h=32, w=32), num_steps=2, lr=1e-4, device="cpu",
+        callback=lambda i, m: None)
+    want = flatten_variables(state.variables)
+    assert set(flatten_variables(got)) == set(want)
+    for k, v in flatten_variables(got).items():
+        np.testing.assert_array_equal(v, want[k])
+    store["in.mp4"] = _clip(3)
+    assert cli.main(["video", "in.mp4", "--output-alpha", "a.mp4",
+                     "--checkpoint", out + ".npz", "--device", "cpu"]) == 0
+    alphas = []
+    vidmat_torch.convert_video(_clip(3), output_alpha=alphas.append,
+                               variables=got, device="cpu")
+    _equal(store["a.mp4"], alphas)
+
+
 def test_unported_subcommands_exit_naming_their_items():
-    with pytest.raises(SystemExit, match="A.15"):
-        cli.main(["train", "--steps", "1"])
     with pytest.raises(SystemExit, match=r"A\.12 \(more than one card\)"):
         cli.main(["multistream", "a.mp4", "--output-dir", "x", "--pp"])

@@ -37,7 +37,30 @@ ENTRY_POINTS = [("convert_video", None), ("matte_image", None),
                 ("deploy.ServingBundle", "convert"),
                 ("eval.VideoEval", "__init__"), ("eval.VideoEval", "update"),
                 ("eval.VideoEval", "summary"),
-                ("eval.evaluate_sequences", None)]
+                ("eval.evaluate_sequences", None),
+                # training (A.15)
+                ("train.loop.make_train_step", None),
+                ("train.loop.make_seg_train_step", None),
+                ("train.loop.train_on_clips", None),
+                ("train.loop.make_optimizer", None),
+                ("train.losses.matting_loss", None),
+                ("train.losses.segmentation_loss", None),
+                ("train.losses.laplacian_pyramid_loss", None),
+                ("train.refine.make_refiner_train_step", None),
+                ("train.refine.train_refiner", None),
+                ("train.dataset.ClipDirDataset", "__init__"),
+                ("train.dataset.with_trimaps", None),
+                ("train.dataset.as_seg_batches", None),
+                ("models.weights.init_params", None),
+                ("models.weights.graft_seg_params", None),
+                ("models.weights.graft_cond_params", None),
+                ("models.weights.randomize_bn_stats", None)] + [
+                (f"train.data.{fn}", None) for fn in (
+                    "synthetic_clip_batches", "synthetic_hard_clip_batches",
+                    "synthetic_hard_plate_batches", "alpha_to_trimap",
+                    "trimap_from_mask", "synthetic_ambiguous_clip_batches",
+                    "synthetic_plate_batches", "synthetic_trimap_batches",
+                    "synthetic_seg_batches")]
 CONFIGS = ["ModelConfig", "RefineConfig", "PipelineConfig", "StreamConfig"]
 
 
@@ -146,14 +169,15 @@ def test_lazy_exports_resolve_or_name_their_item(name):
 
 def test_import_loads_neither_deploy_eval_nor_cli():
     """``import vidmat_torch`` imports none of the modules of the bundles,
-    the evaluation and the command line (nor torch.export's loader
-    state): each is imported where it is used."""
+    the evaluation, the command line and training (nor torch.export's
+    loader state): each is imported where it is used."""
     import subprocess
     import sys
 
     mods = ["vidmat_torch.deploy", "vidmat_torch.eval",
             "vidmat_torch.eval.metrics", "vidmat_torch.cli",
-            "vidmat_torch.ops.library"]
+            "vidmat_torch.ops.library", "vidmat_torch.train",
+            "vidmat_torch.train.loop"]
     code = ("import sys, vidmat_torch; print(sorted(m for m in "
             f"{mods!r} if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], check=True,

@@ -160,6 +160,26 @@ def test_port_imports_neither_jax_nor_vidmat():
     assert not bad, bad
 
 
+def test_training_imports_no_jax_module():
+    """The training package and its tools, imported in a fresh process,
+    load none of jax, flax, optax, orbax or the JAX package."""
+    import subprocess
+
+    mods = ["vidmat_torch.train", "vidmat_torch.train.loop",
+            "vidmat_torch.train.data", "vidmat_torch.train.dataset",
+            "vidmat_torch.train.refine", "vidmat_torch.tools.train_eval",
+            "vidmat_torch.tools.train_seg"]
+    assert any(p.endswith(os.path.join("train", "loop.py"))
+               for p in _port_files())
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vidmat')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]", out
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from vidmat_torch import MattingSession, convert_video, matte_image
 
@@ -170,6 +190,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         MattingSession(64, 64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         matte_image(np.zeros((64, 64, 3), np.uint8))
+    from vidmat_torch.config import ModelConfig
+    from vidmat_torch.train import make_train_step, train_on_clips
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(ModelConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_on_clips(ModelConfig(), iter(()), num_steps=0)
 
 
 if __name__ == "__main__":

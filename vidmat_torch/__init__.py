@@ -14,10 +14,11 @@ with latest-wins scheduling. ``vidmat_torch.deploy`` exports a serving
 body as an AOT bundle (``export_bundle``, ``torch.export``) and serves it
 without the model definition (``ServingBundle``); ``vidmat_torch.eval``
 scores mattes (``VideoEval``, ``evaluate_sequences``);
-``python -m vidmat_torch.cli`` is the command line (nine subcommands,
-``train`` not ported yet). The public surface is the JAX package's, name
-for name; what is not ported yet (training, the parts of multi-stream
-serving that need more than one card) raises naming its ROADMAP item.
+``python -m vidmat_torch.cli`` is the command line (nine subcommands);
+``vidmat_torch.train`` trains (the BPTT step, segmentation co-training,
+the refiner's trainer). The public surface is the JAX package's, name
+for name; what is not ported yet (the parts of multi-stream serving and
+training that need more than one card) raises naming its ROADMAP item.
 Every TPU kernel of those paths (ingest, the planar convs, guided-filter
 coefficients, the refine tails, composite) runs as a hand-written CUDA
 kernel (``vidmat_torch/csrc``), registered as a ``vidmat_torch::*``

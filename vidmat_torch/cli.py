@@ -9,13 +9,15 @@ Usage:
       --preset video_1080p --chunk 4
   python -m vidmat_torch.cli bundle-video bundle/ IN.mp4 --output-alpha a.mp4
   python -m vidmat_torch.cli evaluate pred/ true/ [--metrics mad,grad,conn]
+  python -m vidmat_torch.cli train --steps 200 --out ckpt.npz
 
 The nine subcommands take the JAX package's options, defaults and
 choices, plus ``--device`` (``cuda``, the default, or ``cpu``).
 ``--checkpoint`` reads the port's ``.npz`` checkpoints (an orbax
-directory raises). ``train`` and ``multistream --pp`` are not ported and
-exit naming their ROADMAP items; ``--pallas-interpret`` is accepted and
-changes nothing, as in ``MultiStreamMatting``.
+directory raises), and ``train`` writes one (``.npz`` appended to
+``--out`` when missing). ``multistream --pp`` is not ported and exits
+naming its ROADMAP item; ``--pallas-interpret`` is accepted and changes
+nothing, as in ``MultiStreamMatting``.
 """
 
 from __future__ import annotations
@@ -569,8 +571,49 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "train":
-        raise SystemExit("train is not ported yet (ROADMAP A.15: "
-                         "training)")
+        from vidmat_torch.config import ModelConfig
+        from vidmat_torch.models.weights import save_checkpoint
+        from vidmat_torch.train.loop import train_on_clips
+
+        if (args.fgr_dir is None) != (args.pha_dir is None):
+            raise SystemExit("--fgr-dir and --pha-dir go together")
+        if args.fgr_dir:
+            from vidmat_torch.train.dataset import ClipDirDataset
+
+            data = ClipDirDataset(
+                args.fgr_dir, args.pha_dir, bgr_root=args.bg_dir,
+                clip_len=args.clip_len, batch=args.batch,
+                size=args.size).batches()
+        else:
+            from vidmat_torch.train.data import synthetic_clip_batches
+
+            data = synthetic_clip_batches(t=args.clip_len, n=args.batch,
+                                          h=args.size, w=args.size)
+        cfg = ModelConfig()
+        seg_data = None
+        if args.seg_every > 0:
+            if args.fgr_dir:
+                # The directory dataset doubles as segmentation
+                # supervision (alpha binarized), from a sampler of its own.
+                from vidmat_torch.train.dataset import (ClipDirDataset,
+                                                        as_seg_batches)
+
+                seg_data = as_seg_batches(ClipDirDataset(
+                    args.fgr_dir, args.pha_dir, bgr_root=args.bg_dir,
+                    clip_len=args.clip_len, batch=args.batch,
+                    size=args.size, seed=17).batches())
+            else:
+                from vidmat_torch.train.data import synthetic_seg_batches
+
+                seg_data = synthetic_seg_batches(
+                    t=args.clip_len, n=args.batch, h=args.size,
+                    w=args.size, seed=17)
+        state = train_on_clips(cfg, data, num_steps=args.steps, lr=args.lr,
+                               seg_data_iter=seg_data,
+                               seg_every=args.seg_every, device=args.device)
+        path = save_checkpoint(args.out, state.variables)
+        print(f"saved checkpoint to {path}")
+        return 0
 
     if args.cmd == "live":
         from vidmat_torch.pipeline.realtime import RealtimeMatting

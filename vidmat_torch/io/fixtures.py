@@ -1,7 +1,8 @@
 """Synthetic video fixtures with closed-form ground-truth alpha
 (counterpart of the moving-disk, clean-plate, hard and hard clean-plate
-clips in vidmat/io/fixtures.py; numpy only, cv2 for the hard clip's JPEG
-option alone)."""
+clips, the ambiguous twin-disk clip and the directory-format dataset
+writer in vidmat/io/fixtures.py; numpy only, cv2 for the hard clip's JPEG
+option and the dataset writer's PNGs alone)."""
 
 from __future__ import annotations
 
@@ -109,6 +110,52 @@ def synthetic_plate_clip(h: int, w: int, num_frames: int, seed: int = 0,
         yield synthetic_plate_frame(h, w, i / max(num_frames, 1), seed,
                                     camouflage=camouflage,
                                     plate_jitter=plate_jitter)
+
+
+def synthetic_ambiguous_frame(h: int, w: int, t: float, seed: int = 0,
+                              target: int = 0
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """One frame of the AMBIGUOUS twin-disk clip.
+
+    Two visually IDENTICAL soft-edged disks orbit the frame center in
+    anti-phase; ground-truth alpha covers only disk ``target`` (0 or 1).
+    The rendered frame is bit-identical for either target — no pixel
+    evidence says which twin is the subject — so matting the right one
+    requires an external hint (a keyframe trimap) carried forward by the
+    temporal state. This is the fixture that makes trimap PROPAGATION a
+    measurable capability instead of a no-op on unambiguous content.
+    """
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    phase = rng.rand(3, 4) * 2 * np.pi
+    bg = _texture(xx, yy, h, w, phase)
+
+    radius = 0.15 * min(h, w)
+    fg_color = np.array([0.9, 0.3, 0.2], np.float32) + 0.1 * np.sin(
+        np.stack([xx, yy, xx + yy], axis=-1) / 17.0)
+    alphas = []
+    for k in range(2):  # twin k at orbit angle 2*pi*t + k*pi
+        ang = 2 * np.pi * t + k * np.pi
+        cx = w / 2 + 0.28 * w * np.cos(ang)
+        cy = h / 2 + 0.28 * h * np.sin(ang)
+        dist = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
+        alphas.append(np.clip((radius - dist) / 2.0 + 0.5,
+                              0.0, 1.0)[..., None])
+    # Anti-phase twins on a 0.28-radius orbit never overlap (centers are
+    # 0.56*min(h,w) apart vs disk diameter 0.3), so the union composite
+    # is exact.
+    a_union = np.clip(alphas[0] + alphas[1], 0.0, 1.0)
+    frame = a_union * fg_color + (1.0 - a_union) * bg
+    frame_u8 = np.round(np.clip(frame, 0, 1) * 255).astype(np.uint8)
+    return frame_u8, alphas[target].astype(np.float32)
+
+
+def synthetic_ambiguous_clip(h: int, w: int, num_frames: int,
+                             seed: int = 0, target: int = 0
+                             ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (frame_uint8, gt_alpha) for the twin-disk ambiguous clip."""
+    for i in range(num_frames):
+        yield synthetic_ambiguous_frame(h, w, i / 30.0, seed, target)
 
 
 def _disk_hair_alpha(xx: np.ndarray, yy: np.ndarray, h: int, w: int,
@@ -387,3 +434,48 @@ def synthetic_hard_plate_clip(h: int, w: int, num_frames: int,
         yield synthetic_hard_plate_frame(h, w, i * dt, seed,
                                          shutter_dt=motion_blur * dt,
                                          **kw)
+
+
+def write_synthetic_matting_dataset(root: str, num_clips: int = 2,
+                                    frames: int = 6, h: int = 96,
+                                    w: int = 96, seed: int = 0,
+                                    backgrounds: int = 2) -> dict:
+    """Write a directory-format matting dataset (fgr/pha clip dirs + bgr
+    stills) from the synthetic fixture — the on-disk layout
+    ``train.dataset.ClipDirDataset`` reads. Foreground frames store the
+    PURE foreground (disk color over black), alpha the exact soft matte.
+
+    Returns {'fgr': ..., 'pha': ..., 'bgr': ...} root paths.
+    """
+    import os
+
+    from vidmat_torch.io.reader import require_cv2
+
+    cv2 = require_cv2("writing the synthetic matting dataset")
+
+    paths = {k: f"{root}/{k}" for k in ("fgr", "pha", "bgr")}
+    for ci in range(num_clips):
+        fd = f"{paths['fgr']}/clip_{ci:03d}"
+        pd = f"{paths['pha']}/clip_{ci:03d}"
+        os.makedirs(fd, exist_ok=True)
+        os.makedirs(pd, exist_ok=True)
+        for fi, (frame, alpha) in enumerate(
+                synthetic_clip(h, w, frames, seed=seed + ci)):
+            # the frame itself is the foreground layer (same convention as
+            # synthetic_clip_batches: "frame where alpha>0"); the loader's
+            # composite fgr*pha + bg*(1-pha) then yields a valid
+            # (input, alpha, fgr) training triple
+            cv2.imwrite(f"{fd}/{fi:05d}.png",
+                        cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+            cv2.imwrite(f"{pd}/{fi:05d}.png",
+                        np.round(alpha[..., 0] * 255).astype(np.uint8))
+    os.makedirs(paths["bgr"], exist_ok=True)
+    rng = np.random.RandomState(seed + 777)
+    for bi in range(backgrounds):
+        noise = rng.rand(h * 2, w * 2, 3).astype(np.float32)
+        bg = cv2.GaussianBlur(noise, (0, 0), sigmaX=9)
+        bg = (bg - bg.min()) / max(1e-6, bg.max() - bg.min())
+        cv2.imwrite(f"{paths['bgr']}/bg_{bi:03d}.png",
+                    cv2.cvtColor(np.round(bg * 255).astype(np.uint8),
+                                 cv2.COLOR_RGB2BGR))
+    return paths

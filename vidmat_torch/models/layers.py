@@ -9,9 +9,26 @@ Numerics follow Flax under a compute dtype: the conv runs in the input's
 dtype with the weights cast to it, and BatchNorm (inference, running
 statistics) is computed in float32 and cast back, as Flax promotes the
 normalisation to its float32 statistics.
+
+In training mode (``bn_train=True``) BatchNorm computes Flax's
+``nn.BatchNorm(use_running_average=False, momentum=0.99)`` with
+``use_fast_variance``: per call, the batch mean over N, H and W, the
+biased variance ``max(0, E[x^2] - E[x]^2)`` (both means accumulated in
+float64, then float32), and the normalisation with those in float32.
+The running statistics are not written by the module: each call reports
+its batch statistics to the innermost ``batch_statistics()`` scope, and
+the caller folds them in with ``ema_update`` (``running = 0.99 * running
++ 0.01 * batch``, the biased variance included), as Flax returns the
+mutated collection. ``F.batch_norm(training=True)`` would
+compute another function: it updates ``running_var`` with the unbiased
+variance and weighs the new value, not the old one, by its momentum.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,23 +55,86 @@ class Conv(nn.Module):
                         self.padding)
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm over running statistics, in float32:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast back to the
-    input dtype (the order Flax computes it in)."""
+#: Flax's BatchNorm momentum: the weight of the old running value.
+BN_MOMENTUM = 0.99
 
-    def __init__(self, c: int, eps: float = 1e-5):
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def batch_statistics():
+    """Collect the batch statistics of every training-mode BatchNorm run
+    in the scope: yields a list that receives ``(module, mean, var)`` per
+    call (detached float32 (C,) tensors), in call order. A recomputation
+    under ``torch.utils.checkpoint`` that opens its own scope reports
+    there, so a frame's statistics are counted once."""
+    prev = getattr(_SCOPE, "sink", None)
+    sink: List[Tuple[nn.Module, torch.Tensor, torch.Tensor]] = []
+    _SCOPE.sink = sink
+    try:
+        yield sink
+    finally:
+        _SCOPE.sink = prev
+
+
+def ema_update(running: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
+    """Flax's running-statistic update: ``0.99 * running + 0.01 * batch``."""
+    return BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch
+
+
+def clip_ties_half(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip`` with its gradient: equal values to a clamp, but a value
+    exactly at a bound passes half the gradient (max then min split ties),
+    where ``torch.clamp`` passes all of it. Training paths use it."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def abs_ties_one(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs`` with its gradient: +1 at exactly 0, where
+    ``torch.abs`` gives 0. Training losses use it."""
+    return torch.where(x >= 0, x, -x)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm in float32: ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``, cast back to the input dtype (the order Flax computes it in).
+    Inference (``bn_train=False``) normalises with the running statistics;
+    training with the batch's (see the module docstring)."""
+
+    def __init__(self, c: int, eps: float = 1e-5, bn_train: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.eps = eps
+        self.bn_train = bn_train
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bn_train:
+            return self._train_forward(x)
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        xf = x.float()
+        # The means accumulate in float64: E[x^2] - E[x]^2 cancels where
+        # the mean is large against the spread, and float32 sums lose the
+        # variance there (by ~1e-4 relative at a mean of 6 std, in JAX as
+        # in PyTorch, each with its own summation order).
+        mean = xf.mean(dim=(0, 2, 3), dtype=torch.float64)
+        mean2 = (xf * xf).mean(dim=(0, 2, 3), dtype=torch.float64)
+        # jnp.maximum's tie rule (half the gradient at var == 0).
+        var = torch.maximum(mean2 - mean * mean, mean.new_zeros(())).float()
+        mean = mean.float()
+        sink = getattr(_SCOPE, "sink", None)
+        if sink is not None:
+            sink.append((self, mean.detach(), var.detach()))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
@@ -62,10 +142,11 @@ class ConvBNAct(nn.Module):
     """Conv -> (BatchNorm) -> (ReLU)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 use_bn: bool = True, act: bool = True, bn_eps: float = 1e-5):
+                 use_bn: bool = True, act: bool = True, bn_eps: float = 1e-5,
+                 bn_train: bool = False):
         super().__init__()
         self.conv = Conv(cin, cout, kernel, stride, bias=not use_bn)
-        self.bn = BatchNorm(cout, bn_eps) if use_bn else None
+        self.bn = BatchNorm(cout, bn_eps, bn_train) if use_bn else None
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -100,9 +181,11 @@ class BottleneckGate(nn.Module):
     """1x1 projection modulated by a sigmoid gate computed from the global
     average pool."""
 
-    def __init__(self, cin: int, features: int, bn_eps: float = 1e-5):
+    def __init__(self, cin: int, features: int, bn_eps: float = 1e-5,
+                 bn_train: bool = False):
         super().__init__()
-        self.proj = ConvBNAct(cin, features, kernel=1, bn_eps=bn_eps)
+        self.proj = ConvBNAct(cin, features, kernel=1, bn_eps=bn_eps,
+                              bn_train=bn_train)
         self.gate = Conv(cin, features, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

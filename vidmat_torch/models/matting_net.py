@@ -25,7 +25,7 @@ import torch.nn as nn
 
 from vidmat_torch.config import ModelConfig
 from vidmat_torch.models.layers import (BottleneckGate, Conv, ConvBNAct,
-                                        ConvGRUCell)
+                                        ConvGRUCell, clip_ties_half)
 from vidmat_torch.ops.resize import upsample2x
 
 
@@ -78,17 +78,21 @@ def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, bn_train: bool = False):
         super().__init__()
         c, e, s = cfg.enc_channels, cfg.bn_eps, cfg.space_to_depth
-        self.stem = ConvBNAct(cfg.in_channels * s * s, c[0], stride=2,
-                              bn_eps=e)
-        self.s2a = ConvBNAct(c[0], c[1], stride=2, bn_eps=e)
-        self.s2b = ConvBNAct(c[1], c[1], bn_eps=e)
-        self.s3a = ConvBNAct(c[1], c[2], stride=2, bn_eps=e)
-        self.s3b = ConvBNAct(c[2], c[2], bn_eps=e)
-        self.s4a = ConvBNAct(c[2], c[3], stride=2, bn_eps=e)
-        self.s4b = ConvBNAct(c[3], c[3], bn_eps=e)
+
+        def cba(cin, cout, stride=1):
+            return ConvBNAct(cin, cout, stride=stride, bn_eps=e,
+                             bn_train=bn_train)
+
+        self.stem = cba(cfg.in_channels * s * s, c[0], 2)
+        self.s2a = cba(c[0], c[1], 2)
+        self.s2b = cba(c[1], c[1])
+        self.s3a = cba(c[1], c[2], 2)
+        self.s3b = cba(c[2], c[2])
+        self.s4a = cba(c[2], c[3], 2)
+        self.s4b = cba(c[3], c[3])
 
     def forward(self, x):
         f1 = self.stem(x)
@@ -103,9 +107,10 @@ class DecoderStage(nn.Module):
     runs on the second half of the channels only)."""
 
     def __init__(self, cin: int, skip: int, features: int, recurrent: bool,
-                 bn_eps: float = 1e-5):
+                 bn_eps: float = 1e-5, bn_train: bool = False):
         super().__init__()
-        self.conv = ConvBNAct(cin + skip, features, bn_eps=bn_eps)
+        self.conv = ConvBNAct(cin + skip, features, bn_eps=bn_eps,
+                              bn_train=bn_train)
         self.recurrent = recurrent
         self.features = features
         if recurrent:
@@ -145,11 +150,17 @@ class MattingNetwork(nn.Module):
     float32, None, new_state): the segmentation pass of a co-trained
     network (``with_seg``): the same trunk, with ``seg_head`` in place of
     the matting head; the state advances as in the matting pass.
+
+    ``bn_train=True`` is the training network (the JAX package's
+    ``MattingNetwork(cfg, bn_train=True)``): every BatchNorm normalises
+    with the batch's statistics and reports them to
+    ``layers.batch_statistics()``, and the head's clips pass half the
+    gradient at a bound, as ``jnp.clip`` does.
     """
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
                  dtype: Optional[torch.dtype] = None,
-                 with_seg: bool = False):
+                 with_seg: bool = False, bn_train: bool = False):
         super().__init__()
         self.cfg = cfg
         # Compute dtype: None = float32 (parity path); torch.bfloat16 for
@@ -157,13 +168,15 @@ class MattingNetwork(nn.Module):
         self.dtype = dtype
         c, d, e = cfg.enc_channels, cfg.dec_channels, cfg.bn_eps
         s = cfg.space_to_depth
-        self.encoder = Encoder(cfg)
-        self.bottleneck = BottleneckGate(c[3], c[3], bn_eps=e)
-        self.d3 = DecoderStage(c[3], c[2], d[0], cfg.recurrent, e)
-        self.d2 = DecoderStage(d[0], c[1], d[1], cfg.recurrent, e)
-        self.d1 = DecoderStage(d[1], c[0], d[2], cfg.recurrent, e)
+        self.bn_train = bn_train
+        bt = bn_train
+        self.encoder = Encoder(cfg, bt)
+        self.bottleneck = BottleneckGate(c[3], c[3], bn_eps=e, bn_train=bt)
+        self.d3 = DecoderStage(c[3], c[2], d[0], cfg.recurrent, e, bt)
+        self.d2 = DecoderStage(d[0], c[1], d[1], cfg.recurrent, e, bt)
+        self.d1 = DecoderStage(d[1], c[0], d[2], cfg.recurrent, e, bt)
         cond_ch = cfg.in_channels * s * s if s > 1 else 3
-        self.d0 = ConvBNAct(d[2] + cond_ch, d[3], bn_eps=e)
+        self.d0 = ConvBNAct(d[2] + cond_ch, d[3], bn_eps=e, bn_train=bt)
         self.head = Conv(d[3], 4 * s * s, 3)
         self.seg_head = Conv(d[3], s * s, 3) if with_seg else None
 
@@ -207,8 +220,12 @@ class MattingNetwork(nn.Module):
         if s > 1:
             out = depth_to_space(out, s)
         out = out.float()
-        alpha = out[:, 0:1].clamp(0.0, 1.0)
-        fgr = (out[:, 1:4] + rgb.float()).clamp(0.0, 1.0)
+        if self.bn_train:
+            alpha = clip_ties_half(out[:, 0:1], 0.0, 1.0)
+            fgr = clip_ties_half(out[:, 1:4] + rgb.float(), 0.0, 1.0)
+        else:
+            alpha = out[:, 0:1].clamp(0.0, 1.0)
+            fgr = (out[:, 1:4] + rgb.float()).clamp(0.0, 1.0)
         if cfg.use_trimap and frame.shape[-1] >= 4:
             # Known foreground and background are pinned; only the
             # unknown band is predicted (vidmat/models/matting_net.py).

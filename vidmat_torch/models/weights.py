@@ -23,7 +23,9 @@ pass.
 
 from __future__ import annotations
 
+import math
 import os
+import zlib
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -84,37 +86,241 @@ def unflatten_variables(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return out
 
 
-def state_dict_from_jax(variables: Dict[str, Any]
-                        ) -> Dict[str, torch.Tensor]:
-    """Flax variables (nested dict of numpy arrays) -> torch state_dict."""
-    out: Dict[str, torch.Tensor] = {}
+def _module_entries(variables: Dict[str, Any]):
+    """(torch name, (collection, Flax path), leaf, is_conv_kernel) for
+    every leaf of Flax variables: ``params/.../kernel`` is a conv weight
+    to transpose, ``scale`` a BatchNorm weight, ``bias`` a bias, and
+    ``batch_stats/.../{mean, var}`` the running statistics."""
     for path, v in _walk(variables["params"]):
-        v = np.asarray(v, np.float32)
         parent, leaf = path.rsplit("/", 1)
-        parent = parent.replace("/", ".")
-        if leaf == "kernel":  # conv (H, W, I, O) -> (O, I, H, W)
-            v = np.transpose(v, (3, 2, 0, 1))
-            name = "weight"
-        elif leaf == "scale":  # BN gamma
-            name = "weight"
-        elif leaf == "bias":
-            name = "bias"
-        else:
+        name = {"kernel": "weight", "scale": "weight",
+                "bias": "bias"}.get(leaf)
+        if name is None:
             raise KeyError(f"unhandled flax param leaf: {path}")
-        out[f"{parent}.{name}"] = torch.tensor(v)
+        yield (f"{parent.replace('/', '.')}.{name}", ("params", path), v,
+               leaf == "kernel")
     for path, v in _walk(variables.get("batch_stats", {})):
         parent, leaf = path.rsplit("/", 1)
         name = {"mean": "running_mean", "var": "running_var"}.get(leaf)
         if name is None:
             raise KeyError(f"unhandled flax batch_stat leaf: {path}")
-        out[f"{parent.replace('/', '.')}.{name}"] = torch.tensor(
-            np.asarray(v, np.float32))
+        yield (f"{parent.replace('/', '.')}.{name}", ("batch_stats", path),
+               v, False)
+
+
+def state_dict_from_jax(variables: Dict[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """Flax variables (nested dict of numpy arrays) -> torch state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, _, v, kernel in _module_entries(variables):
+        v = np.asarray(v, np.float32)
+        if kernel:  # conv (H, W, I, O) -> (O, I, H, W)
+            v = np.transpose(v, (3, 2, 0, 1))
+        out[name] = torch.tensor(v)
     return out
+
+
+def module_tensors(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax variables whose leaves are tensors -> the module's parameter
+    and buffer names, each its leaf or, for a conv kernel, a contiguous
+    (O, I, H, W) copy made by autograd: ``torch.func.functional_call``
+    runs a module on them and gradients reach the Flax-layout leaves."""
+    return {name: v.permute(3, 2, 0, 1).contiguous() if kernel else v
+            for name, _, v, kernel in _module_entries(variables)}
+
+
+def variables_from_state_dict(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of state_dict_from_jax: a module's state (torch names and
+    layouts) -> Flax variables {'params', 'batch_stats'}, nested dicts of
+    float32 numpy arrays keyed by the Flax names (a 4-d ``weight`` is a
+    conv kernel, a 1-d one a BatchNorm scale)."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, v in state_dict.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        v = np.asarray(v, np.float32)
+        parent, leaf = name.rsplit(".", 1)
+        parent = parent.replace(".", "/")
+        if leaf == "weight" and v.ndim == 4:
+            flat[f"params/{parent}/kernel"] = np.ascontiguousarray(
+                np.transpose(v, (2, 3, 1, 0)))
+        elif leaf == "weight":
+            flat[f"params/{parent}/scale"] = v
+        elif leaf == "bias":
+            flat[f"params/{parent}/bias"] = v
+        elif leaf == "running_mean":
+            flat[f"batch_stats/{parent}/mean"] = v
+        elif leaf == "running_var":
+            flat[f"batch_stats/{parent}/var"] = v
+        else:
+            raise KeyError(f"unhandled state_dict entry: {name}")
+    out = unflatten_variables(flat)
+    out.setdefault("batch_stats", {})
+    return out
+
+
+def numpy_variables(variables: Dict[str, Any]) -> Dict[str, Any]:
+    """Variables with tensor leaves (on any device) -> numpy leaves."""
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        return np.asarray(v)
+    return unflatten_variables({k: conv(v) for k, v in _walk(variables)})
+
+
+# Flax's lecun_normal: a normal truncated at two standard deviations,
+# scaled so that its variance is 1 / fan_in (the std of the unit normal
+# truncated to [-2, 2] is 0.8796...).
+_TRUNC_STD = .87962566103423978
+
+
+def _leaf_seed(seed: int, name: str) -> int:
+    return (seed * 1_000_003 + zlib.crc32(name.encode())) % (1 << 62)
+
+
+def init_module_variables(module: torch.nn.Module, seed: int = 0,
+                          skip: tuple = ()) -> Dict[str, Any]:
+    """Flax's default initialisation of ``module``'s leaves, as Flax
+    variables: conv kernels ``lecun_normal`` (each drawn from its own
+    ``torch.Generator``, seeded by ``seed`` and the leaf's name, so a
+    leaf's values do not depend on which other leaves exist), conv biases
+    0, BatchNorm scale 1 and bias 0, running statistics 0 and 1. Entries
+    whose name starts with one of ``skip`` are left out. JAX's PRNG is not
+    reproduced: the values differ from the JAX package's for the same
+    seed, their distribution is the same."""
+    sd = {}
+    for name, v in module.state_dict().items():
+        if name.startswith(skip) or name.endswith("num_batches_tracked"):
+            continue
+        if name.endswith(".weight") and v.ndim == 4:
+            fan_in = v.shape[1] * v.shape[2] * v.shape[3]
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            g = torch.Generator().manual_seed(_leaf_seed(seed, name))
+            v = torch.nn.init.trunc_normal_(
+                torch.empty(v.shape), 0.0, std, -2.0 * std, 2.0 * std,
+                generator=g)
+        sd[name] = v
+    return variables_from_state_dict(sd)
+
+
+def init_params(cfg: ModelConfig = ModelConfig(), seed: int = 0,
+                height: int = 64, width: int = 64,
+                with_seg: bool = False) -> Dict[str, Any]:
+    """Initialise the network's variables {'params', 'batch_stats'}
+    (vidmat/models/weights.py ``init_params``), Flax's defaults drawn from
+    ``torch.Generator`` s (``init_module_variables``). The shapes do not
+    depend on the frame size: ``height`` and ``width`` are accepted for
+    the JAX package's signature. ``with_seg`` adds the ``seg_head``; the
+    trunk is the same either way."""
+    from vidmat_torch.models.matting_net import MattingNetwork
+
+    del height, width
+    return init_module_variables(MattingNetwork(cfg, with_seg=True), seed,
+                                 skip=() if with_seg else ("seg_head.",))
+
+
+def graft_seg_params(variables: Dict[str, Any], cfg: ModelConfig,
+                     seed: int = 0) -> Dict[str, Any]:
+    """Add a fresh ``seg_head`` to a matting checkpoint so it can enter
+    segmentation co-training. The matting pass never reads ``seg_head``,
+    so matting outputs are bit-identical before and after the graft."""
+    params = dict(variables["params"])
+    if "seg_head" in params:
+        raise ValueError("checkpoint already has a seg_head")
+    fresh = init_params(cfg, seed=seed, with_seg=True)
+    params["seg_head"] = fresh["params"]["seg_head"]
+    return {"params": params, "batch_stats": variables["batch_stats"]}
+
+
+def graft_cond_params(src: Dict[str, Any], cfg: ModelConfig,
+                      src_in_channels: int = 3,
+                      seed: int = 0) -> Dict[str, Any]:
+    """Transfer a checkpoint into a config with more input-conditioning
+    channels (trimap and/or clean background plate), as
+    vidmat/models/weights.py ``graft_cond_params``: every leaf of equal
+    shape is copied; the stem's kernel (and at s2d > 1 the d0 kernel's
+    trailing frame rows) grow from ``src_in_channels`` to
+    ``cfg.in_channels`` per s2d position, the new rows zero, so the
+    grafted net is exactly the source net until training opens them."""
+    cs, ct = src_in_channels, cfg.in_channels
+    if ct <= cs:
+        raise ValueError(
+            f"target config has {ct} input channels, source {cs}: the "
+            "graft only adds conditioning channels (use_trimap / "
+            "use_bg_plate)")
+    s = cfg.space_to_depth
+    src_flat = flatten_variables(src)
+    tgt_flat = flatten_variables(init_params(cfg, seed=seed))
+    if set(src_flat) != set(tgt_flat):
+        raise ValueError("source/target trees differ beyond the input "
+                         "channel plan: not a graftable pair")
+    out = {}
+    for key, lt in tgt_flat.items():
+        ls = src_flat[key]
+        if ls.shape == lt.shape:
+            out[key] = ls
+        elif (ls.ndim == 4 and ls.shape[:2] == lt.shape[:2]
+              and ls.shape[3] == lt.shape[3]
+              and lt.shape[2] - ls.shape[2] == s * s * (ct - cs)):
+            k = np.zeros(lt.shape, ls.dtype)
+            lead = ls.shape[2] - s * s * cs
+            k[:, :, :lead] = ls[:, :, :lead]
+            for p in range(s * s):
+                for c in range(cs):
+                    k[:, :, lead + p * ct + c] = ls[:, :, lead + p * cs + c]
+            out[key] = k
+        else:
+            raise ValueError(f"ungraftable shape at {key}: {ls.shape} -> "
+                             f"{lt.shape}")
+    return unflatten_variables(out)
+
+
+def randomize_bn_stats(variables: Dict[str, Any], seed: int = 1
+                       ) -> Dict[str, Any]:
+    """Replace the (0, 1) BatchNorm running statistics with random ones
+    (means N(0, 0.1), variances U(0.5, 1.5), drawn from one
+    ``np.random.RandomState(seed)`` in the tree's order), so that a
+    BatchNorm ordering or eps bug cannot hide behind identity statistics
+    (vidmat/models/weights.py ``randomize_bn_stats``)."""
+    rng = np.random.RandomState(seed)
+
+    def walk(d):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                out[k] = walk(v)
+            elif k == "mean":
+                out[k] = rng.normal(0, 0.1, np.shape(v)).astype(np.float32)
+            elif k == "var":
+                out[k] = rng.uniform(0.5, 1.5, np.shape(v)).astype(
+                    np.float32)
+            else:
+                out[k] = v
+        return out
+
+    return {"params": variables["params"],
+            "batch_stats": walk(variables["batch_stats"])}
 
 
 def save_npz(path: str, variables: Dict[str, Any]) -> None:
     """Write nested variables as a flat npz (one entry per leaf)."""
     np.savez(path, **flatten_variables(variables))
+
+
+def save_checkpoint(path: str, variables: Dict[str, Any]) -> str:
+    """Write variables (numpy or tensor leaves, on any device) as the
+    port's ``.npz`` checkpoint (``save_npz``) and return the path written
+    (``.npz`` appended when missing). The JAX package writes an orbax
+    directory; the port's readers (``load_npz``, the CLI's
+    ``--checkpoint``) take this file."""
+    path = os.path.abspath(path)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_npz(path, numpy_variables(variables))
+    return path
 
 
 def load_npz(path: str) -> Dict[str, Any]:

@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vidmat_torch.models.layers import Conv, ConvBNAct
+from vidmat_torch.models.layers import Conv, ConvBNAct, clip_ties_half
 from vidmat_torch.ops.resize import resize_bilinear
 
 
@@ -97,11 +97,18 @@ class ErrorMapRefiner(nn.Module):
     1)) -> (alpha (N, H, W, 1) in [0, 1], error map (N, h, w, 1)), all
     NHWC float32: ``num_patches`` patches of ``patch_size`` are refined at
     full resolution, the alpha elsewhere is the bilinear upsample. The
-    feather is a buffer, made once and moved with the module."""
+    feather is a buffer, made once and moved with the module.
+
+    ``differentiable=True`` is the refiner's trainer's module: the forward
+    runs outside inference mode, gradients flow through the error head,
+    the patch gather and the scatter (not through the selection, which is
+    an index), and the final clip passes half the gradient at a bound, as
+    ``jnp.clip``."""
 
     def __init__(self, num_patches: int = 64, patch_size: int = 16,
-                 features: int = 24):
+                 features: int = 24, differentiable: bool = False):
         super().__init__()
+        self.differentiable = differentiable
         self.num_patches = num_patches
         self.patch_size = patch_size
         self.error_head = ErrorHead()
@@ -110,8 +117,15 @@ class ErrorMapRefiner(nn.Module):
         self.register_buffer("feather", torch.from_numpy(feather),
                              persistent=False)
 
-    @torch.inference_mode()
     def forward(self, rgb_full: torch.Tensor, rgb_lr: torch.Tensor,
+                alpha_lr: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.differentiable:
+            return self._refine(rgb_full, rgb_lr, alpha_lr)
+        with torch.inference_mode():
+            return self._refine(rgb_full, rgb_lr, alpha_lr)
+
+    def _refine(self, rgb_full: torch.Tensor, rgb_lr: torch.Tensor,
                 alpha_lr: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         n, hf, wf, _ = rgb_full.shape
@@ -135,4 +149,6 @@ class ErrorMapRefiner(nn.Module):
         alpha = alpha_up.clone()
         grid = _grid_view(alpha, p)
         grid[ib, iy, :, ix] = grid[ib, iy, :, ix] + res * self.feather
+        if self.differentiable:
+            return clip_ties_half(alpha, 0.0, 1.0), err
         return alpha.clamp(0.0, 1.0), err
