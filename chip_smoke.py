@@ -223,6 +223,14 @@ Phases (any failure exits nonzero and prints no result line):
      writing an .npz that convert_video serves; step ms, clips/s and
      peak memory at 64, 128, 256 (T=4, N=2) and 512 px (T=4, N=4), the
      device's busy share of a step at 128 and 512 px
+  U. A.16 on the card: make_chunk_step (fast_demo, F.conv2d, 1088x1920,
+     K=4, float32) equal to four network calls and within 1e-4 of the
+     CPU; the full-resolution guided_filter at 1x1088x1920 (3-channel
+     src) within 1e-5 of the CPU, its ms; the 34 subpackage exports;
+     every shipped .npz through models.load_checkpoint with its
+     template; tools/eval_errormap at 1088x1920 (2 frames, one seed)
+     card against CPU (MADs 1e-4, Grad 1e-4 relative); no hand-written
+     kernel launched over them
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -4625,6 +4633,180 @@ def phase_train(kernels, gpu, dev):
     return rows
 
 
+# Phase U (A.16): the names the JAX package's subpackages export
+# (vidmat/{models,utils,pipeline,io,ops,refine,parallel,train}/__init__.py),
+# 34 in all; the three of the mesh and the pipeline split raise naming A.12.
+SUBPACKAGE_EXPORTS = {
+    "models": ("MattingNetwork", "RecurrentState", "init_params",
+               "flax_to_torch_state", "save_checkpoint", "load_checkpoint"),
+    "utils": ("mad", "sad"),
+    "pipeline": ("ImageStepper", "VideoStepper"),
+    "io": ("FrameSource", "VideoReader", "read_image", "VideoWriter",
+           "write_image", "synthetic_clip", "synthetic_frame"),
+    "ops": ("resize_bilinear", "upsample2x", "downsample_ratio_shape",
+            "guided_filter", "composite_rgba"),
+    "refine": ("tile_frame", "untile_frame", "TileLayout",
+               "ErrorMapRefiner"),
+    "parallel": ("make_mesh", "MultiStreamMatting", "PipelinedMatting",
+                 "PipelinedStreams"),
+    "train": ("matting_loss", "TrainState", "make_train_step",
+              "train_on_clips"),
+}
+U_ERRORMAP = ["--size", f"{H}x{W}", "--frames", "2", "--seeds", "987654"]
+
+
+def close_reports(got, want):
+    """Worst difference of two eval_errormap reports: the MADs absolute,
+    the Grad sums (about 1e4 at 1080p, float32 sums) relative; raises
+    unless the keys and the settings are equal."""
+    assert list(got) == list(want), (list(got), list(want))
+    worst = 0.0
+    for k, w in want.items():
+        if not isinstance(w, dict):
+            assert got[k] == w, (k, got[k], w)
+            continue
+        assert list(got[k]) == list(w), k
+        for m, x in w.items():
+            worst = max(worst, abs(got[k][m] - x) / max(1.0, abs(x)))
+    return worst
+
+
+def phase_a16(kernels, gpu, dev):
+    """Phase U: A.16's one-card surface on the card. (a) make_chunk_step
+    with fast_demo (s2d=2, F.conv2d) at 1088x1920, K=4, float32: equal
+    (0, cuDNN deterministic) to four calls of the network built from the
+    same weights, and within 1e-4 of the chunk step on the CPU; ms of
+    the chunk (median of 5, synchronised); (b) the full-resolution
+    guided_filter at 1x1088x1920 with a 3-channel src, within 1e-5 of the
+    CPU, its ms (cold L2, median of 50); (c) the 34 subpackage exports;
+    (d) every shipped .npz through models.load_checkpoint with its
+    template; (e) tools/eval_errormap on the card at 1088x1920, 2 frames,
+    one seed, held to the same report on the CPU (MADs within 1e-4, Grad
+    within 1e-4 relative); (f) no hand-written kernel launched over (a),
+    (b) and (e) (plain PyTorch, as the JAX package runs them in XLA)."""
+    import dataclasses
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from vidmat_torch._device import full_fp32
+    from vidmat_torch.config import ModelConfig, preset_video_1080p
+    from vidmat_torch.models import weights
+    from vidmat_torch.models.matting_net import MattingNetwork, init_state
+    from vidmat_torch.ops import guided_filter
+    from vidmat_torch.ops.guided_filter import gray_guide
+    from vidmat_torch.pipeline.scan import make_chunk_step
+    from vidmat_torch.tools import eval_errormap
+    from vidmat_torch.train.refine import init_refiner_params
+
+    t_phase = time.perf_counter()
+    mcfg, _ = preset_video_1080p()
+    cfg = dataclasses.replace(mcfg, conv_impl="xla")
+    variables = weights.default_variables(mcfg)
+    frames = np.random.RandomState(16).rand(CHUNK, 1, H, W, 3).astype(
+        np.float32)
+    zero_counts(kernels)
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        step = make_chunk_step(MattingNetwork(cfg), device=dev)
+        alphas, fgrs, _ = step(variables, frames,
+                               init_state(cfg, 1, H, W, device=dev))
+        net = weights.build_network(cfg, variables, device=dev)
+        state = init_state(cfg, 1, H, W, device=dev)
+        ref_a, ref_f = [], []
+        with torch.no_grad(), full_fp32():
+            for x in torch.from_numpy(frames).to(dev):
+                a, f, state = net(x, state)
+                ref_a.append(a)
+                ref_f.append(f)
+        d_net = max(float((alphas - torch.stack(ref_a)).abs().max()),
+                    float((fgrs - torch.stack(ref_f)).abs().max()))
+    frames_dev = torch.from_numpy(frames).to(dev)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(variables, frames_dev, init_state(cfg, 1, H, W, device=dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    cpu_a, cpu_f, _ = make_chunk_step(MattingNetwork(cfg), device="cpu")(
+        variables, frames, init_state(cfg, 1, H, W))
+    d_cpu = max(float((alphas.cpu() - cpu_a).abs().max()),
+                float((fgrs.cpu() - cpu_f).abs().max()))
+    log(f"[U] (a) make_chunk_step fast_demo F.conv2d {W}x{H} K={CHUNK} "
+        f"float32: max |d| to four network calls {d_net:.3e} (cuDNN "
+        f"deterministic), to the CPU chunk step {d_cpu:.3e}; chunk "
+        f"{float(np.median(times)):.2f} ms (frames on the card; median of 5, "
+        f"synchronised; {gpu})")
+    assert d_net == 0.0 and d_cpu <= 1e-4, (d_net, d_cpu)
+
+    rgb = torch.from_numpy(frames[0]).to(dev)
+    guide = gray_guide(rgb)
+    src = torch.from_numpy(np.random.RandomState(17).rand(1, H, W, 3)
+                           .astype(np.float32)).to(dev)
+    out = guided_filter(guide, src)
+    want = guided_filter(guide.cpu(), src.cpu())
+    d_gf = float((out.cpu() - want).abs().max())
+    gf_ms = time_cold(lambda: guided_filter(guide, src))
+    log(f"[U] (b) guided_filter 1x{H}x{W}, 3-channel src, r=4, eps=1e-4: "
+        f"max |d| card vs CPU {d_gf:.3e}; {gf_ms:.4f} ms (cold L2, median "
+        f"of 50; plain PyTorch; {gpu})")
+    assert out.shape == src.shape and d_gf <= 1e-5, d_gf
+
+    names = 0
+    for pkg, exported in SUBPACKAGE_EXPORTS.items():
+        mod = importlib.import_module(f"vidmat_torch.{pkg}")
+        for name in exported:
+            names += 1
+            try:
+                obj = getattr(mod, name)
+            except NotImplementedError as e:
+                assert "ROADMAP A.12 (more than one card)" in str(e), e
+                continue
+            assert obj.__name__ == name, (pkg, name, obj)
+    assert names == 34 and callable(importlib.import_module(
+        "vidmat_torch.ops").guided_filter)
+
+    loaded = []
+    for table, seg in ((weights._DEFAULT_CKPTS, False),
+                       (weights._SEG_CKPTS, True)):
+        for (tri, plate, s2d, rec), name in table.items():
+            c = ModelConfig(use_trimap=tri, use_bg_plate=plate,
+                            space_to_depth=s2d, recurrent=rec)
+            path = weights.default_checkpoint_path(c, seg=seg)
+            v = weights.load_checkpoint(
+                path, template=weights.init_params(c, with_seg=seg))
+            loaded.append(f"{name} "
+                          f"{len(weights.flatten_variables(v))}")
+    v = weights.load_checkpoint(weights.default_refiner_path(),
+                                template=init_refiner_params())
+    loaded.append(f"errormap_demo {len(weights.flatten_variables(v))}")
+    log(f"[U] (c) {names} subpackage names resolve (3 raise naming A.12); "
+        f"(d) load_checkpoint with templates (leaves): {', '.join(loaded)}")
+    assert len(loaded) == 7
+
+    t0 = time.perf_counter()
+    card = eval_errormap.evaluate(eval_errormap.parse_args(
+        [*U_ERRORMAP, "--device", torch.device(dev).type]))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = eval_errormap.evaluate(eval_errormap.parse_args(
+        [*U_ERRORMAP, "--device", "cpu"]))
+    cpu_s = time.perf_counter() - t0
+    worst = close_reports(card, cpu)
+    launches = counts(kernels)
+    log(f"[U] (e) eval_errormap {W}x{H}, 2 frames, one seed: card "
+        f"{card_s:.1f} s, CPU {cpu_s:.1f} s; worst |d| (Grad relative) "
+        f"{worst:.3e}; card report {json.dumps(card)}")
+    log(f"[U] (f) hand-written kernel launches over (a), (b) and (e): "
+        f"{launches}")
+    assert worst <= 1e-4, (card, cpu)
+    assert not any(launches.values()), launches
+    log(f"[U] phase U took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4705,6 +4887,7 @@ def main() -> int:
     phase_image(dev)
     phase_bench()
     phase_train(kernels, gpu, dev)
+    phase_a16(kernels, gpu, dev)
     with open(os.path.join(OUT_DIR, "graphs.json"), "w") as f:
         json.dump(dict(GRAPHS, errormap={
             k: v for k, v in errormap.items() if k != "graph"}), f,

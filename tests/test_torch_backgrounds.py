@@ -212,8 +212,10 @@ def test_blur_chunk_body_matches_jax():
 def test_blur_radius_rounds_half_to_even():
     """blur_rc = max(1, round(bg_blur * net_h / h)) with Python's round,
     as the JAX package: radius 10 at a quarter grid is 2.5 -> 2."""
-    from vidmat_torch.ops import guided_filter
+    import importlib
 
+    # the module (``vidmat_torch.ops.guided_filter`` is the function)
+    guided_filter = importlib.import_module("vidmat_torch.ops.guided_filter")
     seen = []
     orig = guided_filter.box_blur
 

@@ -165,6 +165,21 @@ def test_checkpoint_reads_npz_and_refuses_orbax(store, tmp_path, capsys):
                   "--device", "cpu"])
 
 
+def test_checkpoint_directory_names_the_converter(store, tmp_path):
+    """An orbax directory given to ``--checkpoint`` raises naming the
+    converter at the repo root and its command."""
+    store["in.mp4"] = _clip(2)
+    with pytest.raises(ValueError) as e:
+        cli.main(["video", "in.mp4", "--checkpoint", str(tmp_path),
+                  "--device", "cpu"])
+    msg = str(e.value)
+    assert "orbax checkpoint of the JAX package" in msg
+    assert "python jax_checkpoint_to_npz.py CKPT_DIR OUT.npz" in msg
+    assert os.path.isfile(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "jax_checkpoint_to_npz.py"))
+
+
 def test_image_equals_matte_image(store):
     import vidmat_torch
 

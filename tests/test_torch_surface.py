@@ -5,9 +5,11 @@
 ``RealtimeMatting.__init__`` and ``.run``, ``deploy.export_bundle``,
 ``deploy.ServingBundle.__init__``, ``.step``, ``.reset`` and
 ``.convert``, ``eval.VideoEval.__init__``, ``.update`` and ``.summary``
-and ``eval.evaluate_sequences``, every field of the
-configuration dataclasses with its default, every preset, each returning
-equal dataclasses, and the package's seven lazy exports. What is not
+and ``eval.evaluate_sequences``, the training entry points and A.16's
+functions (``make_chunk_step``'s ``cdtype`` compared by dtype name),
+every field of the configuration dataclasses with its default, every
+preset, each returning equal dataclasses, and the package's seven lazy
+exports. What is not
 ported yet (the parts of A.12 that need more than one card) raises
 ``NotImplementedError`` naming its ROADMAP item; error-map refinement
 (A.11) runs as in the JAX package, and a ``StreamConfig`` is served by
@@ -54,7 +56,16 @@ ENTRY_POINTS = [("convert_video", None), ("matte_image", None),
                 ("models.weights.init_params", None),
                 ("models.weights.graft_seg_params", None),
                 ("models.weights.graft_cond_params", None),
-                ("models.weights.randomize_bn_stats", None)] + [
+                ("models.weights.randomize_bn_stats", None),
+                # A.16
+                ("ops.guided_filter.guided_filter", None),
+                ("utils.metrics.sad", None),
+                ("models.weights.graft_trimap_params", None),
+                ("models.weights.flax_to_torch_state", None),
+                ("models.weights.torch_to_flax_variables", None),
+                ("models.weights.load_into_torch", None),
+                ("models.weights.load_checkpoint", None),
+                ("pipeline.scan.make_chunk_step", None)] + [
                 (f"train.data.{fn}", None) for fn in (
                     "synthetic_clip_batches", "synthetic_hard_clip_batches",
                     "synthetic_hard_plate_batches", "alpha_to_trimap",
@@ -88,6 +99,8 @@ def test_entry_point_parameters_exist_with_equal_defaults(name, method):
     for k, v in want.items():
         if dataclasses.is_dataclass(v):  # a config default: equal fields
             assert dataclasses.asdict(got[k]) == dataclasses.asdict(v), k
+        elif k == "cdtype":  # jnp.float32 there, torch.float32 here
+            assert str(got[k]).removeprefix("torch.") == np.dtype(v).name
         else:
             assert got[k] == v, (k, got[k], v)
 

@@ -26,6 +26,7 @@ custom op (``ops/library.py``). Entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``.
 """
 
+from vidmat_torch._exports import lazy_exports
 from vidmat_torch.api import (MattingSession, convert_video,  # noqa: F401
                               matte_image)
 from vidmat_torch.config import (PRESETS, ModelConfig,  # noqa: F401
@@ -35,30 +36,11 @@ from vidmat_torch.config import (PRESETS, ModelConfig,  # noqa: F401
                                  preset_video_1080p_errormap,
                                  preset_video_4k)
 
-#: the names the JAX package exports lazily that need more than one card
-_MULTI_CARD = ("make_mesh", "PipelinedMatting", "PipelinedStreams")
-
-
-def __getattr__(name):
-    # The JAX package's lazy exports (vidmat/__init__.py), imported on
-    # first use.
-    if name == "MultiStreamMatting":
-        from vidmat_torch.parallel.multistream import MultiStreamMatting
-
-        return MultiStreamMatting
-    if name == "RealtimeMatting":
-        from vidmat_torch.pipeline.realtime import RealtimeMatting
-
-        return RealtimeMatting
-    if name == "MattingNetwork":
-        from vidmat_torch.models.matting_net import MattingNetwork
-
-        return MattingNetwork
-    if name == "trimap_from_mask":
-        from vidmat_torch.pipeline.trimap import trimap_from_mask
-
-        return trimap_from_mask
-    if name in _MULTI_CARD:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP A.12 (more than one card))")
-    raise AttributeError(name)
+# The JAX package's lazy exports (vidmat/__init__.py), imported on first
+# use; what needs more than one card raises naming its ROADMAP item.
+__getattr__ = lazy_exports(
+    {"MultiStreamMatting": "vidmat_torch.parallel.multistream",
+     "RealtimeMatting": "vidmat_torch.pipeline.realtime",
+     "MattingNetwork": "vidmat_torch.models.matting_net",
+     "trimap_from_mask": "vidmat_torch.pipeline.trimap"},
+    multi_card=("make_mesh", "PipelinedMatting", "PipelinedStreams"))

@@ -14,7 +14,8 @@ Usage:
 The nine subcommands take the JAX package's options, defaults and
 choices, plus ``--device`` (``cuda``, the default, or ``cpu``).
 ``--checkpoint`` reads the port's ``.npz`` checkpoints (an orbax
-directory raises), and ``train`` writes one (``.npz`` appended to
+directory raises naming its converter, ``jax_checkpoint_to_npz.py`` at
+the repo root), and ``train`` writes one (``.npz`` appended to
 ``--out`` when missing). ``multistream --pp`` is not ported and exits
 naming its ROADMAP item; ``--pallas-interpret`` is accepted and changes
 nothing, as in ``MultiStreamMatting``.
@@ -36,17 +37,15 @@ def _add_device(p):
 
 def _load_checkpoint(path):
     """The port's checkpoint at ``path`` (an .npz of the JAX package's
-    variables, as ``vidmat_torch/checkpoints/`` holds them), or None."""
+    variables, as ``vidmat_torch/checkpoints/`` holds them), or None. A
+    directory (an orbax checkpoint of the JAX package) raises naming its
+    converter, ``jax_checkpoint_to_npz.py`` (``models.weights``
+    ``load_checkpoint``)."""
     if not path:
         return None
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path!r} is a directory (an orbax checkpoint of the JAX "
-            "package); the port reads .npz checkpoints, as "
-            "vidmat_torch/checkpoints/*.npz")
-    from vidmat_torch.models.weights import load_npz
+    from vidmat_torch.models.weights import load_checkpoint
 
-    return load_npz(path)
+    return load_checkpoint(path)
 
 
 def _add_video(sub):
@@ -98,7 +97,8 @@ def _add_video(sub):
                                         "video_4k"], default=None)
     p.add_argument("--checkpoint",
                    help="port checkpoint (.npz; an orbax directory of the "
-                        "JAX package raises)")
+                        "JAX package raises: convert it with "
+                        "jax_checkpoint_to_npz.py)")
     p.add_argument("--trimap", default=None, metavar="SOURCE",
                    help="trimap-conditioned matting: a per-frame trimap "
                         "stream (video / PNG dir or pattern), or a "

@@ -16,9 +16,14 @@ model; ``trimap_demo``, the per-image trimap model, non-recurrent;
 ``errormap_demo``, the error-map refiner trained against synthetic_demo's
 coarse output) are flattened Flax trees, one npz entry per leaf keyed by its path
 (``params/encoder/stem/conv/kernel``), so they load with numpy alone.
-Unlike the JAX package's oracle bridge this one keeps the ``seg_head``
-subtree: a network built from a co-trained tree has the segmentation
-pass.
+``state_dict_from_jax`` keeps the ``seg_head`` subtree: a network built
+from a co-trained tree has the segmentation pass. The JAX package's
+bridge names are here too, with its behaviour: ``flax_to_torch_state``
+(numpy values, the top-level ``seg_head`` dropped),
+``torch_to_flax_variables`` (the leaves of a template), ``load_into_torch``
+and ``load_checkpoint`` (the port's ``.npz``; an orbax directory of the
+JAX package converts with ``jax_checkpoint_to_npz.py`` at the repo root,
+where JAX is installed).
 """
 
 from __future__ import annotations
@@ -120,6 +125,28 @@ def state_dict_from_jax(variables: Dict[str, Any]
     return out
 
 
+def _host(v) -> np.ndarray:
+    """A leaf (numpy array or tensor on any device) as a numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def flax_to_torch_state(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Flatten Flax variables into a torch state_dict of numpy values
+    (vidmat/models/weights.py ``flax_to_torch_state``): conv kernels (H,
+    W, I, O) -> (O, I, H, W), values in their own dtype. The top-level
+    ``seg_head`` (the co-training head) is dropped from the parameters and
+    the statistics, as there; ``state_dict_from_jax`` keeps it."""
+    out: Dict[str, np.ndarray] = {}
+    for name, (_, path), v, kernel in _module_entries(variables):
+        if path.split("/", 1)[0] == "seg_head":
+            continue
+        v = _host(v)
+        out[name] = np.transpose(v, (3, 2, 0, 1)) if kernel else v
+    return out
+
+
 def module_tensors(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax variables whose leaves are tensors -> the module's parameter
     and buffer names, each its leaf or, for a conv kernel, a contiguous
@@ -161,13 +188,65 @@ def variables_from_state_dict(state_dict: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def torch_to_flax_variables(state_dict: Dict[str, Any],
+                            template: Dict[str, Any]) -> Dict[str, Any]:
+    """A torch state_dict (numpy or tensor values, torch names and layouts)
+    as Flax variables shaped like ``template`` (vidmat/models/weights.py
+    ``torch_to_flax_variables``): every leaf of the template's ``params``
+    and ``batch_stats`` is filled from the state dict, as float32 numpy;
+    entries the template lacks (``num_batches_tracked``) are ignored, and a
+    leaf the state dict lacks raises KeyError. ``variables_from_state_dict``
+    is the inverse without a template."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, (coll, path), _, kernel in _module_entries(template):
+        if name not in state_dict:
+            raise KeyError(f"{name} (for {coll}/{path})")
+        v = np.asarray(_host(state_dict[name]), np.float32)
+        if kernel:  # (O, I, H, W) -> (H, W, I, O)
+            v = np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0)))
+        flat[f"{coll}/{path}"] = v
+    out = unflatten_variables(flat)
+    out.setdefault("params", {})
+    out.setdefault("batch_stats", {})
+    return out
+
+
+def load_into_torch(torch_module: torch.nn.Module,
+                    variables: Dict[str, Any]) -> None:
+    """Load Flax variables into the port's ``MattingNetwork`` in place
+    (vidmat/models/weights.py ``load_into_torch``) through
+    ``flax_to_torch_state``: a co-trained tree's ``seg_head`` is dropped,
+    so it loads into a matting-only module. The module's
+    ``num_batches_tracked`` buffers, if any, are kept; the module is left
+    in eval mode."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in flax_to_torch_state(variables).items()}
+    current = torch_module.state_dict()
+    for k in current:
+        if k.endswith("num_batches_tracked"):
+            sd[k] = current[k]
+    torch_module.load_state_dict(sd)
+    torch_module.eval()
+
+
+def to_device(tree, device) -> Any:
+    """Nested dicts (and tuples) of arrays or tensors -> float32 tensors on
+    ``device`` (a tensor already there is kept)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [to_device(v, device) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(tree, np.float32)).to(device)
+    return tree
+
+
 def numpy_variables(variables: Dict[str, Any]) -> Dict[str, Any]:
     """Variables with tensor leaves (on any device) -> numpy leaves."""
-    def conv(v):
-        if isinstance(v, torch.Tensor):
-            return v.detach().cpu().numpy()
-        return np.asarray(v)
-    return unflatten_variables({k: conv(v) for k, v in _walk(variables)})
+    return unflatten_variables({k: _host(v) for k, v in _walk(variables)})
 
 
 # Flax's lecun_normal: a normal truncated at two standard deviations,
@@ -277,6 +356,16 @@ def graft_cond_params(src: Dict[str, Any], cfg: ModelConfig,
     return unflatten_variables(out)
 
 
+def graft_trimap_params(src: Dict[str, Any], cfg: ModelConfig,
+                        seed: int = 0) -> Dict[str, Any]:
+    """Transfer a non-trimap checkpoint into a trimap-conditioned config
+    (``graft_cond_params`` from 3 input channels: the trimap rows zero;
+    vidmat/models/weights.py ``graft_trimap_params``)."""
+    if not cfg.use_trimap:
+        raise ValueError("target config must have use_trimap=True")
+    return graft_cond_params(src, cfg, src_in_channels=3, seed=seed)
+
+
 def randomize_bn_stats(variables: Dict[str, Any], seed: int = 1
                        ) -> Dict[str, Any]:
     """Replace the (0, 1) BatchNorm running statistics with random ones
@@ -313,8 +402,8 @@ def save_checkpoint(path: str, variables: Dict[str, Any]) -> str:
     """Write variables (numpy or tensor leaves, on any device) as the
     port's ``.npz`` checkpoint (``save_npz``) and return the path written
     (``.npz`` appended when missing). The JAX package writes an orbax
-    directory; the port's readers (``load_npz``, the CLI's
-    ``--checkpoint``) take this file."""
+    directory; the port's readers (``load_checkpoint``, ``load_npz``,
+    the CLI's ``--checkpoint``) take this file."""
     path = os.path.abspath(path)
     if not path.endswith(".npz"):
         path += ".npz"
@@ -327,6 +416,48 @@ def load_npz(path: str) -> Dict[str, Any]:
     """Read a flat npz written by save_npz back into nested variables."""
     with np.load(path) as z:
         return unflatten_variables({k: z[k] for k in z.files})
+
+
+#: the converter of the JAX package's orbax checkpoints (repo root)
+ORBAX_CONVERTER = ("python jax_checkpoint_to_npz.py CKPT_DIR OUT.npz "
+                   "(at the repo root, where JAX and orbax are installed)")
+
+
+def load_checkpoint(path: str, template: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+    """Read the port's ``.npz`` checkpoint (``save_checkpoint``; ``.npz``
+    appended when ``path`` lacks it and only that file exists) as nested
+    variables of numpy arrays (vidmat/models/weights.py
+    ``load_checkpoint``, which restores an orbax directory). With a
+    ``template`` every leaf's path and shape is checked against it
+    (ValueError on a leaf missing, extra or of another shape) and the
+    result has the template's structure and key order. A directory (an
+    orbax checkpoint of the JAX package) raises ValueError naming the
+    converter."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path!r} is a directory (an orbax checkpoint of the JAX "
+            "package); the port reads .npz checkpoints: convert it with "
+            f"{ORBAX_CONVERTER}")
+    if not os.path.exists(path) and os.path.isfile(path + ".npz"):
+        path += ".npz"
+    loaded = flatten_variables(load_npz(path))
+    if template is None:
+        return unflatten_variables(loaded)
+    want = {k: tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
+            for k, v in _walk(template)}
+    missing = sorted(set(want) - set(loaded))
+    extra = sorted(set(loaded) - set(want))
+    if missing or extra:
+        raise ValueError(f"{path}: leaves missing {missing[:5]} "
+                         f"({len(missing)}), not in the template "
+                         f"{extra[:5]} ({len(extra)})")
+    shapes = [f"{k}: {loaded[k].shape} != {want[k]}" for k in want
+              if loaded[k].shape != want[k]]
+    if shapes:
+        raise ValueError(f"{path}: leaf shapes differ from the template: "
+                         + "; ".join(shapes[:5]))
+    return unflatten_variables({k: loaded[k] for k in want})
 
 
 def default_checkpoint_path(cfg: ModelConfig,

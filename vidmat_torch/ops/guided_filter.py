@@ -1,6 +1,7 @@
 """Guided-filter statistics in plain PyTorch (counterpart of
-vidmat/ops/guided_filter.py: ``gray_guide``, the edge-truncated box mean
-and ``box_blur``, the portrait-blur background).
+vidmat/ops/guided_filter.py: ``gray_guide``, the edge-truncated box mean,
+``box_blur``, the portrait-blur background, and the full-resolution
+``guided_filter``).
 
 The box mean sums the (2r+1)^2 window with zero padding, rows first, then
 columns, each pass adding the 2r+1 shifted terms in ascending order, and
@@ -47,14 +48,19 @@ def box_sum(x: torch.Tensor, r: int) -> torch.Tensor:
     return t
 
 
-def inv_window_count(h: int, w: int, r: int, device="cpu") -> torch.Tensor:
-    """1 / (in-image pixels of each window), (1, H, W, 1) float32: the
-    separable count (min(i+r, H-1) - max(i-r, 0) + 1) * (same for j)."""
+def window_count(h: int, w: int, r: int, device="cpu") -> torch.Tensor:
+    """In-image pixels of each window, (1, H, W, 1) float32: the separable
+    count (min(i+r, H-1) - max(i-r, 0) + 1) * (same for j)."""
     def counts(n):
         i = torch.arange(n, device=device)
         return torch.clamp(i + r, max=n - 1) - torch.clamp(i - r, min=0) + 1
     cnt = (counts(h)[:, None] * counts(w)[None, :]).to(torch.float32)
-    return (1.0 / cnt)[None, :, :, None]
+    return cnt[None, :, :, None]
+
+
+def inv_window_count(h: int, w: int, r: int, device="cpu") -> torch.Tensor:
+    """1 / ``window_count``, (1, H, W, 1) float32."""
+    return 1.0 / window_count(h, w, r, device)
 
 
 def box_mean(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -68,6 +74,35 @@ def box_blur(x: torch.Tensor, radius: int) -> torch.Tensor:
     of the portrait-blur path, taken at the coarse grid
     (vidmat/ops/guided_filter.py ``box_blur``; plain XLA there too)."""
     return box_mean(x, radius)
+
+
+def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int = 4,
+                  eps: float = 1e-4) -> torch.Tensor:
+    """Full-resolution guided filter of ``src`` guided by ``guide``
+    (vidmat/ops/guided_filter.py ``guided_filter``):
+    ``mean(a) * I + mean(b)`` with ``a = cov(I, p) / (var(I) + eps)`` and
+    ``b = mean(p) - a * mean(I)``, every mean the edge-truncated box mean
+    divided by its window count as the JAX package divides. Plain PyTorch
+    on the card and on the CPU (XLA box sums there: no TPU kernel).
+
+    guide (N, H, W, 1), typically ``gray_guide`` of the frame; src (N, H,
+    W, C), alpha or alpha and foreground stacked. Computed in float32,
+    returned in ``src``'s dtype."""
+    _, h, w, _ = guide.shape
+    cnt = window_count(h, w, radius, guide.device)
+
+    def mean(x):
+        return box_sum(x, radius) / cnt
+
+    i = guide.float()
+    p = src.float()
+    mean_i = mean(i)
+    mean_p = mean(p)
+    var_i = mean(i * i) - mean_i * mean_i
+    cov_ip = mean(i * p) - mean_i * mean_p
+    a = cov_ip / (var_i + eps)
+    b = mean_p - a * mean_i
+    return (mean(a) * i + mean(b)).to(src.dtype)
 
 
 def guided_upsample(rgb_full: torch.Tensor, alpha_lr: torch.Tensor,

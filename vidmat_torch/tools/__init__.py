@@ -1,2 +1,3 @@
-"""Measurement tools of the port (counterparts of the JAX package's
-``tools/``); each runs on the card only."""
+"""Tools of the port (counterparts of the JAX package's ``tools/``): the
+measurement tools run on the card; the evaluation, training and weight
+tools take ``--device`` or run on the host."""

@@ -34,7 +34,7 @@ from vidmat_torch.config import ModelConfig
 from vidmat_torch.models.layers import BatchNorm, batch_statistics, ema_update
 from vidmat_torch.models.matting_net import (MattingNetwork, RecurrentState,
                                              init_state)
-from vidmat_torch.models.weights import module_tensors
+from vidmat_torch.models.weights import module_tensors, to_device
 from vidmat_torch.train.losses import matting_loss, segmentation_loss
 from vidmat_torch.train.optim import (apply_updates, make_optimizer,
                                       tree_map)
@@ -48,21 +48,6 @@ class TrainState:
     variables: Dict[str, Any]  # {'params', 'batch_stats'}
     opt_state: Any
     step: int = 0
-
-
-def to_device(tree, device) -> Any:
-    """Nested dicts (and tuples) of arrays or tensors -> float32 tensors on
-    ``device`` (a tensor already there is kept)."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        vals = [to_device(v, device) for v in tree]
-        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, (np.ndarray, np.generic)):
-        return torch.from_numpy(np.array(tree, np.float32)).to(device)
-    return tree
 
 
 def to_tensor(x, device) -> torch.Tensor:

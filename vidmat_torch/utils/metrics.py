@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import json
 import time
 from typing import Any, Dict
 
@@ -14,15 +15,24 @@ def mad(a, b) -> float:
                                 np.asarray(b, np.float64))))
 
 
+def sad(a, b) -> float:
+    """Sum of absolute differences, in thousands (the matting
+    literature's unit)."""
+    return float(np.sum(np.abs(np.asarray(a, np.float64) -
+                               np.asarray(b, np.float64))) / 1000.0)
+
+
 class RunMetrics:
     """Per-run metrics sink: fps, p50/p99 latency.
 
     Each observation is (seconds, frames covered): a chunked run records
     one observation per K-frame dispatch, and the percentiles are then
-    per dispatch (summary() says so)."""
+    per dispatch (summary() says so). ``extra`` holds a run's other
+    values; the summary starts from them."""
 
     def __init__(self) -> None:
         self.observations: list[tuple[float, int]] = []
+        self.extra: Dict[str, Any] = {}
         self._t0 = time.perf_counter()
 
     def record_frame(self, seconds: float) -> None:
@@ -32,7 +42,7 @@ class RunMetrics:
         self.observations.append((seconds, k))
 
     def summary(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = {}
+        out: Dict[str, Any] = dict(self.extra)
         if self.observations:
             t = np.array([s for s, _ in self.observations])
             ks = [k for _, k in self.observations]
@@ -53,3 +63,6 @@ class RunMetrics:
                         f"{sorted(kset)}; percentiles are per-dispatch)")
         out["wall_s"] = time.perf_counter() - self._t0
         return out
+
+    def dump(self) -> str:
+        return json.dumps(self.summary())
