@@ -195,6 +195,21 @@ Phases (any failure exits nonzero and prints no result line):
      the same finish (0 bytes unequal), launches; an unpaced 64-frame
      source and one paced at 30 fps (0 dropped): produced, processed,
      dropped, p50 / p99 ms
+  P. serving over several mesh positions, each position a CUDA stream of
+     the one card: (a) make_mesh over the visible cards and over two
+     positions of cuda:0; (b) MultiStreamMatting on the multistream
+     preset (8 x 1088x1920) split over two positions, 16 rounds: bytes
+     within 1 of the one-position instance, graphs equal to the eager
+     bodies, launches per position, aggregate fps host-fed and on a
+     device-resident ring beside one position's; (c) PipelinedMatting
+     (1088, 1920) on video_1080p: step / flush and convert at chunk 1 and
+     4 within 1 of a one-stream instance, the one-frame skew, launches
+     per stage position, t_stage0 / t_stage1 / the composed body and the
+     pipelined rate (vidmat_torch/tools/bench_pp_stages.py); (d)
+     PipelinedStreams(2) on four positions over a color and with
+     bg_blur=16 (coarse-mode launches); (e) the CLI's multistream --pp on
+     one card exits naming the cards it needs; the kernels against plain
+     at the positions' launch shapes (4 streams, 1 frame)
   D. AOT serving bundles (vidmat_torch/deploy.py, torch.export with the
      kernels as vidmat_torch:: custom ops): video_1080p exported on the
      card with chunk 4, each program's vidmat_torch:: node counts (the
@@ -3566,7 +3581,7 @@ def ms_path(label, kernels, batches, kw, one_streams=(3,), one_kw=None,
     launches = counts(kernels)
     modes = {k: v for k, v in fused_refine_composite.mode_launches.items()
              if v}
-    g = ms._graphs[ms.chunk]
+    g = ms._shards[0].graphs[ms.chunk]
     per = g.launches_per_replay()
     rounds = len(batches)
     assert {k: v * rounds for k, v in per.items()} == {
@@ -3576,7 +3591,7 @@ def ms_path(label, kernels, batches, kw, one_streams=(3,), one_kw=None,
     eager = ms_build(**kw)
     eager.capture = False
     e_outs, e_secs = ms_steps(eager, batches)
-    assert not eager._graphs
+    assert not eager._shards[0].graphs
     unequal = sum(byte_diff(g_, e_)[1] for o, e in zip(outs, e_outs)
                   for g_, e_ in zip(o, e))
     e_fps = MS_STREAMS * (rounds - 1) / sum(e_secs[1:])
@@ -3654,15 +3669,16 @@ def ms_split(ms, pool, rounds):
     t = dict(pad=0.0, h2d=0.0, enqueue=0.0, replay=0.0, d2h=0.0,
              unpack=0.0)
     reset = np.zeros(ms.s, bool)
-    downs = ms._staging(1)[2]
+    sh = ms._shards[0]
+    downs = sh.staging(1)[2]
     for r in range(rounds):
         a = time.perf_counter()
         ms._stage(1, [ms_round(pool, r)], reset)
         b = time.perf_counter()
-        ms._send(1)
+        sh.send(1)
         torch.cuda.synchronize()
         c = time.perf_counter()
-        out = ms._run(1)
+        out = sh.run(1)
         d = time.perf_counter()
         torch.cuda.synchronize()
         e = time.perf_counter()
@@ -3759,7 +3775,7 @@ def phase_multistream(kernels, gpu, dev, pool):
     c_launches = counts(kernels)
     c_unequal = sum(byte_diff(x, y)[1] for o, p in zip(c_outs, d_outs)
                     for x, y in zip(o, p))
-    c_per = c._graphs[4].launches_per_replay()
+    c_per = c._shards[0].graphs[4].launches_per_replay()
     log(f"[M] (c: chunk 4) 2 dispatches of 4 rounds (the first eager, the "
         f"second one replay of the 4-round graph, capture "
         f"{c.capture_ms:.1f} ms, launches per replay {c_per}) against "
@@ -3923,6 +3939,299 @@ def phase_realtime(kernels, gpu, dev, pool):
                                       lockstep=sa, unpaced=sb, paced=sc,
                                       unequal=unequal)
     return dict(launches=launches, lockstep=sa, unpaced=sb, paced=sc)
+
+
+# Phase P (A.12 over several positions): the multistream preset split
+# over two positions of the card (two streams of it), the 2-stage pipeline
+# of the video_1080p model on two positions, PipelinedStreams(2) on four,
+# and the command line's multistream --pp, which needs two cards a stream.
+PP_FRAMES = 30
+
+
+def position_kernel_checks(net, batch, label):
+    """Phase 2's checks at a mesh position's launch shape (``batch``: the
+    (N, 1088, 1920, 3) uint8 frames on the card it serves): ingest
+    bit-exact, the planar kernels at the per-frame body's 9 sites over
+    the batch (the decoder on a carry that is not zero) with 0 bf16
+    values unequal to the sequential order, GF bit-exact in one launch,
+    the packed tail over a color and in coarse mode (bg_blur=16) within 1
+    byte. Returns {kernel: max |d|}."""
+    import torch
+
+    from vidmat_torch.ops.gf import (guided_filter_coeffs,
+                                     guided_filter_coeffs_plain)
+    from vidmat_torch.ops.guided_filter import box_blur, gray_guide
+    from vidmat_torch.ops.ingest import (ingest_pool_normalize,
+                                         ingest_pool_normalize_plain)
+    from vidmat_torch.ops.refine import (fused_refine_composite,
+                                         fused_refine_composite_plain)
+
+    x = ingest_pool_normalize(batch, pool=4)
+    want = ingest_pool_normalize_plain(batch, pool=4)
+    assert torch.equal(x, want), f"ingest at {label}: not bit-exact"
+    errs = {"ingest_pool_normalize": 0.0}
+    xp = coarse_input(net, batch)
+    unequal = {}
+    for site, (key, args) in capture_sites(net, None, xp,
+                                           batch_decode=True).items():
+        e, u, _ = check_planar(key, args)
+        name = planar_ops()[key][0].__name__
+        errs[name] = max(errs.get(name, 0.0), e)
+        unequal[site] = u
+    assert not any(unequal.values()), (label, unequal)
+    nh, nw = x.shape[1:3]
+    with torch.inference_mode():
+        st = net.init_state(batch.shape[0], *xp.shape[1:3])
+        alpha, fgr, _ = net(xp, st, plain=True)
+    guide = gray_guide(want.float()).contiguous()
+    p = torch.cat([alpha[:, :nh, :nw], fgr[:, :nh, :nw]], -1).float()
+    # One launch (phase 2 checks it allocates no scratch: the allocator's
+    # peak, which cached blocks of earlier phases blur here).
+    n0 = guided_filter_coeffs.launches
+    ka, kb = guided_filter_coeffs(guide, p.contiguous())
+    assert guided_filter_coeffs.launches == n0 + 1, label
+    ma, mb = guided_filter_coeffs_plain(guide, p.contiguous())
+    assert torch.equal(ka, ma) and torch.equal(kb, mb), f"GF at {label}"
+    errs["guided_filter_coeffs"] = 0.0
+    for mode, bg in (("color", GREEN), ("coarse", box_blur(want.float(),
+                                                           4))):
+        k = fused_refine_composite(batch, ma, mb, bg, 4)
+        q = fused_refine_composite_plain(batch, ma, mb, bg, 4)
+        d = int((k.view(torch.uint8).int()
+                 - q.view(torch.uint8).int()).abs().max())
+        errs["fused_refine_composite"] = max(
+            errs.get("fused_refine_composite", 0.0), float(d))
+        assert d <= 1, (label, mode, d)
+    torch.cuda.synchronize()
+    log(f"    [P] kernels at {label} against plain: {json.dumps(errs)}; "
+        f"bf16 planar values unequal to the sequential order {unequal}")
+    return errs
+
+
+def device_ring_fps(run, batches, streams, n=32):
+    """Frames a second of ``run(device batch)`` chained over n dispatches
+    between two synchronizations (after two warm-up dispatches: the eager
+    one and the capture)."""
+    import torch
+
+    ring = [torch.from_numpy(b).cuda() for b in batches[:4]]
+    for i in range(2):
+        run(ring[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        run(ring[i % 4])
+    torch.cuda.synchronize()
+    return streams * n / (time.perf_counter() - t0)
+
+
+def phase_pp(kernels, gpu, dev, net, pool):
+    """Phase P: A.12's serving over several positions, positions repeating
+    the card (two CUDA streams of it). (a) make_mesh over the visible
+    cards and over two positions of cuda:0; (b) MultiStreamMatting on the
+    multistream preset, 8 x 1088x1920, split over two positions, 16
+    rounds: every byte within 1 of the one-position instance, graph
+    replays equal to the eager bodies (0 bytes unequal), launches per
+    position, aggregate fps host-fed and device-resident beside the
+    one-position instance's; (c) PipelinedMatting(1088, 1920) on the
+    video_1080p model over a color, step / flush over 30 frames and
+    convert at chunk 1 and 4 (30 frames: not a multiple of 4): every
+    frame within 1 of a one-stream MultiStreamMatting, the one-frame
+    skew, launches per position; t_stage0, t_stage1 and the composed
+    body (vidmat_torch/tools/bench_pp_stages.py), the pipelined rate on
+    two positions beside one position's; (d) PipelinedStreams(2) on four
+    positions, 8 rounds, over a color and with bg_blur=16: within 1 of
+    the 2-stream instance, coarse-mode launches counted; (e) python -m
+    vidmat_torch.cli multistream --pp on one card exits naming the cards
+    it needs. The kernels at the positions' launch shapes (4 streams a
+    position; 1 frame a stage) against their plain versions. Returns the
+    numbers."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from vidmat_torch import cli, preset_video_1080p
+    from vidmat_torch.models.weights import default_variables
+    from vidmat_torch.ops.refine import fused_refine_composite
+    from vidmat_torch.parallel.mesh import make_mesh
+    from vidmat_torch.parallel.multistream import MultiStreamMatting
+    from vidmat_torch.parallel.pp import PipelinedMatting, PipelinedStreams
+    from vidmat_torch.tools import bench_pp_stages
+
+    t_phase = time.perf_counter()
+    res = {}
+    every = make_mesh()
+    assert every.size == torch.cuda.device_count() and all(
+        d.type == "cuda" for d in every.devices.flat), every
+    two = make_mesh(("stream",), devices=["cuda:0"] * 2)
+    assert list(two.devices) == [torch.device("cuda", 0)] * 2, two
+    try:
+        make_mesh(("stream", "pp"), (3, 2), devices=["cuda:0"] * 4)
+        raise AssertionError("a 3x2 mesh over 4 devices did not raise")
+    except ValueError as e:
+        assert "!= 4 devices" in str(e), e
+    log(f"[P] (a) make_mesh(): {every}; two positions: {two}")
+
+    frames, _ = pool
+    batches = [ms_batch(frames, r) for r in range(MS_ROUNDS)]
+    errs = position_kernel_checks(
+        net, torch.from_numpy(batches[0][:MS_STREAMS // 2]).cuda(),
+        f"{MS_STREAMS // 2} x {W}x{H} (a meshed round's position)")
+    one = ms_build(bg_color=GREEN)
+    one_outs, one_secs = ms_steps(one, batches)
+    meshed = ms_build(bg_color=GREEN, mesh=two)
+    zero_counts(kernels)
+    outs, secs = ms_steps(meshed, batches)
+    launches = {k: v for k, v in counts(kernels).items() if v}
+    per_pos = [dict(p.launches) for p in meshed.positions]
+    per_replay = [sh.graphs[1].launches_per_replay()
+                  for sh in meshed._shards]
+    assert {k: sum(p.get(k, 0) for p in per_pos)
+            for k in launches} == launches, (per_pos, launches)
+    for p, rep in zip(per_pos, per_replay):
+        assert p == {k: v * MS_ROUNDS for k, v in rep.items()}, (p, rep)
+        for name in ("ingest_pool_normalize", "guided_filter_coeffs",
+                     "fused_refine_composite", "planar_conv",
+                     "planar_conv2", "planar_conv_gru"):
+            assert p.get(name, 0) > 0, (name, p)
+    one_max = max(byte_diff(g, w)[0] for o, q in zip(outs, one_outs)
+                  for g, w in zip(o, q))
+    eager = ms_build(bg_color=GREEN, mesh=two)
+    eager.capture = False
+    e_outs, _ = ms_steps(eager, batches)
+    unequal = sum(byte_diff(g, w)[1] for o, q in zip(outs, e_outs)
+                  for g, w in zip(o, q))
+    fps = MS_STREAMS * (MS_ROUNDS - 1) / sum(secs[1:])
+    one_fps = MS_STREAMS * (MS_ROUNDS - 1) / sum(one_secs[1:])
+    reset = torch.zeros(MS_STREAMS, dtype=torch.uint8, device=dev)
+    ring = {name: device_ring_fps(lambda b, m=m: m.step_device(b, reset),
+                                  batches, MS_STREAMS)
+            for name, m in (("two positions", meshed),
+                            ("one position", one))}
+    del outs, one_outs, e_outs
+    log(f"[P] (b) MultiStreamMatting multistream preset, {MS_STREAMS} x "
+        f"{W}x{H} over two positions of cuda:0, {MS_ROUNDS} rounds: max "
+        f"|d| to the one-position instance {one_max}; bytes unequal to the "
+        f"eager bodies {unequal}; launches per position {per_pos} (per "
+        f"replay {per_replay}); capture {meshed.capture_ms:.1f} ms; "
+        f"host-fed {fps:.2f} frames/s aggregate (one position {one_fps:.2f}, "
+        f"ratio {fps / one_fps:.3f}); device-resident ring {ring} ({gpu})")
+    assert one_max <= 1 and unequal == 0, (one_max, unequal)
+    GRAPHS["P: multistream over 2 positions"] = dict(
+        per_replay=per_replay, capture_ms=meshed.capture_ms, fps=fps,
+        one_position_fps=one_fps, ring_fps=ring, one_max=one_max,
+        unequal=unequal)
+    res["b"] = dict(launches=per_pos, fps=fps, one_fps=one_fps, ring=ring)
+    del meshed, eager, one
+
+    mcfg, pcfg = preset_video_1080p()
+    kw = dict(cfg=mcfg, variables=default_variables(mcfg),
+              downsample_ratio=pcfg.downsample_ratio, refine=pcfg.refine)
+    pp2 = make_mesh(("pp",), devices=["cuda:0"] * 2)
+    clip = [batches[r % MS_ROUNDS][r // MS_ROUNDS] for r in range(PP_FRAMES)]
+    for name, e in position_kernel_checks(
+            net, torch.from_numpy(clip[0][None]).cuda(),
+            f"1 x {W}x{H} (a stage's position)").items():
+        errs[name] = max(errs[name], e)
+    one = MultiStreamMatting(1, H, W, device=dev, bg_color=GREEN, **kw)
+    t0 = time.perf_counter()
+    ref = [one.step(f[None]) for f in clip]
+    one_fps = PP_FRAMES / (time.perf_counter() - t0)
+    pp = PipelinedMatting(H, W, pp2, bg_color=GREEN, **kw)
+    zero_counts(kernels)
+    got = [pp.step(f) for f in clip]
+    assert got[0] is None and all(g is not None for g in got[1:])
+    got = got[1:] + [pp.flush()]
+    launches = {k: v for k, v in counts(kernels).items() if v}
+    per_pos = [dict(p.launches) for p in pp.positions]
+    assert per_pos[1] == {"fused_refine_composite": PP_FRAMES + 1}, per_pos
+    assert set(per_pos[0]) == {"ingest_pool_normalize",
+                               "guided_filter_coeffs", "planar_conv",
+                               "planar_conv2", "planar_conv_gru"}, per_pos
+    assert {k: sum(p.get(k, 0) for p in per_pos)
+            for k in launches} == launches, (per_pos, launches)
+    primed = pp.step(clip[0]) is not None
+    step_max = max(byte_diff(g[i], w[i][0])[0] for g, w in zip(got, ref)
+                   for i in range(2))
+    conv = {}
+    for k in (1, 4):
+        ppk = pp if k == 1 else PipelinedMatting(H, W, pp2, bg_color=GREEN,
+                                                 chunk=k, **kw)
+        for n in (PP_FRAMES, 8):
+            t0 = time.perf_counter()
+            outs = list(ppk.convert(clip[:n]))
+            secs = time.perf_counter() - t0
+            assert len(outs) == n, (k, n, len(outs))
+            d = max(byte_diff(g[i], w[i][0])[0] for g, w in zip(outs, ref)
+                    for i in range(2))
+            conv[f"chunk {k}, {n} frames"] = dict(max=d, fps=n / secs)
+            assert d <= 1, (k, n, d)
+    row = pp._rows[0]
+    g0, g1 = row.g0, row.g1
+    log(f"[P] (c) PipelinedMatting({H}, {W}) video_1080p over a color on "
+        f"two positions of cuda:0: step / flush over {PP_FRAMES} frames "
+        f"(the first step None, each later one the frame before): max |d| "
+        f"to a one-stream MultiStreamMatting {step_max}; a step after the "
+        f"flush returns at once: {primed}; launches per position {per_pos}"
+        f" (per replay: stage 0 {g0.launches_per_replay()}, stage 1 "
+        f"{g1.launches_per_replay()}; capture ms {row.capture_ms}); "
+        f"convert {conv}; host-fed one-stream "
+        f"MultiStreamMatting {one_fps:.2f} fps ({gpu})")
+    assert step_max <= 1 and primed, (step_max, primed)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench_pp_stages.main(["--chunk", "4", "--repeats", "5"])
+    stages = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"[P] (c) vidmat_torch/tools/bench_pp_stages.py: "
+        f"{json.dumps(stages)}")
+    GRAPHS["P: PipelinedMatting stage 0"] = dict(
+        per_replay=g0.launches_per_replay(), capture_ms=row.capture_ms[0],
+        fps=conv[f"chunk 1, {PP_FRAMES} frames"]["fps"],
+        one_position_fps=one_fps)
+    GRAPHS["P: PipelinedMatting stage 1"] = dict(
+        per_replay=g1.launches_per_replay(), capture_ms=row.capture_ms[1])
+    res["c"] = dict(launches=per_pos, convert=conv, one_fps=one_fps,
+                    stages=stages)
+    del pp, one, ref
+
+    four = make_mesh(("stream", "pp"), (2, 2), devices=["cuda:0"] * 4)
+    rounds = [b[:2] for b in batches[:8]]
+    res["d"] = {}
+    for label, extra in (("color", dict(bg_color=GREEN)),
+                         ("bg_blur=16", dict(bg_blur=16))):
+        un = MultiStreamMatting(2, H, W, device=dev, **kw, **extra)
+        ref = [un.step(r) for r in rounds]
+        pps = PipelinedStreams(2, H, W, four, **kw, **extra)
+        zero_counts(kernels)
+        outs = list(pps.convert(rounds))
+        modes = {k: v for k, v in
+                 fused_refine_composite.mode_launches.items() if v}
+        per_pos = [dict(p.launches) for p in pps.positions]
+        d = max(byte_diff(g, w)[0] for o, q in zip(outs, ref)
+                for g, w in zip(o, q))
+        log(f"[P] (d) PipelinedStreams(2) on four positions of cuda:0, "
+            f"{label}, 8 rounds: max |d| to the 2-stream instance {d}; "
+            f"refine modes {modes}; launches per position {per_pos}")
+        want_mode = "coarse" if "blur" in label else "color"
+        # 8 rounds and the drain's one: 9 dispatches a row, 2 rows.
+        assert d <= 1 and modes == {want_mode: 18}, (d, modes)
+        res["d"][label] = dict(max=d, modes=modes)
+
+    try:
+        cli.main(["multistream", "a.mp4", "--output-dir",
+                  os.path.join(OUT_DIR, "pp"), "--pp"])
+        raise AssertionError("multistream --pp ran on one card")
+    except SystemExit as e:
+        msg = str(e)
+    n = torch.cuda.device_count()
+    log(f"[P] (e) python -m vidmat_torch.cli multistream a.mp4 --pp on "
+        f"{n} card(s): exits {msg!r}")
+    assert n >= 2 or msg == (f"--pp needs 2 devices per stream (2 for 1 "
+                             f"streams); {n} visible"), msg
+    log(f"[P] phase P took {time.perf_counter() - t_phase:.1f} s; kernel "
+        f"checks {json.dumps(errs)}")
+    return res
 
 
 def phase_kernels_n8(net, dev, pool):
@@ -4635,7 +4944,7 @@ def phase_train(kernels, gpu, dev):
 
 # Phase U (A.16): the names the JAX package's subpackages export
 # (vidmat/{models,utils,pipeline,io,ops,refine,parallel,train}/__init__.py),
-# 34 in all; the three of the mesh and the pipeline split raise naming A.12.
+# 34 in all.
 SUBPACKAGE_EXPORTS = {
     "models": ("MattingNetwork", "RecurrentState", "init_params",
                "flax_to_torch_state", "save_checkpoint", "load_checkpoint"),
@@ -4760,11 +5069,7 @@ def phase_a16(kernels, gpu, dev):
         mod = importlib.import_module(f"vidmat_torch.{pkg}")
         for name in exported:
             names += 1
-            try:
-                obj = getattr(mod, name)
-            except NotImplementedError as e:
-                assert "ROADMAP A.12 (more than one card)" in str(e), e
-                continue
+            obj = getattr(mod, name)
             assert obj.__name__ == name, (pkg, name, obj)
     assert names == 34 and callable(importlib.import_module(
         "vidmat_torch.ops").guided_filter)
@@ -4783,7 +5088,7 @@ def phase_a16(kernels, gpu, dev):
     v = weights.load_checkpoint(weights.default_refiner_path(),
                                 template=init_refiner_params())
     loaded.append(f"errormap_demo {len(weights.flatten_variables(v))}")
-    log(f"[U] (c) {names} subpackage names resolve (3 raise naming A.12); "
+    log(f"[U] (c) {names} subpackage names resolve; "
         f"(d) load_checkpoint with templates (leaves): {', '.join(loaded)}")
     assert len(loaded) == 7
 
@@ -4866,6 +5171,7 @@ def main() -> int:
     phase_realtime(kernels, gpu, dev, pool)
     log(f"[M] phase M took {t1 - t0:.1f} s, phase R "
         f"{time.perf_counter() - t1:.1f} s")
+    phase_pp(kernels, gpu, dev, net, pool)
     del pool
     t0 = time.perf_counter()
     deploy = phase_deploy(kernels, gpu, dev)

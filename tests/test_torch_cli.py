@@ -13,7 +13,8 @@
   cv2; the fakes keep every frame in memory), its outputs equal byte for
   byte to the API called directly on the same frames; ``train`` writes
   the variables ``train_on_clips`` gives, which ``video --checkpoint``
-  serves; ``multistream --pp`` exits naming its ROADMAP item.
+  serves; ``multistream --pp`` serves streams of unequal length on CPU
+  positions and, with too few cards, exits naming the cards it needs.
 """
 
 import argparse
@@ -347,6 +348,35 @@ def test_train_writes_a_checkpoint_video_reads(store, tmp_path, capsys):
     _equal(store["a.mp4"], alphas)
 
 
-def test_unported_subcommands_exit_naming_their_items():
-    with pytest.raises(SystemExit, match=r"A\.12 \(more than one card\)"):
+def test_unported_subcommands_exit_naming_their_items(store):
+    """multistream --pp with too few cards (none here) exits with the JAX
+    package's message, naming the cards it needs, before it reads a
+    frame (it exited naming A.12 before --pp was ported)."""
+    store["a.mp4"] = _clip(2)
+    with pytest.raises(SystemExit, match=r"--pp needs 2 devices per stream "
+                                         r"\(2 for 1 streams\); 0 visible"):
         cli.main(["multistream", "a.mp4", "--output-dir", "x", "--pp"])
+
+
+def test_multistream_pp_on_cpu_positions(store, tmp_path, capsys):
+    """--pp --device cpu over streams of 4 and 6 frames: 2 x 2 CPU
+    positions, each stream's frames written up to its own length, equal
+    to PipelinedMatting on that stream alone."""
+    from vidmat_torch.parallel.mesh import make_mesh
+    from vidmat_torch.parallel.pp import PipelinedMatting
+
+    clips = {"s0.mp4": _clip(4, 3), "s1.mp4": _clip(6, 5)}
+    store.update(clips)
+    out = str(tmp_path / "pp")
+    assert cli.main(["multistream", "s0.mp4", "s1.mp4", "--output-dir", out,
+                     "--height", str(H), "--width", str(W), "--pp",
+                     "--device", "cpu"]) == 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert record == {"streams": 2, "mesh": {"stream": 2, "pp": 2},
+                      "frames": [4, 6]}
+    pp = PipelinedMatting(H, W, make_mesh(("pp",), devices=["cpu"] * 2),
+                          downsample_ratio=0.25)
+    for i, name in enumerate(clips):
+        got = store[os.path.join(out, f"alpha_{i:02d}.mp4")]
+        assert len(got) == len(clips[name])
+        _equal(got, [a for a, _ in pp.convert(clips[name])])

@@ -2,8 +2,7 @@
 (ROADMAP C.7): every name that ``vidmat/{models,utils,pipeline,io,ops,
 refine,parallel,train}/__init__.py`` imports resolves in the matching
 ``vidmat_torch`` subpackage to the port's object of the same name in the
-matching submodule, or raises NotImplementedError naming A.12 (what needs
-more than one card). The exports are lazy: importing a subpackage loads
+matching submodule. The exports are lazy: importing a subpackage loads
 none of the submodules it names, except ``ops.guided_filter``, whose name
 is the function in every import order, as in the JAX package."""
 
@@ -18,7 +17,6 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ["models", "utils", "pipeline", "io", "ops", "refine",
                "parallel", "train"]
-A12 = r"ROADMAP A\.12 \(more than one card\)"
 
 
 def jax_exports(pkg):
@@ -38,10 +36,6 @@ def resolve(pkg, name):
     sub = importlib.import_module(f"vidmat_torch.{pkg}")
     try:
         got = getattr(sub, name)
-    except NotImplementedError as e:
-        if "ROADMAP A.12 (more than one card)" in str(e):
-            return None
-        return f"{name}: {e}"
     except AttributeError:
         return f"{name}: missing"
     if got.__name__ != jax_obj.__name__:
@@ -64,15 +58,17 @@ def test_subpackage_exports_resolve_or_name_their_item(pkg):
 
 def test_all_34_names_resolve():
     """C.7's count: 34 names, of which 0 differ (29 before the repair);
-    the three of the mesh and the pipeline split raise naming A.12."""
+    the three of the mesh and the pipeline split are the port's (they
+    raised naming A.12 before it was ported)."""
     names = [(p, n) for p in SUBPACKAGES for n in jax_exports(p)]
     assert len(names) == 34
     assert [f"{p}.{n}" for p, n in names if resolve(p, n)] == []
     import vidmat_torch.parallel as par
+    from vidmat_torch.parallel import mesh, pp
 
-    for n in ("make_mesh", "PipelinedMatting", "PipelinedStreams"):
-        with pytest.raises(NotImplementedError, match=A12):
-            getattr(par, n)
+    for n, mod in (("make_mesh", mesh), ("PipelinedMatting", pp),
+                   ("PipelinedStreams", pp)):
+        assert getattr(par, n) is getattr(mod, n)
 
 
 def test_from_io_import_video_reader():

@@ -12,20 +12,30 @@ LSB and max <= 2 against the JAX package (the bar of
 tests/test_torch_planar_serving.py); stream i of S against a one-stream
 port instance max <= 1. Then the port alone: chunk 2 against per-round
 dispatch, reset isolation, ``serve`` with streams that end and a partial
-tail chunk, and the preconditions, each raising as in the JAX class
-(``mesh=`` naming A.12).
+tail chunk, and the preconditions, each raising as in the JAX class.
+On a mesh (``mesh=``; JAX: 2 of the conftest's 8 virtual CPU devices,
+the planar model's kernels in interpret mode; the port: ``["cpu"] * 2``
+positions): 4 streams in float32 at ratio 0.5 against the JAX class
+(the same bars) and within 1 of the port's unmeshed instance; chunk 2
+against per-round dispatch, portrait blur, the trimap model, a shared
+plate and ``serve`` on the mesh against the unmeshed instance.
 """
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 
 import vidmat.config as jconfig
+from vidmat.parallel.mesh import make_mesh as jmake_mesh
 from vidmat.parallel.multistream import MultiStreamMatting as JMulti
 
 import vidmat_torch.config as tconfig
 from vidmat_torch import MultiStreamMatting
 from vidmat_torch.io.fixtures import synthetic_frames_only
 from vidmat_torch.models.weights import default_variables
+from vidmat_torch.parallel.mesh import make_mesh
 
 H = W = 64
 
@@ -244,12 +254,115 @@ def test_preconditions_raise_as_in_jax(case, fp32_pair):
                 inst.step(f)
         return
     if case == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match=r"A\.12 \(more than one card\)"):
-            MultiStreamMatting(8, 64, 64, mesh=object(), device="cpu")
+        # On a mesh of 2 positions: an uneven split of the streams, and a
+        # plate per stream (a single-card feature).
+        plates = np.zeros((4, 64, 64, 3), np.uint8)
+        cfg = dict(use_bg_plate=True, space_to_depth=2)
+        for cls, mesh, mcfg in ((JMulti, jmake_mesh(
+                devices=jax.devices()[:2]), jconfig.ModelConfig(**cfg)),
+                (functools.partial(MultiStreamMatting, device="cpu"),
+                 make_mesh(devices=["cpu"] * 2), tconfig.ModelConfig(**cfg))):
+            with pytest.raises(ValueError, match="divide evenly"):
+                cls(3, 64, 64, mesh=mesh)
+            with pytest.raises(ValueError, match="single-chip"):
+                cls(4, 64, 64, cfg=mcfg, mesh=mesh, bg_plate=plates)
         return
     kw, exc, match = PRECONDITIONS[case]
     with pytest.raises(exc, match=match):
         JMulti(**kw)
     with pytest.raises(exc, match=match):
         MultiStreamMatting(**kw, device="cpu")
+
+
+def test_mesh_matches_jax_and_one_position():
+    """4 streams over 2 positions: the planar model in float32 at ratio
+    0.5 over a color against the JAX class on 2 virtual devices (its
+    kernels interpreted), and against the port's unmeshed instance
+    (within 1), over 3 rounds with a reset in the last."""
+    cfg = tconfig.ModelConfig(conv_impl="planar")
+    v = default_variables(cfg)
+    kw = dict(variables=v, dtype="float32", downsample_ratio=0.5,
+              bg_color=(0.1, 0.7, 0.3))
+    j = JMulti(4, H, W, cfg=jconfig.ModelConfig(conv_impl="planar"),
+               mesh=jmake_mesh(devices=jax.devices()[:2]), use_pallas=True,
+               pallas_interpret=True, **kw)
+    t = MultiStreamMatting(4, H, W, cfg=cfg, mesh=make_mesh(
+        devices=["cpu"] * 2), device="cpu", **kw)
+    one = MultiStreamMatting(4, H, W, cfg=cfg, device="cpu", **kw)
+    assert [p.device.type for p in t.positions] == ["cpu", "cpu"]
+    resets = [None, None, np.array([False, False, True, False])]
+    for f, r in zip(_frames(3, 4, seed=8), resets):
+        got = t.step(f, r)
+        assert got[1].shape == (4, H, W, 4)
+        _bytes_close(got, j.step(f, r))
+        for g, w in zip(got, one.step(f, r)):
+            assert np.abs(g.astype(int) - w.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("case", ["chunk 2", "bg_blur", "trimap",
+                                  "shared plate", "serve"])
+def test_mesh_variants_match_one_position(case, preset_vars):
+    """On 2 positions, against the unmeshed instance with the same
+    options (within 1): chunk 2 (two rounds a dispatch, resets planted)
+    against per-round dispatch on the same mesh (equal), portrait blur,
+    the trimap model on 4-channel frames, one plate shared by the
+    streams, and serve over streams of unequal length."""
+    from vidmat_torch.io.fixtures import synthetic_plate_frame
+
+    m = tconfig.preset_multistream()[0]
+    kw = dict(cfg=m, variables=preset_vars, downsample_ratio=0.5,
+              bg_color=(0.0, 1.0, 0.0), device="cpu")
+    c = 3
+    if case == "bg_blur":
+        kw.pop("bg_color")
+        kw["bg_blur"] = 8
+    elif case == "trimap":
+        cfg = tconfig.ModelConfig(use_trimap=True, recurrent=False)
+        kw.update(cfg=cfg, variables=default_variables(cfg),
+                  downsample_ratio=1.0, dtype="float32")
+        c = 4
+    elif case == "shared plate":
+        cfg = tconfig.ModelConfig(use_bg_plate=True, space_to_depth=2)
+        kw.update(cfg=cfg, variables=default_variables(cfg),
+                  bg_plate=synthetic_plate_frame(H, W, 0.0, seed=1)[2])
+    mesh = make_mesh(devices=["cpu"] * 2)
+    frames = np.stack(_frames(4, 4, seed=9, c=c))
+    if c == 4:
+        frames[..., 3] = np.array([0, 128, 255], np.uint8)[
+            np.digitize(frames[..., 3], [85, 170])]
+    if case == "serve":
+        srcs = [list(synthetic_frames_only(48, 64, n, seed=i))
+                for i, n in enumerate((4, 2, 4, 3))]
+        got, want = {}, {}
+        t = MultiStreamMatting(4, 48, 64, mesh=mesh, **kw)
+        s = t.serve([list(x) for x in srcs],
+                    on_output=lambda i, n, a, o: got.__setitem__((i, n), o))
+        MultiStreamMatting(4, 48, 64, **kw).serve(
+            srcs, on_output=lambda i, n, a, o: want.__setitem__((i, n), o))
+        assert set(got) == set(want) and s["batch_steps"] == 5
+        for key in got:
+            assert np.abs(got[key].astype(int)
+                          - want[key].astype(int)).max() <= 1
+        return
+    if case == "chunk 2":
+        reset = np.zeros((4, 4), bool)
+        reset[1, 3] = reset[2, 0] = True
+        one = MultiStreamMatting(4, H, W, mesh=mesh, **kw)
+        two = MultiStreamMatting(4, H, W, mesh=mesh, chunk=2, **kw)
+        for r0 in (0, 2):
+            a2, o2 = two.step(frames[r0:r0 + 2], reset[r0:r0 + 2])
+            assert o2.shape == (2, 4, H, W, 4)
+            for r in range(2):
+                a1, o1 = one.step(frames[r0 + r], reset[r0 + r])
+                np.testing.assert_array_equal(a2[r], a1)
+                np.testing.assert_array_equal(o2[r], o1)
+        for x, y in zip(one.state, two.state):
+            for p, q in zip(x, y):
+                assert bool((p == q).all())
+        return
+    t = MultiStreamMatting(4, H, W, mesh=mesh, **kw)
+    u = MultiStreamMatting(4, H, W, **kw)
+    for f in frames[:2]:
+        for g, w in zip(t.step(f), u.step(f)):
+            assert g.shape == w.shape
+            assert np.abs(g.astype(int) - w.astype(int)).max() <= 1

@@ -9,9 +9,7 @@ and ``eval.evaluate_sequences``, the training entry points and A.16's
 functions (``make_chunk_step``'s ``cdtype`` compared by dtype name),
 every field of the configuration dataclasses with its default, every
 preset, each returning equal dataclasses, and the package's seven lazy
-exports. What is not
-ported yet (the parts of A.12 that need more than one card) raises
-``NotImplementedError`` naming its ROADMAP item; error-map refinement
+exports; error-map refinement
 (A.11) runs as in the JAX package, and a ``StreamConfig`` is served by
 ``MultiStreamMatting``."""
 
@@ -65,7 +63,13 @@ ENTRY_POINTS = [("convert_video", None), ("matte_image", None),
                 ("models.weights.torch_to_flax_variables", None),
                 ("models.weights.load_into_torch", None),
                 ("models.weights.load_checkpoint", None),
-                ("pipeline.scan.make_chunk_step", None)] + [
+                ("pipeline.scan.make_chunk_step", None),
+                # A.12 over several devices
+                ("parallel.mesh.make_mesh", None),
+                ("parallel.mesh.initialize_distributed", None)] + [
+                (f"parallel.pp.{cls}", m)
+                for cls in ("PipelinedStreams", "PipelinedMatting")
+                for m in ("__init__", "step", "flush", "convert")] + [
                 (f"train.data.{fn}", None) for fn in (
                     "synthetic_clip_batches", "synthetic_hard_clip_batches",
                     "synthetic_hard_plate_batches", "alpha_to_trimap",
@@ -137,21 +141,22 @@ def test_presets_equal_jax(key):
 
 
 # The JAX package's lazy exports (vidmat/__init__.py:27-57): the port's
-# object, or NotImplementedError naming the ROADMAP item of what needs
-# more than one card.
+# object of the same name.
 LAZY = {"MattingNetwork": "vidmat_torch.models.matting_net",
         "trimap_from_mask": "vidmat_torch.pipeline.trimap",
         "MultiStreamMatting": "vidmat_torch.parallel.multistream",
         "RealtimeMatting": "vidmat_torch.pipeline.realtime",
-        "make_mesh": None, "PipelinedMatting": None,
-        "PipelinedStreams": None}
+        "make_mesh": "vidmat_torch.parallel.mesh",
+        "PipelinedMatting": "vidmat_torch.parallel.pp",
+        "PipelinedStreams": "vidmat_torch.parallel.pp"}
 
 
 @pytest.mark.parametrize("name", list(LAZY) + ["no_such_name"])
 def test_lazy_exports_resolve_or_name_their_item(name):
-    """C.6: each of the seven resolves as in the JAX package, or raises
-    naming A.12; any other name raises AttributeError, as there. None
-    of the four modules is imported by ``import vidmat_torch``."""
+    """C.6: each of the seven resolves as in the JAX package (the three of
+    A.12's mesh and pipeline split raised naming A.12 before they were
+    ported); any other name raises AttributeError, as there. None of the
+    six modules is imported by ``import vidmat_torch``."""
     import importlib
     import subprocess
     import sys
@@ -169,11 +174,6 @@ def test_lazy_exports_resolve_or_name_their_item(name):
         assert out.strip() == "[]", out
         return
     assert name in vars(vidmat).get("__getattr__").__code__.co_consts
-    if LAZY[name] is None:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP A\.12 \(more than one card\)"):
-            getattr(vidmat_torch, name)
-        return
     got = getattr(vidmat_torch, name)
     assert got is getattr(importlib.import_module(LAZY[name]), name)
     assert hasattr(vidmat_torch, name)

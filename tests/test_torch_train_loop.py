@@ -193,5 +193,5 @@ def test_mesh_raises_naming_a12():
                lambda: tloop.train_on_clips(ModelConfig(), iter(()),
                                             mesh=object(), device="cpu")):
         with pytest.raises(NotImplementedError,
-                           match=r"A\.12 \(more than one card\)"):
+                           match=r"A\.12 \(sharded training\)"):
             fn()

@@ -9,16 +9,19 @@ portrait-blur backgrounds, the clean-plate family, trimap video (from
 trimaps or rough masks) and the segmentation stream, every full chunk as
 one CUDA graph launch; ``MattingSession`` streams float mattes (or
 segmentation masks); ``MultiStreamMatting`` serves S streams as one
-batch (the ``multistream`` preset) and ``RealtimeMatting`` a live source
-with latest-wins scheduling. ``vidmat_torch.deploy`` exports a serving
+batch (the ``multistream`` preset), on one card or split over the
+positions of a mesh (``make_mesh``), ``PipelinedMatting`` and
+``PipelinedStreams`` serve streams in two pipelined stages over two
+positions each, and ``RealtimeMatting`` a live source with latest-wins
+scheduling. ``vidmat_torch.deploy`` exports a serving
 body as an AOT bundle (``export_bundle``, ``torch.export``) and serves it
 without the model definition (``ServingBundle``); ``vidmat_torch.eval``
 scores mattes (``VideoEval``, ``evaluate_sequences``);
 ``python -m vidmat_torch.cli`` is the command line (nine subcommands);
 ``vidmat_torch.train`` trains (the BPTT step, segmentation co-training,
 the refiner's trainer). The public surface is the JAX package's, name
-for name; what is not ported yet (the parts of multi-stream serving and
-training that need more than one card) raises naming its ROADMAP item.
+for name; what is not ported yet (training sharded over a mesh) raises
+naming its ROADMAP item.
 Every TPU kernel of those paths (ingest, the planar convs, guided-filter
 coefficients, the refine tails, composite) runs as a hand-written CUDA
 kernel (``vidmat_torch/csrc``), registered as a ``vidmat_torch::*``
@@ -37,10 +40,12 @@ from vidmat_torch.config import (PRESETS, ModelConfig,  # noqa: F401
                                  preset_video_4k)
 
 # The JAX package's lazy exports (vidmat/__init__.py), imported on first
-# use; what needs more than one card raises naming its ROADMAP item.
+# use.
 __getattr__ = lazy_exports(
     {"MultiStreamMatting": "vidmat_torch.parallel.multistream",
      "RealtimeMatting": "vidmat_torch.pipeline.realtime",
      "MattingNetwork": "vidmat_torch.models.matting_net",
-     "trimap_from_mask": "vidmat_torch.pipeline.trimap"},
-    multi_card=("make_mesh", "PipelinedMatting", "PipelinedStreams"))
+     "trimap_from_mask": "vidmat_torch.pipeline.trimap",
+     "make_mesh": "vidmat_torch.parallel.mesh",
+     "PipelinedMatting": "vidmat_torch.parallel.pp",
+     "PipelinedStreams": "vidmat_torch.parallel.pp"})

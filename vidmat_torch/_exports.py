@@ -5,23 +5,13 @@ first use, so importing a package loads none of its submodules."""
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict, Iterable
-
-#: what every name that needs more than one card raises
-MULTI_CARD_ITEM = "ROADMAP A.12 (more than one card)"
+from typing import Callable, Dict
 
 
-def lazy_exports(exports: Dict[str, str],
-                 multi_card: Iterable[str] = ()) -> Callable:
-    """A module ``__getattr__`` resolving ``exports`` ({name: module}) and
-    raising NotImplementedError naming A.12 for ``multi_card`` names;
+def lazy_exports(exports: Dict[str, str]) -> Callable:
+    """A module ``__getattr__`` resolving ``exports`` ({name: module});
     any other name raises AttributeError."""
-    multi_card = frozenset(multi_card)
-
     def __getattr__(name):
-        if name in multi_card:
-            raise NotImplementedError(
-                f"{name} is not ported yet ({MULTI_CARD_ITEM})")
         module = exports.get(name)
         if module is None:
             raise AttributeError(name)

@@ -16,9 +16,12 @@ choices, plus ``--device`` (``cuda``, the default, or ``cpu``).
 ``--checkpoint`` reads the port's ``.npz`` checkpoints (an orbax
 directory raises naming its converter, ``jax_checkpoint_to_npz.py`` at
 the repo root), and ``train`` writes one (``.npz`` appended to
-``--out`` when missing). ``multistream --pp`` is not ported and exits
-naming its ROADMAP item; ``--pallas-interpret`` is accepted and changes
-nothing, as in ``MultiStreamMatting``.
+``--out`` when missing). ``multistream --pp`` serves each stream in two
+pipelined stages over two positions (``PipelinedStreams``): two visible
+cards per stream with ``--device cuda`` (fewer exit with the JAX
+package's message), CPU positions with ``--device cpu``;
+``--pallas-interpret`` is accepted and changes nothing, as in
+``MultiStreamMatting``.
 """
 
 from __future__ import annotations
@@ -175,8 +178,11 @@ def _add_multistream(sub):
                         "stream, compositing over a blur of that stream's "
                         "own frames (radius in full-res pixels)")
     p.add_argument("--pp", action="store_true",
-                   help="2-stage pipeline-parallel serving over 2N cards "
-                        "(not ported: ROADMAP A.12 (more than one card))")
+                   help="serve each stream 2-stage pipeline-parallel "
+                        "(coarse net | fused refine+composite) over a "
+                        "('stream', 'pp') mesh of 2N positions: the "
+                        "visible cards with --device cuda, 2N CPU "
+                        "positions with --device cpu (parallel/pp.py)")
     p.add_argument("--pallas-interpret", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "changes nothing (the port's kernels are CUDA)")
@@ -311,6 +317,92 @@ def _add_evaluate(sub):
                    help="include the per-frame rows in the JSON")
     p.add_argument("--output", help="write the JSON report here as well")
     _add_device(p)
+
+
+def _pp_devices(device: str, s: int):
+    """The 2s positions of ``multistream --pp``: the first 2s visible
+    cards with --device cuda (fewer exit with the JAX package's message),
+    2s CPU positions with --device cpu."""
+    if device == "cpu":
+        return ["cpu"] * (2 * s)
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2 * s:
+        raise SystemExit(
+            f"--pp needs 2 devices per stream ({2 * s} for {s} "
+            f"streams); {n} visible")
+    return [f"cuda:{i}" for i in range(2 * s)]
+
+
+def _run_multistream_pp(args, readers, padded, variables, h, w,
+                        ms_cfg) -> int:
+    """``multistream --pp``: N streams x 2 stages over a ('stream', 'pp')
+    mesh of 2N positions (the visible cards with --device cuda, 2N CPU
+    positions with --device cpu), driven through
+    ``PipelinedStreams.convert`` (which hides the one-round skew).
+    Streams that end early are padded with their last frame on the feed
+    side; their outputs stop being written (vidmat/cli.py:272-346)."""
+    import numpy as np
+
+    from vidmat_torch.io.writer import VideoWriter
+    from vidmat_torch.parallel.mesh import make_mesh
+    from vidmat_torch.parallel.pp import PipelinedStreams
+
+    s = len(readers)
+    mesh = make_mesh(("stream", "pp"), (s, 2),
+                     devices=_pp_devices(args.device, s))
+    pps = PipelinedStreams(s, h, w, mesh, variables=variables,
+                           chunk=args.chunk, bg_blur=args.bg_blur,
+                           pallas_interpret=args.pallas_interpret,
+                           **ms_cfg)
+    its = [padded(r) for r in readers]
+    alive = [True] * s
+    last = [np.zeros((h, w, pps.in_c), np.uint8)] * s
+    alive_hist: list = []
+
+    def rounds():
+        while True:
+            batch = []
+            any_alive = False
+            for i, it in enumerate(its):
+                if alive[i]:
+                    try:
+                        last[i] = next(it)
+                        any_alive = True
+                    except StopIteration:
+                        alive[i] = False
+                batch.append(last[i])
+            if not any_alive:
+                return
+            alive_hist.append(list(alive))
+            yield np.stack(batch)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    writers = [VideoWriter(os.path.join(args.output_dir,
+                                        f"alpha_{i:02d}.mp4"),
+                           readers[i].fps) for i in range(s)]
+    comp_writers = ([VideoWriter(os.path.join(args.output_dir,
+                                              f"composition_{i:02d}.mp4"),
+                                 readers[i].fps) for i in range(s)]
+                    if args.bg_blur else [])
+    crops = [(min(r.height, args.height), min(r.width, args.width))
+             for r in readers]
+    frames_out = [0] * s
+    for k, (alpha, rgba) in enumerate(pps.convert(rounds())):
+        for i in range(s):
+            if not alive_hist[k][i]:
+                continue
+            ch, cw = crops[i]
+            writers[i].write(alpha[i, :ch, :cw])
+            if comp_writers:
+                comp_writers[i].write(rgba[i, :ch, :cw, :3])
+            frames_out[i] += 1
+    for wr in writers + comp_writers:
+        wr.close()
+    print(json.dumps({"streams": s, "mesh": {"stream": s, "pp": 2},
+                      "frames": frames_out}))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -460,9 +552,8 @@ def main(argv=None) -> int:
         from vidmat_torch.pipeline.stepper import pad_to_multiple
 
         if args.pp:
-            raise SystemExit(
-                "multistream --pp is not ported yet (ROADMAP A.12 (more "
-                "than one card))")
+            # The positions first: without them nothing is read.
+            _pp_devices(args.device, len(args.inputs))
         variables = _load_checkpoint(args.checkpoint)
         readers = [VideoReader(p) for p in args.inputs]
         h = args.height + ((-args.height) % 16)
@@ -487,6 +578,9 @@ def main(argv=None) -> int:
             ms_cfg["downsample_ratio"] = args.downsample_ratio
         else:
             ms_cfg.setdefault("downsample_ratio", 0.25)
+        if args.pp:
+            return _run_multistream_pp(args, readers, padded, variables,
+                                       h, w, ms_cfg)
         ms = MultiStreamMatting(len(readers), h, w, variables=variables,
                                 chunk=args.chunk, bg_blur=args.bg_blur,
                                 pallas_interpret=args.pallas_interpret,

@@ -99,9 +99,15 @@ def pad_stack(frames: Sequence[np.ndarray], out_h: int,
     return out
 
 
-def unpack_rgba(packed: np.ndarray) -> np.ndarray:
-    """(...) uint32 packed RGBA -> an owned (..., 4) uint8 copy."""
+def unpack_rgba(packed: np.ndarray, out: np.ndarray = None) -> np.ndarray:
+    """(...) uint32 packed RGBA -> an owned (..., 4) uint8 copy, or into
+    ``out`` (a C-contiguous (..., 4) uint8 array, returned)."""
     packed = np.ascontiguousarray(packed, dtype=np.uint32)
-    out = np.empty((*packed.shape, 4), np.uint8)
+    if out is None:
+        out = np.empty((*packed.shape, 4), np.uint8)
+    elif (out.shape != (*packed.shape, 4) or out.dtype != np.uint8
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be a C-contiguous {(*packed.shape, 4)} "
+                         f"uint8 array; got {out.shape} {out.dtype}")
     _lib().vm_unpack_rgba(packed.ctypes.data, packed.size, out.ctypes.data)
     return out

@@ -1,11 +1,12 @@
-"""Multi-stream serving (counterpart of vidmat/parallel/), exported
-lazily: the one-card ``MultiStreamMatting``. The device mesh and the
-2-stage pipeline split (``make_mesh``, ``PipelinedMatting``,
-``PipelinedStreams``) need more than one card and raise naming ROADMAP
-A.12."""
+"""Multi-stream and multi-device serving (counterpart of
+vidmat/parallel/), exported lazily: ``MultiStreamMatting`` (one card, or
+its streams split over a mesh), ``make_mesh`` and the 2-stage pipeline
+split (``PipelinedMatting``, ``PipelinedStreams``)."""
 
 from vidmat_torch._exports import lazy_exports
 
 __getattr__ = lazy_exports(
-    {"MultiStreamMatting": "vidmat_torch.parallel.multistream"},
-    multi_card=("make_mesh", "PipelinedMatting", "PipelinedStreams"))
+    {"make_mesh": "vidmat_torch.parallel.mesh",
+     "MultiStreamMatting": "vidmat_torch.parallel.multistream",
+     "PipelinedMatting": "vidmat_torch.parallel.pp",
+     "PipelinedStreams": "vidmat_torch.parallel.pp"})

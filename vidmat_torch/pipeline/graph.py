@@ -18,6 +18,10 @@ capture only records the launches, so ``ChunkGraph`` takes the counts the
 capture added off again and adds them back on every replay, which is
 where those kernels run.
 
+A graph replays on the caller's current stream, and captures on the
+current device: a mesh position (``parallel/mesh.py``) builds and replays
+its graphs under its device and its own stream.
+
 The capture runs on a side stream between ``capture_begin`` and
 ``capture_end``, as ``torch.cuda.graph`` does, without that context's
 emptying of the device and pinned-host caching allocators on entry: a
@@ -28,6 +32,7 @@ allocation then pays for again (``cudaHostAlloc``, ``cudaMalloc``).
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, List
 
 import torch
@@ -46,14 +51,19 @@ def kernel_wrappers() -> List[Callable]:
             int8_planar.int8_conv]
 
 
-_capture_stream = None
+#: the capture stream of each device index, made at its first capture
+_capture_streams = {}
 
 
 def _side_stream() -> torch.cuda.Stream:
-    global _capture_stream
-    if _capture_stream is None:
-        _capture_stream = torch.cuda.Stream()
-    return _capture_stream
+    """The capture stream of the current device (a capture stream must be
+    on the device whose work it captures: mesh positions on several cards
+    capture each on its own)."""
+    dev = torch.cuda.current_device()
+    stream = _capture_streams.get(dev)
+    if stream is None:
+        stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+    return stream
 
 
 def _counts(fns):
@@ -137,15 +147,23 @@ class ChunkGraph:
         before = _counts(fns)
         self.graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize()
-        with torch.inference_mode(), torch.cuda.stream(_side_stream()):
-            self.graph.capture_begin()
-            try:
-                out, new_state = body(*ins, state)
-                if state is not None:
-                    for s, t in zip(state, new_state):
-                        s.copy_(t)
-            finally:
-                self.graph.capture_end()
+        # No garbage collection inside the capture: a graph freed there (one
+        # held in a reference cycle) would invalidate it.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.inference_mode(), torch.cuda.stream(_side_stream()):
+                self.graph.capture_begin()
+                try:
+                    out, new_state = body(*ins, state)
+                    if state is not None:
+                        for s, t in zip(state, new_state):
+                            s.copy_(t)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         self.out = out
         self.per_replay = []
         for fn, (n0, m0), (n1, m1) in zip(fns, before, _counts(fns)):

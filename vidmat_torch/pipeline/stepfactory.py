@@ -27,6 +27,11 @@ On the planar net the fused packed plan also carries ``chunk_body``,
 which runs the stateless stages (ingest, encoder and bottleneck, GF
 coefficients, the fused tail) once over a K-frame chunk and only the
 recurrent decoder per frame (vidmat/pipeline/stepfactory.py:656-693).
+The fused packed plan carries its two stages too (``fused_stage0``:
+ingest, the net and the coefficient grids; ``fused_stage1``: the fused
+tail; :500-541): the per-frame body is the one after the other, and the
+chunk body ends in stage 1, so the 2-stage pipeline of
+``parallel/pp.py`` serves the bytes one device serves.
 ``static_skip_eps`` gives the fused tails the static-scene fast path
 (:608-654); a body built with ``export=True`` takes its branch with
 ``torch.cond`` (the exported bundle's step, ``deploy.py``).
@@ -121,6 +126,17 @@ class ServingPlan:
     # the K frames in one call, stateless stages batched (planar net on
     # the fused packed tail only).
     chunk_body: Optional[Callable] = None
+    # The stage split of the fused packed tail (None elsewhere); the
+    # one-shot body and chunk_body are composed of these, so the 2-stage
+    # pipeline (parallel/pp.py) serves what one device serves:
+    #   fused_stage0(frame_u8, state) -> ((ma, mb), new_state), with
+    #     bg_blur ((ma, mb, coarse_bg), new_state): ingest, the net and
+    #     the coefficient grids (N, net_h, net_w, 4) float32; the coarse
+    #     background (N, net_h, net_w, 3) float32
+    #   fused_stage1(frame_u8, ma, mb, bgv) -> (N, h, w) uint32 packed
+    #     words (the alpha byte is not taken here)
+    fused_stage0: Optional[Callable] = None
+    fused_stage1: Optional[Callable] = None
 
 
 def alpha_byte(packed: torch.Tensor) -> torch.Tensor:
@@ -444,8 +460,23 @@ def build_serving_body(
         return (untile_frame(ma, lr_layout, x.shape[0]),
                 untile_frame(mb, lr_layout, x.shape[0]))
 
+    def stage0(frame_u8, state):
+        """Ingest, the net and the coefficient grids, with bg_blur the
+        coarse background too (stepfactory.py:527-532)."""
+        x = ingest_x(frame_u8)
+        alpha, fgr, new_state = net_from_x(x, state)
+        ma, mb = coeffs(x, alpha, fgr)
+        if use_bg_blur:
+            return (ma, mb, bg_from_x(x)), new_state
+        return (ma, mb), new_state
+
+    def stage1(frame_u8, ma, mb, bgv):
+        """The fused refine + composite + pack on the frame's RGB; a
+        coarse background (bg_blur) is upsampled in the kernel."""
+        return packed_tail(frame_u8[..., :3], ma, mb, bgv, pool)
+
     def fused_out(frame_u8, ma, mb, bgv):
-        out = packed_tail(frame_u8[..., :3], ma, mb, bgv, pool)
+        out = stage1(frame_u8, ma, mb, bgv)
         return alpha_byte(out) if use_alpha_only else out
 
     def finish_float(alpha, fgr, bgv):
@@ -468,14 +499,18 @@ def build_serving_body(
 
     @torch.inference_mode()
     def body_impl(frame, state, bgv):
+        if use_fused:
+            # The two stages; with bg_blur the coarse background is a
+            # stage-0 product, upsampled inside the refine kernel (coarse
+            # mode).
+            grids, new_state = stage0(frame, state)
+            if use_bg_blur:
+                ma, mb, bgv = grids
+            else:
+                ma, mb = grids
+            return fused_out(frame, ma, mb, bgv), new_state
         x = ingest_x(frame)
         alpha, fgr, new_state = net_from_x(x, state)
-        if use_fused:
-            # With bg_blur the coarse background is upsampled inside the
-            # refine kernel (coarse mode).
-            if use_bg_blur:
-                bgv = bg_from_x(x)
-            return fused_out(frame, *coeffs(x, alpha, fgr), bgv), new_state
         if use_bg_blur:
             bgv = resize_bilinear(bg_from_x(x), h, w)
         if use_float_tail:
@@ -576,6 +611,9 @@ def build_serving_body(
 
     chunk_body = None
     if use_fused and planar and not use_static_skip and not bg_dynamic:
+        # Stage 0 over the chunk with its stateless parts batched (ingest,
+        # encoder, the coefficients; the decoder per frame), then stage 1
+        # once (stepfactory.py:578-591).
         @torch.inference_mode()
         def chunk_body(frames_u8: torch.Tensor, state):
             x = ingest_x(frames_u8)
@@ -592,12 +630,19 @@ def build_serving_body(
 
     impl = (body_impl if not use_static_skip
             else body_static_cond if export else body_static)
+    fused_stage0 = fused_stage1 = None
+    if use_fused:
+        fused_stage0 = torch.inference_mode()(stage0)
+        fused_stage1 = torch.inference_mode()(stage1)
     if cdtype == torch.float32:
         # fp32 serving and the session's parity mode: no TF32 convolutions
         # on the card (the JAX package pins float32).
         impl = in_full_fp32(impl)
         if chunk_body is not None:
             chunk_body = in_full_fp32(chunk_body)
+        if use_fused:
+            fused_stage0 = in_full_fp32(fused_stage0)
+            fused_stage1 = in_full_fp32(fused_stage1)
     if bg_dynamic:
         def body(frame, state, bg_frame):
             # bg_frame: (N, h, w, 3) float32 in [0, 1]; the tails take one
@@ -611,5 +656,6 @@ def build_serving_body(
                        state_w=state_w, pool=pool, packed=use_packed,
                        alpha_only=use_alpha_only,
                        static_skip=use_static_skip, full=full,
-                       make_state=make_state, chunk_body=chunk_body)
+                       make_state=make_state, chunk_body=chunk_body,
+                       fused_stage0=fused_stage0, fused_stage1=fused_stage1)
     return body, plan

@@ -39,8 +39,10 @@ from vidmat_torch.train.losses import matting_loss, segmentation_loss
 from vidmat_torch.train.optim import (apply_updates, make_optimizer,
                                       tree_map)
 
-_MESH_ERROR = ("mesh= (sharded training) is not ported yet (ROADMAP A.12 "
-               "(more than one card))")
+#: what training's ``mesh=`` raises: the one part of the JAX package's
+#: multi-device code the port lacks
+MULTI_CARD_ITEM = "ROADMAP A.12 (sharded training)"
+_MESH_ERROR = f"mesh= is not ported yet ({MULTI_CARD_ITEM})"
 
 
 @dataclasses.dataclass
