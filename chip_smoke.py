@@ -246,6 +246,16 @@ Phases (any failure exits nonzero and prints no result line):
      template; tools/eval_errormap at 1088x1920 (2 frames, one seed)
      card against CPU (MADs 1e-4, Grad 1e-4 relative); no hand-written
      kernel launched over them
+  H. sharded training (``mesh=``) on the fast_demo model at 512x512,
+     T=4, N=4, positions repeating the card: the step on ('data',) (4),
+     ('spatial',) (4) and ('data', 'spatial') (2, 2) against the
+     unsharded step (loss and terms 2e-5 relative, running statistics
+     1e-5, gradients per leaf within the larger of 1e-4 and the
+     unsharded step's own spread between cuDNN and the native
+     convolution, no hand-written kernel launched),
+     the seg step on (2, 2), three train_on_clips steps (losses 1e-4
+     relative); the median ms of 5 steps and peak memory, sharded beside
+     unsharded
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -258,6 +268,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -5112,6 +5123,172 @@ def phase_a16(kernels, gpu, dev):
     log(f"[U] phase U took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase H (A.12's sharded training): the fast_demo model's step sharded
+# over meshes whose positions repeat the card, at 512x512, T=4, N=4,
+# against the unsharded step on the same card.
+H_SIZE, H_T, H_N = 512, 4, 4
+H_MESHES = ((("data",), (4,)), (("spatial",), (4,)),
+            (("data", "spatial"), (2, 2)))
+
+
+def _h_grad_step(kind, mcfg, variables, batch, dev, mesh=None):
+    """One step (``kind`` "mat" or "seg") with the capturing optimizer,
+    unsharded on ``dev`` or over ``mesh``: (grads, metrics, batch_stats)
+    on the host."""
+    from vidmat_torch.train.loop import (TrainState, make_seg_train_step,
+                                         make_train_step)
+
+    opt = _capture_optimizer()
+    make = make_train_step if kind == "mat" else make_seg_train_step
+    step = make(mcfg, optimizer=opt, mesh=mesh,
+                device=dev if mesh is None else None)
+    st, m = step(TrainState(variables=variables,
+                            opt_state=opt.init(variables["params"])), *batch)
+    return (_flat_host(st.opt_state["g"]),
+            {k: float(v) for k, v in m.items()},
+            _flat_host(st.variables["batch_stats"]))
+
+
+def _h_worst(got, want):
+    """(worst per-leaf max|dg| / max|g|, worst loss or term relative,
+    worst running-statistic |d|) of two ``_h_grad_step`` results."""
+    import numpy as np
+
+    (g, m, s), (g0, m0, s0) = got, want
+    assert set(g) == set(g0) and set(m) == set(m0) and set(s) == set(s0)
+    return (max(float(np.abs(g[k] - g0[k]).max()
+                      / max(np.abs(g0[k]).max(), 1e-30)) for k in g0),
+            max(abs(m[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0),
+            max(float(np.abs(s[k] - s0[k]).max()) for k in s0))
+
+
+def _h_step_ms(mcfg, variables, batch, dev, mesh=None, steps=5):
+    """Median synchronised ms of ``steps`` train steps (the default
+    optimizer, after one warm-up step) and their peak device memory above
+    what was allocated before, MiB."""
+    import numpy as np
+    import torch
+
+    from vidmat_torch.train.loop import (TrainState, make_optimizer,
+                                         make_train_step, to_device)
+
+    opt = make_optimizer()
+    step = make_train_step(mcfg, optimizer=opt, mesh=mesh,
+                           device=dev if mesh is None else None)
+    v = to_device(variables, dev)
+    state = TrainState(variables=v, opt_state=opt.init(v["params"]))
+    state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (float(np.median(times)),
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+
+
+def phase_sharded_train(kernels, gpu, dev):
+    """Phase H: sharded training (A.12's last part) on the card, the
+    fast_demo model (video_1080p: s2d=2) at 512x512, T=4, N=4, over
+    meshes whose positions repeat the card (the caller's stream):
+    ('data',) (4), ('spatial',) (4) and ('data', 'spatial') (2, 2).
+    (a) each sharded step (Laplacian and boundary terms on) against the
+    unsharded step on the card: loss and terms within 2e-5 relative,
+    running statistics within 1e-5, no hand-written kernel launched over
+    the sharded steps; gradients per leaf max|dg| / max|g| within the
+    larger of 1e-4 and the unsharded step's own float32 spread: the
+    worst per-leaf gap between the unsharded step through cuDNN and
+    through PyTorch's native convolution (cuDNN off), in this run. At
+    512 px the order of float32 sums alone moves the deepest leaves by
+    more than 1e-4 (in float64 the sharded gradients equal the unsharded
+    ones, tests/test_torch_train_mesh.py); (b) the seg step on the (2, 2)
+    mesh, the same bars; (c) three train_on_clips steps on the (2, 2)
+    mesh within 1e-4 relative of the unsharded run's losses;
+    (d) the median ms of 5 steps and the peak memory of each, sharded
+    beside unsharded."""
+    import torch
+
+    from vidmat_torch.config import preset_video_1080p
+    from vidmat_torch.models.weights import graft_seg_params, init_params
+    from vidmat_torch.parallel.mesh import make_mesh
+    from vidmat_torch.train.data import (synthetic_clip_batches,
+                                         synthetic_seg_batches)
+    from vidmat_torch.train.loop import train_on_clips
+
+    t_phase = time.perf_counter()
+    mcfg, _ = preset_video_1080p()
+    variables = init_params(mcfg, seed=0)
+    sv = graft_seg_params(variables, mcfg)
+    meshes = {f"{axes} {shape}": make_mesh(axes, shape, devices=[
+        dev] * int(math.prod(shape))) for axes, shape in H_MESHES}
+    both_name = "('data', 'spatial') (2, 2)"
+    both = meshes[both_name]
+    size = dict(t=H_T, n=H_N, h=H_SIZE, w=H_SIZE)
+    batch = [torch.from_numpy(x).to(dev) for x in next(
+        synthetic_clip_batches(seed=5, **size))]
+    sbatch = [torch.from_numpy(x).to(dev) for x in next(
+        synthetic_seg_batches(seed=6, **size))]
+    res, spread = {}, {}
+    for kind, v, b in (("mat", variables, batch), ("seg", sv, sbatch)):
+        ref = _h_grad_step(kind, mcfg, v, b, dev)
+        with torch.backends.cudnn.flags(enabled=False):
+            spread[kind] = _h_worst(_h_grad_step(kind, mcfg, v, b, dev),
+                                    ref)[0]
+        zero_counts(kernels)
+        for name, mesh in meshes.items():
+            if kind == "mat" or mesh is both:
+                res[f"{kind} {name}"] = _h_worst(
+                    _h_grad_step(kind, mcfg, v, b, dev, mesh), ref)
+        launches = counts(kernels)
+        assert not any(launches.values()), launches
+    for kind, x in spread.items():
+        log(f"[H] (a) the unsharded {kind} step's float32 spread, cuDNN "
+            f"against the native convolution: worst per-leaf "
+            f"max|dg|/max|g| {x:.3e}")
+    for name, (wg, wm, ws) in res.items():
+        log(f"[H] (a, b) {name} {H_SIZE}x{H_SIZE} T={H_T} N={H_N} against "
+            f"unsharded: worst per-leaf max|dg|/max|g| {wg:.3e}, loss and "
+            f"terms {wm:.3e} relative, running stats {ws:.3e}")
+    log(f"[H] (a) hand-written kernel launches over the sharded steps "
+        f"{launches}")
+    assert all(wm <= 2e-5 and ws <= 1e-5 for wg, wm, ws in res.values()), \
+        res
+    assert all(wg <= max(1e-4, spread[name.split()[0]])
+               for name, (wg, _, _) in res.items()), (res, spread)
+
+    losses = {}
+    for name, kw in (("unsharded", dict(device=dev)), ("mesh", dict(
+            mesh=both))):
+        seen = []
+        train_on_clips(mcfg, synthetic_clip_batches(seed=7, **size),
+                       num_steps=3, variables=variables,
+                       callback=lambda i, m: seen.append(m["loss"]), **kw)
+        losses[name] = seen
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                    losses["unsharded"]))
+    log(f"[H] (c) train_on_clips, 3 steps on the (2, 2) mesh: losses "
+        f"{losses['mesh']} against unsharded {losses['unsharded']}, worst "
+        f"{worst:.3e} relative")
+    assert worst <= 1e-4, losses
+
+    rows = {"unsharded": _h_step_ms(mcfg, variables, batch, dev)}
+    rows.update({name: _h_step_ms(mcfg, variables, batch, dev, mesh)
+                 for name, mesh in meshes.items()})
+    for name, (ms, peak) in rows.items():
+        log(f"[H] (d) train step {H_SIZE}x{H_SIZE} T={H_T} N={H_N}, "
+            f"{name}: {ms:.2f} ms (median of 5, synchronised), peak "
+            f"{peak:.1f} MiB ({gpu})")
+    with open(os.path.join(OUT_DIR, "train_mesh.json"), "w") as f:
+        json.dump({"accuracy": res, "spread": spread, "losses": losses,
+                   "ms_peak_mib": rows}, f, indent=1)
+    log(f"[H] phase H took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -5194,6 +5371,7 @@ def main() -> int:
     phase_bench()
     phase_train(kernels, gpu, dev)
     phase_a16(kernels, gpu, dev)
+    phase_sharded_train(kernels, gpu, dev)
     with open(os.path.join(OUT_DIR, "graphs.json"), "w") as f:
         json.dump(dict(GRAPHS, errormap={
             k: v for k, v in errormap.items() if k != "graph"}), f,

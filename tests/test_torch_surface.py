@@ -38,7 +38,7 @@ ENTRY_POINTS = [("convert_video", None), ("matte_image", None),
                 ("eval.VideoEval", "__init__"), ("eval.VideoEval", "update"),
                 ("eval.VideoEval", "summary"),
                 ("eval.evaluate_sequences", None),
-                # training (A.15)
+                # training (A.15; its mesh=, sharded training, A.12)
                 ("train.loop.make_train_step", None),
                 ("train.loop.make_seg_train_step", None),
                 ("train.loop.train_on_clips", None),

@@ -184,14 +184,32 @@ def test_interleave_order_and_auto_graft():
     assert st.step == 6
 
 
-def test_mesh_raises_naming_a12():
-    for fn in (lambda: tloop.make_train_step(ModelConfig(), mesh=object(),
-                                             device="cpu"),
-               lambda: tloop.make_seg_train_step(ModelConfig(),
-                                                 mesh=object(),
-                                                 device="cpu"),
-               lambda: tloop.train_on_clips(ModelConfig(), iter(()),
-                                            mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=r"A\.12 \(sharded training\)"):
-            fn()
+def test_mesh_runs_the_sharded_loop():
+    """``mesh=`` (A.12's sharded training) runs: train_on_clips over a
+    ('data', 'spatial') mesh of CPU positions, a matting step then a
+    segmentation step, gives the unsharded loop's losses (1e-4 relative)
+    and state."""
+    from vidmat_torch.models.weights import init_params
+    from vidmat_torch.parallel.mesh import make_mesh
+
+    cfg = ModelConfig()
+    mesh = make_mesh(("data", "spatial"), (2, 2), devices=["cpu"] * 4)
+    runs = {}
+    for name, kw in (("one", dict(device="cpu")), ("mesh", dict(mesh=mesh))):
+        losses = []
+        st = tloop.train_on_clips(
+            cfg, synthetic_clip_batches(t=T, n=2, h=32, w=32, seed=1),
+            num_steps=2, variables=init_params(cfg, seed=1),
+            seg_data_iter=synthetic_seg_batches(t=T, n=2, h=32, w=32,
+                                                seed=2),
+            seg_every=2, callback=lambda i, m: losses.append(m["loss"]),
+            **kw)
+        runs[name] = (losses, st)
+    np.testing.assert_allclose(runs["mesh"][0], runs["one"][0], rtol=1e-4)
+    assert runs["mesh"][1].step == 2
+    got = flatten_variables(numpy_variables(runs["mesh"][1].variables))
+    want = flatten_variables(numpy_variables(runs["one"][1].variables))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
+                                   err_msg=k)

@@ -19,9 +19,9 @@ without the model definition (``ServingBundle``); ``vidmat_torch.eval``
 scores mattes (``VideoEval``, ``evaluate_sequences``);
 ``python -m vidmat_torch.cli`` is the command line (nine subcommands);
 ``vidmat_torch.train`` trains (the BPTT step, segmentation co-training,
-the refiner's trainer). The public surface is the JAX package's, name
-for name; what is not ported yet (training sharded over a mesh) raises
-naming its ROADMAP item.
+the refiner's trainer), on one device or sharded over a mesh (the batch
+over 'data', the width over 'spatial', in one process or several). The
+public surface is the JAX package's, name for name.
 Every TPU kernel of those paths (ingest, the planar convs, guided-filter
 coefficients, the refine tails, composite) runs as a hand-written CUDA
 kernel (``vidmat_torch/csrc``), registered as a ``vidmat_torch::*``

@@ -113,29 +113,49 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bn_train:
             return self._train_forward(x)
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
-        return (y + self.bias.view(shape)).to(x.dtype)
+        return self.normalize(x, self.running_mean, self.running_var)
 
-    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
-        xf = x.float()
-        # The means accumulate in float64: E[x^2] - E[x]^2 cancels where
-        # the mean is large against the spread, and float32 sums lose the
-        # variance there (by ~1e-4 relative at a mean of 6 std, in JAX as
-        # in PyTorch, each with its own summation order).
-        mean = xf.mean(dim=(0, 2, 3), dtype=torch.float64)
-        mean2 = (xf * xf).mean(dim=(0, 2, 3), dtype=torch.float64)
+    def normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                  var: torch.Tensor) -> torch.Tensor:
+        """``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32,
+        cast back to x's dtype; the statistics and parameters are read on
+        x's device."""
+        shape, dev = (1, -1, 1, 1), x.device
+        mul = torch.rsqrt(var.to(dev) + self.eps) * self.weight.to(dev)
+        y = (x.float() - mean.to(dev).view(shape)) * mul.view(shape)
+        return (y + self.bias.to(dev).view(shape)).to(x.dtype)
+
+    def batch_stats(self, sums: torch.Tensor, count) -> Tuple[torch.Tensor,
+                                                             torch.Tensor]:
+        """The batch's (mean, var), float32 (C,), from the float64 (2, C)
+        sums of x and x^2 over ``count`` values a channel; reported to the
+        innermost ``batch_statistics()`` scope. A sharded step passes the
+        sums and count of every position (``parallel/spatial.py``)."""
+        mean = sums[0] / count
+        mean2 = sums[1] / count
         # jnp.maximum's tie rule (half the gradient at var == 0).
         var = torch.maximum(mean2 - mean * mean, mean.new_zeros(())).float()
         mean = mean.float()
         sink = getattr(_SCOPE, "sink", None)
         if sink is not None:
             sink.append((self, mean.detach(), var.detach()))
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape)
-        return (y + self.bias.view(shape)).to(x.dtype)
+        return mean, var
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.normalize(
+            x, *self.batch_stats(batch_moments(x), x.numel() // x.shape[1]))
+
+
+def batch_moments(x: torch.Tensor) -> torch.Tensor:
+    """The float64 (2, C) sums of x and x^2 over N, H and W (x NCHW).
+
+    They accumulate in float64: E[x^2] - E[x]^2 cancels where the mean is
+    large against the spread, and float32 sums lose the variance there
+    (by ~1e-4 relative at a mean of 6 std, in JAX as in PyTorch, each
+    with its own summation order)."""
+    xf = x.float()
+    return torch.stack([xf.sum(dim=(0, 2, 3), dtype=torch.float64),
+                        (xf * xf).sum(dim=(0, 2, 3), dtype=torch.float64)])
 
 
 class ConvBNAct(nn.Module):

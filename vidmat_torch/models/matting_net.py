@@ -219,17 +219,23 @@ class MattingNetwork(nn.Module):
         out = self.head(y)
         if s > 1:
             out = depth_to_space(out, s)
-        out = out.float()
+        return (*self.alpha_fgr(out.float(), x, rgb), new_state)
+
+    def alpha_fgr(self, out: torch.Tensor, x: torch.Tensor,
+                  rgb: torch.Tensor):
+        """The head's float32 output at frame resolution (NCHW) -> (alpha,
+        fgr) NHWC; x is the NCHW input in the compute dtype, rgb its RGB
+        (float input)."""
         if self.bn_train:
             alpha = clip_ties_half(out[:, 0:1], 0.0, 1.0)
             fgr = clip_ties_half(out[:, 1:4] + rgb.float(), 0.0, 1.0)
         else:
             alpha = out[:, 0:1].clamp(0.0, 1.0)
             fgr = (out[:, 1:4] + rgb.float()).clamp(0.0, 1.0)
-        if cfg.use_trimap and frame.shape[-1] >= 4:
+        if self.cfg.use_trimap and x.shape[1] >= 4:
             # Known foreground and background are pinned; only the
             # unknown band is predicted (vidmat/models/matting_net.py).
             tri = x[:, 3:4]
             alpha = torch.where(tri >= 0.75, 1.0,
                                 torch.where(tri <= 0.25, 0.0, alpha))
-        return alpha.permute(0, 2, 3, 1), fgr.permute(0, 2, 3, 1), new_state
+        return alpha.permute(0, 2, 3, 1), fgr.permute(0, 2, 3, 1)

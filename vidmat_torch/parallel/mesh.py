@@ -14,6 +14,15 @@ stream, so the work of two positions on one card may overlap, and the
 work of positions on several cards runs on each card. The kernel
 wrappers launch on the current stream of the current device, which
 ``Position.active`` sets.
+
+'data' and 'spatial' are the axes of sharded training
+(``vidmat_torch/train/loop.py``, ``parallel/spatial.py``). A mesh may
+span processes: after ``initialize_distributed``, ``make_mesh(...,
+devices=<this process's devices>)`` builds the job's global mesh, its
+positions ordered by process and then by local index (as
+``jax.devices()`` orders them). Each process knows its own devices only:
+the other processes' positions hold None in ``devices``, and
+``process_ids`` / ``local`` say which positions are whose.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,11 +41,14 @@ from vidmat_torch._device import resolve_device
 class Mesh:
     """Devices shaped like the mesh, one name per axis.
 
-    ``devices``: a numpy object array of ``torch.device``; ``shape``:
-    {axis name: size}, in axis order; ``size``: the number of
-    positions."""
+    ``devices``: a numpy object array of ``torch.device`` (None at a
+    position of another process); ``shape``: {axis name: size}, in axis
+    order; ``size``: the number of positions; ``process_ids``: the
+    process of each position (all 0 in a job of one process);
+    ``process_index``: this process's."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str],
+                 process_ids=None, process_index: int = 0):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"a {devices.ndim}-axis device array needs "
@@ -44,6 +56,11 @@ class Mesh:
                              f"{tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.process_ids = (np.zeros(devices.shape, int)
+                            if process_ids is None
+                            else np.asarray(process_ids, int).reshape(
+                                devices.shape))
+        self.process_index = process_index
 
     @property
     def shape(self) -> "collections.OrderedDict[str, int]":
@@ -53,6 +70,19 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def process_count(self) -> int:
+        return int(self.process_ids.max()) + 1
+
+    @property
+    def local(self) -> np.ndarray:
+        """True at this process's positions (shaped like the mesh)."""
+        return self.process_ids == self.process_index
+
+    def local_devices(self) -> list:
+        """This process's devices, in position order."""
+        return list(self.devices[self.local])
 
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, "
@@ -66,15 +96,27 @@ def _device(d) -> torch.device:
     return dev
 
 
+def process_count_and_index() -> Tuple[int, int]:
+    """(processes in the job, this one's index): (1, 0) unless
+    ``initialize_distributed`` joined a job of several."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
 def make_mesh(axis_names: Sequence[str] = ("stream",),
               shape: Optional[Sequence[int]] = None,
               devices=None) -> Mesh:
-    """A mesh over ``devices`` (default: every visible card).
+    """A mesh over ``devices`` (default: every visible card): in a job of
+    several processes, this process's devices, and the mesh is the job's.
 
-    shape None puts every device on the first axis and 1 on the others;
-    otherwise its product must be the number of devices (ValueError, as
-    in the JAX package). A device may repeat (several positions on one
-    device); CPU and CUDA devices do not mix."""
+    shape None puts every position on the first axis and 1 on the
+    others; otherwise its product must be the number of positions, the
+    processes times the devices each passes (ValueError, as in the JAX
+    package). A device may repeat (several positions on one device); CPU
+    and CUDA devices do not mix."""
     if devices is None:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if not n:
@@ -86,24 +128,29 @@ def make_mesh(axis_names: Sequence[str] = ("stream",),
         raise ValueError(f"a mesh takes CPU or CUDA devices, not both; got "
                          f"{[str(d) for d in devices]}")
     devices = [_device(d) for d in devices]
-    n = len(devices)
+    nproc, rank = process_count_and_index()
+    local = len(devices)
+    n = nproc * local
     if shape is None:
         shape = [n] + [1] * (len(axis_names) - 1)
     if int(math.prod(shape)) != n:
-        raise ValueError(f"mesh shape {list(shape)} != {n} devices")
+        per = f" ({nproc} processes x {local})" if nproc > 1 else ""
+        raise ValueError(f"mesh shape {list(shape)} != {n} devices{per}")
     dev_array = np.empty(n, dtype=object)
-    dev_array[:] = devices
-    return Mesh(dev_array.reshape(tuple(shape)), axis_names)
+    dev_array[rank * local:(rank + 1) * local] = devices
+    return Mesh(dev_array.reshape(tuple(shape)), axis_names,
+                np.repeat(np.arange(nproc), local), rank)
 
 
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
     """Join a job of several processes (``torch.distributed``): a no-op at
-    one process or fewer; else ``init_process_group`` over NCCL where a
-    card is visible, gloo on the CPU, at ``coordinator`` ("host:port" or
-    a URL such as "tcp://localhost:port") as process ``process_id`` of
-    ``num_processes``."""
+    one process or fewer; else ``init_process_group`` at ``coordinator``
+    ("host:port" or a URL such as "tcp://localhost:port") as process
+    ``process_id`` of ``num_processes``: gloo for CPU tensors and, where a
+    card is visible, NCCL for CUDA tensors (so a mesh of CPU positions
+    works on a machine with a card too)."""
     if num_processes is None or num_processes <= 1:
         return
     import torch.distributed as dist
@@ -113,7 +160,8 @@ def initialize_distributed(coordinator: Optional[str] = None,
                          "address, e.g. 'localhost:29500'")
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
     dist.init_process_group(
-        backend="nccl" if torch.cuda.is_available() else "gloo",
+        backend="cpu:gloo,cuda:nccl" if torch.cuda.is_available()
+        else "gloo",
         init_method=url, world_size=num_processes, rank=process_id)
 
 

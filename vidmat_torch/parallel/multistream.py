@@ -29,7 +29,10 @@ dispatch stages every position's streams, sends and runs each (an H2D
 and a replay on its stream), and only then fetches them all, so the
 positions' work overlaps; the outputs join in stream order. A position
 may repeat a device: two positions on one card serve their halves on two
-streams of it.
+streams of it. On a mesh that spans processes (``make_mesh`` after
+``initialize_distributed``) each process serves the streams of its own
+positions, as each JAX process feeds its addressable shards: serving
+needs no communication.
 """
 
 from __future__ import annotations
@@ -89,6 +92,9 @@ class MultiStreamMatting:
     versions of the kernels). ``mesh`` (``make_mesh``): the streams split
     evenly over its positions, which then give the devices (``device`` is
     not used); a per-stream plate needs mesh=None, as in the JAX package.
+    On a mesh of several processes ``num_streams`` counts every
+    process's streams, and this process serves those of its positions:
+    ``step`` takes its (S / P * local positions, ...) frames.
     ``use_pallas=False`` takes the branch without kernels (the uint8
     tuple, the net as F.conv2d), as in ``PipelineConfig``;
     ``pallas_interpret`` changes nothing here (the CUDA kernels run on the
@@ -118,10 +124,10 @@ class MultiStreamMatting:
             raise ValueError("bg_blur composites over a blur of each "
                              "stream's own frames; it is mutually "
                              "exclusive with bg_color")
-        if mesh is not None and num_streams % mesh.devices.size:
+        if mesh is not None and num_streams % mesh.size:
             raise ValueError(
                 f"num_streams={num_streams} must divide evenly over the "
-                f"{mesh.devices.size}-device mesh (per-device local batch)")
+                f"{mesh.size}-device mesh (per-device local batch)")
         if bg_plate is not None:
             bg_plate = np.asarray(bg_plate)
             if bg_plate.ndim == 4 and bg_plate.shape[0] != num_streams:
@@ -134,12 +140,13 @@ class MultiStreamMatting:
                     "mesh use one shared (H, W, 3) plate, or run one "
                     "MultiStreamMatting per device group")
         self.mesh = mesh
-        positions = ([Position(d) for d in mesh.devices.flat]
+        positions = ([Position(d) for d in mesh.local_devices()]
                      if mesh is not None
                      else [Position(resolve_device(device),
                                     own_stream=False)])
         self.device = positions[0].device
-        self.s = num_streams
+        per = num_streams // (len(positions) if mesh is None else mesh.size)
+        self.s = per * len(positions)
         self.h, self.w = height, width
         self.in_c = 4 if cfg.use_trimap else 3
         self.cfg = cfg
@@ -152,7 +159,6 @@ class MultiStreamMatting:
                    else dataclasses.replace(cfg, conv_impl="xla"))
         composited = bg_color is not None or bool(bg_blur)
         self.chunk = max(1, chunk)
-        per = num_streams // len(positions)
         self._shards = []
         for p, pos in enumerate(positions):
             net = build_network(

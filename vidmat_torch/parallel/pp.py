@@ -108,6 +108,9 @@ class PipelinedStreams:
                 f"PipelinedStreams needs a ('stream', 'pp')-shaped 2-axis "
                 f"mesh of num_streams x 2 devices; got num_streams="
                 f"{num_streams}, mesh {shape}")
+        if not mesh.local.all():
+            raise ValueError("PipelinedStreams takes a mesh of one "
+                             "process's positions")
         if height % 16 or width % 16:
             raise ValueError("height/width must be multiples of 16")
         if bg_blur and bg_color is not None:
@@ -326,7 +329,8 @@ class PipelinedMatting(PipelinedStreams):
                 f"(got shape {dict(mesh.shape)}); for N streams x 2 stages "
                 "use PipelinedStreams on a ('stream', 'pp') mesh of Nx2 "
                 "devices")
-        m2 = Mesh(mesh.devices.reshape(1, 2), ("stream", mesh.axis_names[0]))
+        m2 = Mesh(mesh.devices.reshape(1, 2), ("stream", mesh.axis_names[0]),
+                  mesh.process_ids, mesh.process_index)
         super().__init__(1, height, width, m2, **kwargs)
 
     def step(self, frame_u8: np.ndarray

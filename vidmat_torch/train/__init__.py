@@ -2,7 +2,8 @@
 step, the segmentation co-training step, the losses, the optimizer and
 schedule, the synthetic batchers (``data``), the directory-format dataset
 (``dataset``) and the refiner's trainer (``refine``). Steps run on the
-card unless the caller passes ``device="cpu"``."""
+card unless the caller passes ``device="cpu"``, or over the positions of
+a ``mesh=``."""
 
 from vidmat_torch.train.losses import (matting_loss,  # noqa: F401
                                        segmentation_loss)

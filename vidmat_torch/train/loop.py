@@ -17,6 +17,21 @@ carries them. With ``remat`` each frame runs under
 ``torch.utils.checkpoint``: the backward reruns the frame, and the rerun
 reports into a scope of its own that is dropped, so no statistic is
 counted twice. The step runs in full float32 (``_device.full_fp32``).
+
+``mesh=`` shards the step as the JAX package's ``in_shardings`` do
+(``parallel/spatial.py``): the clips' and targets' N axis over 'data'
+(the mesh's first axis where there is no 'data', unless that is
+'spatial'), their W axis over 'spatial' where the mesh has it; axes of
+other names replicate. The frames run over the positions in lock step,
+BatchNorm's batch statistics are global over N, H and W (its float64
+moments summed over the positions), and the outputs are gathered to the
+first position for the unchanged loss, whose boundary and IoU terms are
+ratios of global sums. The parameters live once on the first position
+and reach the others through ``.to()``, so autograd sums their
+gradients; across processes the gradients are then summed and every
+process takes the same optimizer step. So the sharded step computes the
+unsharded step's function, as GSPMD keeps it. In a job of several
+processes each process passes its own rows of N.
 """
 
 from __future__ import annotations
@@ -35,15 +50,12 @@ from vidmat_torch.models.layers import BatchNorm, batch_statistics, ema_update
 from vidmat_torch.models.matting_net import (MattingNetwork, RecurrentState,
                                              init_state)
 from vidmat_torch.models.weights import module_tensors, to_device
+from vidmat_torch.parallel.collectives import sum_over_processes
+from vidmat_torch.parallel.mesh import _device
+from vidmat_torch.parallel.spatial import Layout, ShardedNetwork
 from vidmat_torch.train.losses import matting_loss, segmentation_loss
 from vidmat_torch.train.optim import (apply_updates, make_optimizer,
                                       tree_map)
-
-#: what training's ``mesh=`` raises: the one part of the JAX package's
-#: multi-device code the port lacks
-MULTI_CARD_ITEM = "ROADMAP A.12 (sharded training)"
-_MESH_ERROR = f"mesh= is not ported yet ({MULTI_CARD_ITEM})"
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -73,11 +85,16 @@ def _nets(cfg, bn_train, device):
     return get
 
 
-def _forward_clip(cfg, net, params, batch_stats, clips, seg_pass, remat):
+def _forward_clip(cfg, net, params, batch_stats, clips, seg_pass, remat,
+                  lay=None):
     """Run the net over the T frames of ``clips`` (T, N, H, W, C) from a
-    zero state. Returns the per-frame outputs stacked on T (alpha and fgr,
-    or the seg logits and None) and the batch statistics of every frame,
-    in order: a list over T of [(BatchNorm module name, mean, var)]."""
+    zero state (over the positions of ``lay`` where one is given).
+    Returns the per-frame outputs stacked on T (alpha and fgr, or the seg
+    logits and None) and the batch statistics of every frame, in order: a
+    list over T of [(BatchNorm module name, mean, var)]."""
+    if lay is not None:
+        return _forward_clip_mesh(cfg, net, params, batch_stats, clips,
+                                  seg_pass, remat, lay)
     t, n, h, w, _ = clips.shape
     tensors = module_tensors({"params": params, "batch_stats": batch_stats})
     names = {id(m): name for name, m in net.named_modules()
@@ -105,6 +122,71 @@ def _forward_clip(cfg, net, params, batch_stats, clips, seg_pass, remat):
         stats.append(st)
     fgr = None if seg_pass else torch.stack(fgrs)
     return torch.stack(outs), fgr, stats
+
+
+def _forward_clip_mesh(cfg, net, params, batch_stats, clips, seg_pass,
+                       remat, lay: Layout):
+    """``_forward_clip`` over the positions of ``lay``: clips (T, n, H, W,
+    C) are this process's rows; the outputs come back whole (every
+    process's rows) on ``lay.device``."""
+    t, n, h, w, _ = clips.shape
+    sharded = ShardedNetwork(net, lay)
+    tensors = {f"net.{k}": v for k, v in module_tensors(
+        {"params": params, "batch_stats": batch_stats}).items()}
+    names = {id(m): name for name, m in net.named_modules()
+             if isinstance(m, BatchNorm)}
+    xs = lay.split(clips, 1, 3, lay.frame_bounds(w, cfg.space_to_depth))
+    state = lay.zero_state(cfg, n // len(lay.rows), h, w)
+
+    def frame_step(frames, hidden):
+        with batch_statistics() as sink:
+            a, f, new = functional_call(sharded, tensors, (frames, hidden),
+                                        {"seg_pass": seg_pass})
+        stats = [(names[id(m)], mean, var) for m, mean, var in sink]
+        return a, f, new, stats
+
+    outs, fgrs, stats = [], [], []
+    for i in range(t):
+        frames = [[x[i] for x in row] for row in xs]
+        if remat:
+            a, f, state, st = checkpoint(frame_step, frames, state,
+                                         use_reentrant=False)
+        else:
+            a, f, state, st = frame_step(frames, state)
+        outs.append(a)
+        fgrs.append(f)
+        stats.append(st)
+
+    def whole(per_frame):
+        grid = [[torch.stack([fr[r][i] for fr in per_frame])
+                 for i in range(lay.s)] for r in range(len(lay.rows))]
+        return lay.join(grid, 1, 3)
+
+    return whole(outs), None if seg_pass else whole(fgrs), stats
+
+
+def _step_device(device, mesh):
+    """The step's device and layout: ``device`` (the card by default)
+    without a mesh; with one, the mesh's first position (a ``device``
+    elsewhere raises)."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device), None
+    lay = Layout(mesh)
+    if device is not None and _device(device) != lay.device:
+        raise ValueError(f"device={device!r} disagrees with the mesh, "
+                         f"whose first position is on {lay.device}")
+    return lay.device, lay
+
+
+def _sum_grads(grads, lay):
+    """The gradients of a sharded step summed over the processes of the
+    job (as they are without a mesh or in one process)."""
+    if lay is None or lay.nproc == 1:
+        return grads
+    leaves: List[torch.Tensor] = []
+    tree_map(leaves.append, grads)
+    it = iter(sum_over_processes(leaves))
+    return tree_map(lambda _: next(it), grads)
 
 
 def _new_batch_stats(batch_stats, stats) -> Dict[str, Any]:
@@ -165,7 +247,7 @@ def _finish(state: TrainState, optimizer, params, grads, new_stats,
 
 def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
                     remat: bool = True, laplacian_weight: float = 0.0,
-                    boundary_weight: float = 0.0, device="cuda"):
+                    boundary_weight: float = 0.0, device=None):
     """Build the train step.
 
     train_step(state, clips, gt_alpha, gt_fgr) -> (state, metrics)
@@ -175,10 +257,13 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
     metrics: {"loss", "alpha", "grad", "fgr", "temporal"[, "laplacian",
     "boundary"]}, 0-d tensors on the device. The state's leaves may be
     numpy arrays; they are moved to the device on the first step.
+
+    ``device``: the card by default; with ``mesh=`` (``make_mesh``) the
+    step is sharded over its positions (the module docstring), the
+    device is its first position's, and in a job of several processes
+    the arrays are this process's rows of N (the whole batch in one).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
-    dev = resolve_device(device)
+    dev, lay = _step_device(device, mesh)
     optimizer = optimizer or make_optimizer()
     nets = _nets(cfg, True, dev)
 
@@ -192,13 +277,17 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
             gt_fgr = None if gt_fgr is None else to_tensor(gt_fgr, dev)
             params = _requires_grad(state.variables["params"])
             stats0 = state.variables["batch_stats"]
-            alphas, fgrs, stats = _forward_clip(cfg, nets(params), params,
-                                                stats0, clips, False, remat)
+            alphas, fgrs, stats = _forward_clip(
+                cfg, nets(params), params, stats0, clips, False, remat, lay)
+            if lay is not None:  # every process's rows, for the loss
+                clips, gt_alpha, gt_fgr = (
+                    None if x is None else lay.join([[x]], 1, 3)
+                    for x in (clips, gt_alpha, gt_fgr))
             loss, terms = matting_loss(alphas, fgrs, gt_alpha, gt_fgr,
                                        clips,
                                        laplacian_weight=laplacian_weight,
                                        boundary_weight=boundary_weight)
-            grads = leaf_grads(loss, params)
+            grads = _sum_grads(leaf_grads(loss, params), lay)
             return _finish(state, optimizer, params, grads,
                            _new_batch_stats(stats0, stats),
                            {"loss": loss, **terms})
@@ -208,7 +297,7 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
 
 def make_seg_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
                         remat: bool = True, bn_train: bool = True,
-                        device="cuda"):
+                        device=None):
     """Build the segmentation co-training step (the shared trunk and
     ``seg_head``, BCE on binary masks).
 
@@ -220,11 +309,10 @@ def make_seg_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
     the tree is the with_seg tree, and each pass gives zero gradients to
     the other pass's head, so one optimizer drives the interleave.
     bn_train=False runs BatchNorm on the frozen running statistics and
-    leaves them as they are (the head-only fit).
+    leaves them as they are (the head-only fit). ``mesh`` and ``device``
+    as in ``make_train_step``.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
-    dev = resolve_device(device)
+    dev, lay = _step_device(device, mesh)
     optimizer = optimizer or make_optimizer()
     nets = _nets(cfg, bn_train, dev)
 
@@ -237,9 +325,11 @@ def make_seg_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
             params = _requires_grad(state.variables["params"])
             stats0 = state.variables["batch_stats"]
             segs, _, stats = _forward_clip(cfg, nets(params), params, stats0,
-                                           clips, True, remat)
+                                           clips, True, remat, lay)
+            if lay is not None:
+                gt_mask = lay.join([[gt_mask]], 1, 3)
             loss, terms = segmentation_loss(segs, gt_mask)
-            grads = leaf_grads(loss, params)
+            grads = _sum_grads(leaf_grads(loss, params), lay)
             return _finish(state, optimizer, params, grads,
                            _new_batch_stats(stats0, stats),
                            {"loss": loss, **terms})
@@ -250,7 +340,7 @@ def make_seg_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
 def train_on_clips(cfg: ModelConfig, data_iter, num_steps: int = 100,
                    lr: float = 1e-4, mesh=None, variables=None,
                    log_every: int = 10, callback=None, seg_data_iter=None,
-                   seg_every: int = 0, device="cuda") -> TrainState:
+                   seg_every: int = 0, device=None) -> TrainState:
     """Drive the train step over an iterator of (clips, gt_alpha, gt_fgr)
     numpy batches.
 
@@ -260,13 +350,12 @@ def train_on_clips(cfg: ModelConfig, data_iter, num_steps: int = 100,
     variables are given, and a matting checkpoint gets a fresh
     ``seg_head`` grafted (matting-neutral). ``callback(i, metrics)``
     receives host floats; without one, every ``log_every``-th step
-    prints a line.
+    prints a line. ``mesh`` and ``device`` as in ``make_train_step``; the
+    state comes back on the device.
     """
     from vidmat_torch.models.weights import graft_seg_params, init_params
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
-    dev = resolve_device(device)
+    dev, _ = _step_device(device, mesh)
     seg_on = seg_data_iter is not None and seg_every > 0
     optimizer = make_optimizer(lr)
     variables = (variables if variables is not None
@@ -276,9 +365,9 @@ def train_on_clips(cfg: ModelConfig, data_iter, num_steps: int = 100,
     variables = to_device(variables, dev)
     state = TrainState(variables=variables,
                        opt_state=optimizer.init(variables["params"]))
-    step_fn = make_train_step(cfg, optimizer, device=dev)
-    seg_fn = (make_seg_train_step(cfg, optimizer, device=dev) if seg_on
-              else None)
+    step_fn = make_train_step(cfg, optimizer, mesh=mesh, device=dev)
+    seg_fn = (make_seg_train_step(cfg, optimizer, mesh=mesh, device=dev)
+              if seg_on else None)
 
     for i in range(num_steps):
         if seg_on and i % seg_every == seg_every - 1:
