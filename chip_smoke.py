@@ -245,7 +245,16 @@ Phases (any failure exits nonzero and prints no result line):
      every shipped .npz through models.load_checkpoint with its
      template; tools/eval_errormap at 1088x1920 (2 frames, one seed)
      card against CPU (MADs 1e-4, Grad 1e-4 relative); no hand-written
-     kernel launched over them
+     kernel launched over them. Then build_serving_body(refine_at_full=
+     True) on clip_480p's model at 480x864 (bf16, guided, packed words)
+     over 10 frames: GF (gf_coeffs.cu) and composite_rgba_packed once a
+     frame, as the captured 10-frame chunk replays them; bytes against
+     the plain body (worst-frame mean |d| <= 0.5 LSB, max <= 2); the
+     graph's bytes equal to the eager body's; output unequal to
+     refine_at_full=False's; GF at this launch shape within 1e-4 of its
+     plain twin and composite_rgba_packed bit-exact, and GF's cold-L2 ms
+     beside its bytes bound and plain ms (the kernels line's
+     "guided_filter_coeffs (full res)" row); tiled_apply card vs CPU
   H. sharded training (``mesh=``) on the fast_demo model at 512x512,
      T=4, N=4, positions repeating the card: the step on ('data',) (4),
      ('spatial',) (4) and ('data', 'spatial') (2, 2) against the
@@ -255,7 +264,12 @@ Phases (any failure exits nonzero and prints no result line):
      convolution, no hand-written kernel launched),
      the seg step on (2, 2), three train_on_clips steps (losses 1e-4
      relative); the median ms of 5 steps and peak memory, sharded beside
-     unsharded
+     unsharded; then two processes on the card (gloo, CUDA tensors through
+     the host) on ('spatial',) (2) (one position a process) and
+     ('spatial', 'data') (2, 2) (each group across both), held against
+     the one-process step on the same mesh shape at the same bars, both
+     processes' results equal, their step ms beside the one-process
+     step's
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Details (profile, per-site times,
@@ -2314,8 +2328,9 @@ def refiner_stage_ms(ref, rgb, rgb_lr, alpha_lr, iters=20):
     st = {}
 
     def head():
-        x = torch.cat([rgb_lr, alpha_lr], dim=-1).permute(0, 3, 1, 2)
-        st["err"] = ref.error_head(x).permute(0, 2, 3, 1)
+        st["err"] = ref.error_head(rgb_lr.permute(0, 3, 1, 2),
+                                   alpha_lr.permute(0, 3, 1, 2)).permute(
+                                       0, 2, 3, 1)
 
     def select():
         grid = resize_bilinear(st["err"], gh, gw).reshape(n, gh * gw)
@@ -4991,6 +5006,146 @@ def close_reports(got, want):
     return worst
 
 
+U_FULL_FRAMES = 10   # clip_480p's chunk
+
+
+def u_refine_at_full(kernels, gpu, dev):
+    """Phase U, part B: ``build_serving_body(refine_at_full=True)`` on
+    clip_480p's model (synthetic_demo, the planar net, ratio 1.0) at
+    480x864, bf16, guided, packed words, over 10 frames of the clip.
+    Returns {"errs", "time", "launches", "path"}: the GF kernel's max |d|
+    to its plain twin at this launch shape, its phase 6 row there, and
+    its launches over the eager run."""
+    import numpy as np
+    import torch
+
+    import vidmat_torch.ops.composite as composite
+    import vidmat_torch.ops.gf as gf
+    import vidmat_torch.pipeline.stepfactory as sf
+    from vidmat_torch import preset_clip_480p
+    from vidmat_torch.config import RefineConfig
+    from vidmat_torch.io.fixtures import synthetic_clip
+    from vidmat_torch.models.weights import build_network, default_variables
+    from vidmat_torch.pipeline.graph import ChunkGraph, per_frame_chunk
+
+    mcfg, _ = preset_clip_480p()
+    net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
+                        device=dev)
+    frames = torch.from_numpy(np.stack([f for f, _ in synthetic_clip(
+        CLIP_H, CLIP_W, U_FULL_FRAMES, seed=0)])).to(dev)
+
+    def build(**kw):
+        return sf.build_serving_body(net, mcfg, RefineConfig("guided"),
+                                     CLIP_H, CLIP_W, 1.0,
+                                     cdtype=torch.bfloat16, **kw)
+
+    body, plan = build(refine_at_full=True)
+    assert plan.full and plan.packed and plan.chunk_body is None
+    chunk = per_frame_chunk(body)
+    chunk(frames[:1], plan.make_state(1))   # warm-up
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out, _ = chunk(frames, plan.make_state(1))
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / U_FULL_FRAMES
+    launches = counts(kernels)
+    want = expect(kernels, dict(PLANAR_PER_FRAME, guided_filter_coeffs=1,
+                                composite_rgba_packed=1), U_FULL_FRAMES)
+    assert launches == want, (launches, want)
+
+    static = frames.clone()
+    graph = ChunkGraph(chunk, static, plan.make_state(1))
+    per = graph.launches_per_replay()
+    assert per == {k: v for k, v in launches.items() if v}, (per, launches)
+    zero = plan.make_state(1)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_out, _ = graph(zero)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / U_FULL_FRAMES)
+    unequal = int((g_out != out).sum())
+
+    # The plain body's GF and composite calls of frame 0 are recorded
+    # (guided_upsample looks the plain GF up at each call; the body binds
+    # the plain composite when it is built).
+    calls = {}
+    gf_plain, comp_plain = (gf.guided_filter_coeffs_plain,
+                            sf.composite_rgba_packed_plain)
+
+    def rec(name, fn):
+        def run(*args):
+            calls.setdefault(name, args)
+            return fn(*args)
+        return run
+
+    gf.guided_filter_coeffs_plain = rec("gf", gf_plain)
+    sf.composite_rgba_packed_plain = rec("comp", comp_plain)
+    try:
+        plain, pplan = build(refine_at_full=True, kernels=False)
+        off, oplan = build(refine_at_full=False)
+        got = out.view(torch.uint8).reshape(U_FULL_FRAMES, CLIP_H, CLIP_W,
+                                            4)
+        st, ost = pplan.make_state(1), oplan.make_state(1)
+        worst_mean = worst_max = 0.0
+        differs = 0
+        for j in range(U_FULL_FRAMES):
+            p_out, st = plain(frames[j:j + 1], st)
+            o_out, ost = off(frames[j:j + 1], ost)
+            d = (p_out.view(torch.uint8).reshape(CLIP_H, CLIP_W, 4).int()
+                 - got[j].int()).abs()
+            worst_mean = max(worst_mean, float(d.float().mean()))
+            worst_max = max(worst_max, float(d.max()))
+            differs += int((o_out != out[j:j + 1]).sum())
+    finally:
+        gf.guided_filter_coeffs_plain = gf_plain
+        sf.composite_rgba_packed_plain = comp_plain
+    guide, p, r, eps = calls["gf"]
+    ka, kb = gf.guided_filter_coeffs(guide, p, r, eps)
+    pa, pb = gf.guided_filter_coeffs_plain(guide, p, r, eps)
+    fgr, alpha, bgv = calls["comp"]
+    kc = composite.composite_rgba_packed(fgr, alpha, bgv)
+    pc = composite.composite_rgba_packed_plain(fgr, alpha, bgv)
+    torch.cuda.synchronize()
+    e_gf = float(max((ka - pa).abs().max(), (kb - pb).abs().max()))
+    e_comp = int((kc != pc).sum())
+    taps = 2 * (2 * r + 1)
+    row = time_case(dict(
+        kernel=lambda: gf.guided_filter_coeffs(guide, p, r, eps),
+        plain=lambda: gf.guided_filter_coeffs_plain(guide, p, r, eps),
+        bytes=nbytes(guide, p, ka, kb),
+        ops=guide.numel() * (18 * taps + 5 + 18 + 24),
+        peak=F32_FLOPS_PER_S))
+
+    log(f"[U] (g) refine_at_full=True, clip_480p's model {CLIP_W}x{CLIP_H} "
+        f"bf16, guided, packed, {U_FULL_FRAMES} frames: launches {launches}; "
+        f"a 10-frame graph replays {per} ({unequal} of {out.numel()} words "
+        f"unequal to the eager body); {eager_ms:.3f} ms a frame eager, "
+        f"{min(times):.3f} ms replayed ({gpu}); against the plain body: "
+        f"worst-frame mean |d| {worst_mean:.4g} LSB, max {worst_max:.0f}; "
+        f"words unequal to refine_at_full=False {differs}")
+    log(f"[U] (h) at this launch shape, guide {tuple(guide.shape)}, src "
+        f"{tuple(p.shape)}: GF max |d| to plain {e_gf:.3g}; "
+        f"composite_rgba_packed words unequal to plain {e_comp}; [6] "
+        f"guided_filter_coeffs (full res): {row['ms']:.4f} ms (cold L2), "
+        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} ({row['bytes'] / 1e6:.2f} MB, "
+        f"{row['ops'] / 1e6:.1f} Mop; {100 * row['bound_ms'] / row['ms']:.0f}"
+        f"% of the bound; {gpu})")
+    assert unequal == 0, unequal
+    assert worst_mean <= 0.5 and worst_max <= 2, (worst_mean, worst_max)
+    assert differs > 0
+    assert e_gf <= 1e-4 and e_comp == 0, (e_gf, e_comp)
+    return dict(errs={"guided_filter_coeffs (full res)": e_gf,
+                      "composite_rgba_packed": 0.0},
+                time=dict(row, shape="1 frame"),
+                launches=launches["guided_filter_coeffs"],
+                path=(f"build_serving_body(refine_at_full=True) clip_480p, "
+                      f"{U_FULL_FRAMES} frames at {CLIP_W}x{CLIP_H}"))
+
+
 def phase_a16(kernels, gpu, dev):
     """Phase U: A.16's one-card surface on the card. (a) make_chunk_step
     with fast_demo (s2d=2, F.conv2d) at 1088x1920, K=4, float32: equal
@@ -5120,7 +5275,24 @@ def phase_a16(kernels, gpu, dev):
         f"{launches}")
     assert worst <= 1e-4, (card, cpu)
     assert not any(launches.values()), launches
+
+    full = u_refine_at_full(kernels, gpu, dev)
+    from vidmat_torch.refine.tiling import tiled_apply
+
+    x = torch.from_numpy(np.random.RandomState(18).rand(
+        1, CLIP_H, CLIP_W, 3).astype(np.float32))
+
+    def box(t):
+        return torch.nn.functional.avg_pool2d(
+            t.permute(0, 3, 1, 2), 3, 1, 1).permute(0, 2, 3, 1)
+
+    d_tile = float((tiled_apply(box, x.to(dev), 256, 32).cpu()
+                    - tiled_apply(box, x, 256, 32)).abs().max())
+    log(f"[U] (i) tiled_apply of a 3x3 box mean, 1x{CLIP_H}x{CLIP_W}, tiles "
+        f"of 256 overlapping 32: max |d| card vs CPU {d_tile:.3e}")
+    assert d_tile <= 1e-5, d_tile
     log(f"[U] phase U took {time.perf_counter() - t_phase:.1f} s")
+    return full
 
 
 # Phase H (A.12's sharded training): the fast_demo model's step sharded
@@ -5191,6 +5363,162 @@ def _h_step_ms(mcfg, variables, batch, dev, mesh=None, steps=5):
             (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
 
 
+# Phase H (e): the two-process job. Each worker is ``python chip_smoke.py
+# --h-worker <process> <port> <out dir>``: a process with positions on
+# cuda:0 that joins a gloo group of two on localhost (NCCL refuses two
+# ranks on one card), so the halos, sums and gathers cross the process
+# boundary through the host. ('spatial',) (2) is the torchrun layout, one
+# position a process; on ('spatial', 'data') (2, 2) each process holds
+# 'spatial' position i of both data groups.
+H2_MESHES = ((("spatial",), (2,)), (("spatial", "data"), (2, 2)))
+H2_TIMEOUT_S = 420
+
+
+def h_worker(pid: int, port: int, out: str) -> int:
+    """One process of phase H's two-process job: the matting step (with
+    the capturing optimizer) and its ms on each mesh of ``H2_MESHES``,
+    written to <out>/h<pid>.npz and .json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vidmat_torch.config import preset_video_1080p
+    from vidmat_torch.models.weights import init_params
+    from vidmat_torch.parallel import collectives
+    from vidmat_torch.parallel.mesh import make_mesh
+    from vidmat_torch.parallel.spatial import Layout
+    from vidmat_torch.pipeline.graph import kernel_wrappers
+    from vidmat_torch.train.data import synthetic_clip_batches
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=pid)
+    try:
+        dev = torch.device("cuda", 0)
+        kernels = kernel_wrappers()
+        mcfg, _ = preset_video_1080p()
+        variables = init_params(mcfg, seed=0)
+        batch = next(synthetic_clip_batches(seed=5, t=H_T, n=H_N, h=H_SIZE,
+                                            w=H_SIZE))
+        saved, report = {}, {"pid": pid, "transport": (
+            "nccl" if collectives._nccl() else
+            "gloo over TCP on localhost, CUDA tensors staged through the "
+            "host")}
+        for axes, shape in H2_MESHES:
+            name = f"{axes} {shape}"
+            mesh = make_mesh(axes, shape, devices=[dev] * (
+                int(math.prod(shape)) // 2))
+            lay = Layout(mesh)
+            per = H_N // lay.d
+            rows = np.concatenate([np.arange(g * per, (g + 1) * per)
+                                   for g in lay.rows])
+            mine = [torch.from_numpy(x[:, rows]).to(dev) for x in batch]
+            zero_counts(kernels)
+            g, m, st = _h_grad_step("mat", mcfg, variables, mine, dev, mesh)
+            launches = counts(kernels)
+            ms, peak = _h_step_ms(mcfg, variables, mine, dev, mesh)
+            saved.update({f"{name}/g/{k}": v for k, v in g.items()})
+            saved.update({f"{name}/s/{k}": v for k, v in st.items()})
+            report[name] = dict(metrics=m, launches=launches, ms=ms,
+                                peak_mib=peak, pids=lay.pids.tolist(),
+                                rows=lay.rows)
+        np.savez(os.path.join(out, f"h{pid}.npz"), **saved)
+        with open(os.path.join(out, f"h{pid}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def h_two_process(gpu, dev, variables, mcfg, batch, spread):
+    """Phase H (e): the two workers on cuda:0, each mesh held against the
+    one-process step on the same mesh shape over positions repeating
+    cuda:0 (loss and terms 2e-5, statistics 1e-5, gradients within the
+    larger of 1e-4 and the unsharded step's float32 spread), no
+    hand-written kernel launched; the step ms of both beside each
+    other."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from vidmat_torch.parallel.mesh import make_mesh
+
+    out = os.path.join(OUT_DIR, "h_workers")
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out, f"h{i}.log"), "w") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--h-worker", str(i),
+         str(port), out], stdout=logs[i], stderr=subprocess.STDOUT)
+        for i in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=H2_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out, f"h{i}.log")) as f:
+                log(f.read()[-4000:])
+        assert p.returncode == 0, (i, p.returncode)
+    reports = []
+    for i in range(2):
+        with open(os.path.join(out, f"h{i}.json")) as f:
+            reports.append(json.load(f))
+    got = [np.load(os.path.join(out, f"h{i}.npz")) for i in range(2)]
+    log(f"[H] (e) two processes on cuda:0 ({wall:.1f} s with their start); "
+        f"halos, sums and gathers carried by {reports[0]['transport']}")
+    res = {}
+    for axes, shape in H2_MESHES:
+        name = f"{axes} {shape}"
+        one = make_mesh(axes, shape, devices=[dev] * int(math.prod(shape)))
+        ref = _h_grad_step("mat", mcfg, variables, batch, dev, one)
+        ms1, peak1 = _h_step_ms(mcfg, variables, batch, dev, one)
+        r0, r1 = reports[0][name], reports[1][name]
+        assert all(len(set(row)) == 2 for row in r0["pids"]), r0["pids"]
+        assert r0["metrics"] == r1["metrics"], (r0, r1)
+        for k in got[0].files:
+            if k.startswith(name):
+                assert np.array_equal(got[0][k], got[1][k]), k
+        mine = ({k.split("/", 2)[2]: got[0][k] for k in got[0].files
+                 if k.startswith(f"{name}/g/")}, r0["metrics"],
+                {k.split("/", 2)[2]: got[0][k] for k in got[0].files
+                 if k.startswith(f"{name}/s/")})
+        wg, wm, ws = _h_worst(mine, ref)
+        res[name] = dict(grad=wg, loss=wm, stats=ws, ms=[r0["ms"],
+                                                         r1["ms"]],
+                         ms_one_process=ms1, peak_mib=r0["peak_mib"],
+                         peak_mib_one_process=peak1,
+                         launches=[r0["launches"], r1["launches"]])
+        log(f"[H] (e) {name} over two processes (groups {r0['rows']} / "
+            f"{r1['rows']}) against the one-process step on the same mesh "
+            f"shape: worst per-leaf max|dg|/max|g| {wg:.3e}, loss and terms "
+            f"{wm:.3e} relative, running stats {ws:.3e}; both processes' "
+            f"results equal; step {r0['ms']:.2f} / {r1['ms']:.2f} ms (the "
+            f"two processes, median of 5, synchronised) against "
+            f"{ms1:.2f} ms in one process; peak {r0['peak_mib']:.1f} "
+            f"against {peak1:.1f} MiB; kernel launches {r0['launches']} "
+            f"({gpu})")
+        assert wm <= 2e-5 and ws <= 1e-5, res
+        assert wg <= max(1e-4, spread["mat"]), (res, spread)
+        assert not any(r0["launches"].values()) and not any(
+            r1["launches"].values()), res
+    return res
+
+
 def phase_sharded_train(kernels, gpu, dev):
     """Phase H: sharded training (A.12's last part) on the card, the
     fast_demo model (video_1080p: s2d=2) at 512x512, T=4, N=4, over
@@ -5209,7 +5537,7 @@ def phase_sharded_train(kernels, gpu, dev):
     mesh, the same bars; (c) three train_on_clips steps on the (2, 2)
     mesh within 1e-4 relative of the unsharded run's losses;
     (d) the median ms of 5 steps and the peak memory of each, sharded
-    beside unsharded."""
+    beside unsharded; (e) the two-process job (``h_two_process``)."""
     import torch
 
     from vidmat_torch.config import preset_video_1080p
@@ -5282,9 +5610,10 @@ def phase_sharded_train(kernels, gpu, dev):
         log(f"[H] (d) train step {H_SIZE}x{H_SIZE} T={H_T} N={H_N}, "
             f"{name}: {ms:.2f} ms (median of 5, synchronised), peak "
             f"{peak:.1f} MiB ({gpu})")
+    two = h_two_process(gpu, dev, variables, mcfg, batch, spread)
     with open(os.path.join(OUT_DIR, "train_mesh.json"), "w") as f:
         json.dump({"accuracy": res, "spread": spread, "losses": losses,
-                   "ms_peak_mib": rows}, f, indent=1)
+                   "ms_peak_mib": rows, "two_processes": two}, f, indent=1)
     log(f"[H] phase H took {time.perf_counter() - t_phase:.1f} s")
     return rows
 
@@ -5295,6 +5624,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--h-worker"]:
+        return h_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     sys.path.insert(0, ROOT)
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -5370,8 +5701,13 @@ def main() -> int:
     phase_image(dev)
     phase_bench()
     phase_train(kernels, gpu, dev)
-    phase_a16(kernels, gpu, dev)
+    full = phase_a16(kernels, gpu, dev)
     phase_sharded_train(kernels, gpu, dev)
+    # B.6 at the full-resolution body's launch shape (phase U (h)).
+    full_row = "guided_filter_coeffs (full res)"
+    times[full_row] = full["time"]
+    for name, e in full["errs"].items():
+        errs[name] = max(errs.get(name, 0.0), e)
     with open(os.path.join(OUT_DIR, "graphs.json"), "w") as f:
         json.dump(dict(GRAPHS, errormap={
             k: v for k, v in errormap.items() if k != "graph"}), f,
@@ -5403,6 +5739,7 @@ def main() -> int:
             f"convert_video bg_blur=16, planar preset, {BG_FRAMES} frames"),
         "int8_conv": (int8_launches,
                       "vidmat_torch/tools/bench_int8_planes.py, 3 repeats"),
+        full_row: (full["launches"], full["path"]),
     }
     path4k = f"convert_video video_4k, {K_FRAMES} frames at {W4K}x{H4K}"
     for name, fn in (("ingest_pool_normalize (4K)", "ingest_pool_normalize"),
@@ -5471,6 +5808,7 @@ def main() -> int:
         "planar_conv2", "planar_conv_gru")})
     meta["fused_refine_composite (coarse, 8 streams)"] = meta[
         "fused_refine_composite"]
+    meta[full_row] = meta["guided_filter_coeffs"]
     rows = []
     for name, (src, rep) in meta.items():
         t = times[name]

@@ -11,14 +11,17 @@ tests/unit/test_seg.py:167); tests/test_torch_train_step.py holds the
 unsharded step to the JAX package. Bars: loss and terms 2e-5 relative,
 gradients per leaf max|dg| / max|g| <= 1e-4 (read through an optimizer that
 keeps them in its state), running statistics 1e-5. The JAX sharded
-step's loss on the conftest's 8 virtual devices as a (4, 2) mesh against
-the port's, rtol 2e-5. Width-sharded inference at 64x256 over 8
+step's loss on the conftest's 8 virtual devices as a (4, 2) mesh, and on
+4 of them as a ('spatial', 'data') (2, 2) mesh, against the port's, rtol
+2e-5. Width-sharded inference at 64x256 over 8
 positions against the unsharded forward, atol 2e-5 (the counterpart of
 tests/unit/test_spatial_sharding.py). In float64 the sharded training
 forward and backward equal the unsharded ones to 1e-10: the sharding
 changes only the order of float32 sums (which at 512 px moves the
 deepest leaves' float32 gradients by more than 1e-4, chip_smoke.py phase
-H). The preconditions raise.
+H). The preconditions raise; a mesh whose 'spatial' group spans
+processes gives the Layout its positions (tests/test_torch_multihost.py
+runs such meshes over two processes).
 """
 
 import jax
@@ -129,6 +132,27 @@ def test_jax_sharded_loss_matches_port(setup):
                                rtol=2e-5)
 
 
+def test_jax_spatial_data_mesh_loss_matches_port(setup):
+    """The JAX package's sharded step on a ('spatial', 'data') (2, 2) mesh
+    of four of the conftest's virtual CPU devices gives the port's loss on
+    the same mesh shape."""
+    variables, batch, _ = setup["mat"]
+    opt = jloop.make_optimizer()
+    v = jax.tree_util.tree_map(jnp.asarray, variables)
+    jmesh = jmake_mesh(("spatial", "data"), (2, 2),
+                       devices=jax.devices()[:4])
+    _, jm = jloop.make_train_step(JModelConfig(), opt, mesh=jmesh)(
+        jloop.TrainState(variables=v, opt_state=opt.init(v["params"])),
+        *(jnp.asarray(x) for x in batch))
+    step = tloop.make_train_step(ModelConfig(), mesh=_cpu_mesh(
+        ("spatial", "data"), (2, 2)))
+    opt_t = optim.make_optimizer()
+    _, tm = step(tloop.TrainState(variables=variables, opt_state=opt_t.init(
+        variables["params"])), *batch)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=2e-5)
+
+
 def test_width_sharded_inference_matches_unsharded():
     """``apply_sharded`` over 8 'spatial' positions at 64x256 against the
     unsharded forward, from a zero state and then from its own state."""
@@ -172,9 +196,10 @@ def test_sharded_training_forward_backward_exact_in_float64(monkeypatch):
     def run(sharded):
         net.zero_grad()
         if sharded:
-            a, f, _ = sharded_forward(net, lay, lay.split(
-                frame, 0, 2, lay.frame_bounds(128, 2)))
-            a, f = lay.join(a, 0, 2), lay.join(f, 0, 2)
+            fb = lay.frame_bounds(128, 2)
+            a, f, _ = sharded_forward(net, lay, lay.split(frame, 0, 2, fb),
+                                      128)
+            a, f = lay.join(a, 0, 2, fb), lay.join(f, 0, 2, fb)
         else:
             a, f, _ = net(frame)
         ((a * wa).sum() + (f * wf).sum()).backward()
@@ -216,8 +241,16 @@ def test_preconditions_raise(case):
                 optim.clip_by_global_norm(1.0), optim.adam(1e-4)).init(
                 v["params"])), *batch)
     else:
+        # No longer a precondition: a group's 'spatial' positions may lie
+        # in several processes. This process holds position 0 of the one
+        # group, whose positions are in processes 0 and 1.
         devs = np.empty((1, 2), dtype=object)
         devs[0, 0] = torch.device("cpu")
         mesh = Mesh(devs, ("data", "spatial"), [[0, 1]], 0)
-        with pytest.raises(ValueError, match="one process"):
-            tloop.make_train_step(cfg, mesh=mesh)
+        lay = Layout(mesh)
+        assert lay.nproc == 2
+        assert lay.rows == [0] and lay.devices == [[torch.device("cpu"),
+                                                    None]]
+        assert lay.local_keys() == [(0, 0)]
+        assert sorted(set(lay.pids[0].tolist())) == [0, 1]
+        tloop.make_train_step(cfg, mesh=mesh)

@@ -1,15 +1,18 @@
 """Collectives over the positions of a mesh that autograd follows (what
 XLA inserts into the JAX package's sharded programs: the psum of the
 gradients and of BatchNorm's batch statistics, the gather of the
-outputs).
+outputs, the halo exchanges of a width split across hosts).
 
 A process holds its positions' parts as a list of tensors, one a
 position. In the process, a collective is device copies (``.to``) and a
 sum or a concatenation, which autograd follows as it follows any op. In
 a job of several processes (``mesh.initialize_distributed``) the
-process's result then goes through ``torch.distributed`` (gloo for CPU
-tensors, NCCL for CUDA ones), with a collective in the forward and, where
-the gradient needs one, in the backward, as SyncBatchNorm does.
+process's result then goes through ``torch.distributed``, with a
+collective in the forward and, where the gradient needs one, in the
+backward, as SyncBatchNorm does. ``initialize_distributed`` carries CPU
+tensors over gloo and CUDA tensors over NCCL; in a job whose group has
+no NCCL backend (gloo alone, e.g. two processes on one card, which NCCL
+refuses) CUDA tensors go through the host (``_wire``).
 
 Both collectives assume what a sharded step is: each process runs the
 same program on its own rows, and the loss is computed alike on every
@@ -18,11 +21,36 @@ process from the gathered outputs (it is replicated).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import torch
 
 from vidmat_torch.parallel.mesh import process_count_and_index
+
+
+@functools.lru_cache(maxsize=None)
+def _nccl() -> bool:
+    """Whether the job's group carries CUDA tensors over NCCL."""
+    import torch.distributed as dist
+
+    return "nccl" in str(dist.get_backend_config()).lower()
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """x as the job's group carries it: a contiguous copy, on the host
+    where x is a CUDA tensor and the group has no NCCL backend."""
+    if x.device.type == "cuda" and not _nccl():
+        return x.detach().to("cpu", copy=True)
+    return x.detach().contiguous().clone()
+
+
+def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+    import torch.distributed as dist
+
+    y = _wire(x)
+    dist.all_reduce(y)
+    return y.to(x.device)
 
 
 class _AllReduce(torch.autograd.Function):
@@ -32,42 +60,11 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        import torch.distributed as dist
-
-        y = x.clone()
-        dist.all_reduce(y)
-        return y
+        return _all_reduce(x)
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
-
-
-class _AllGather(torch.autograd.Function):
-    """The processes' equal-sized parts concatenated along ``dim`` in
-    process order. The loss is replicated, so every process holds the
-    whole gradient of the result: the backward returns this process's
-    slice of it. (A backward that reduce-scatters, as
-    ``torch.distributed.nn.functional.all_gather`` does, would multiply
-    the gradient by the number of processes.)"""
-
-    @staticmethod
-    def forward(ctx, x, dim):
-        import torch.distributed as dist
-
-        nproc, rank = process_count_and_index()
-        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
-        parts = [torch.empty_like(x) for _ in range(nproc)]
-        dist.all_gather(parts, x.contiguous())
-        return torch.cat(parts, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None
+        return _all_reduce(g)
 
 
 def psum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
@@ -84,17 +81,26 @@ def psum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
     return total
 
 
-def gather(parts: Sequence[torch.Tensor], dim: int,
-           device) -> torch.Tensor:
-    """``parts`` (this process's positions' tensors, in position order)
-    concatenated along ``dim`` on ``device``, then the processes' results
-    along ``dim`` in process order (each process must give the same
-    shape). Every process gets the whole tensor."""
-    out = (parts[0].to(device) if len(parts) == 1
-           else torch.cat([p.to(device) for p in parts], dim))
-    if process_count_and_index()[0] > 1:
-        out = _AllGather.apply(out, dim)
-    return out
+def all_gather_flat(x: torch.Tensor, sizes: Sequence[int]
+                    ) -> List[torch.Tensor]:
+    """Every process's 1-d buffer, on x's device (no gradient): this
+    process passes x, of ``sizes[rank]`` elements, and ``sizes`` gives
+    every process's (the same list on every process). The buffers are
+    padded to the largest for one ``all_gather`` and trimmed after; where
+    every size is 0, or in a job of one process, nothing is sent."""
+    import torch.distributed as dist
+
+    n = max(sizes)
+    if n == 0:
+        return [x.new_zeros(0) for _ in sizes]
+    if len(sizes) == 1:
+        return [x.reshape(-1)]
+    wire = _wire(x.reshape(-1))
+    padded = wire.new_zeros(n)
+    padded[:wire.numel()] = wire
+    parts = [torch.empty_like(padded) for _ in sizes]
+    dist.all_gather(parts, padded)
+    return [p[:s].to(x.device) for p, s in zip(parts, sizes)]
 
 
 def sum_over_processes(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -103,10 +109,7 @@ def sum_over_processes(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     gradients. The tensors themselves at one process."""
     if process_count_and_index()[0] == 1:
         return tensors
-    import torch.distributed as dist
-
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    flat = _all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view_as(t))

@@ -4,12 +4,13 @@ partitioning of the JAX package's sharded programs,
 vidmat/train/loop.py:104-121 and tests/unit/test_spatial_sharding.py).
 
 The positions run in lock step, layer by layer: each value of the
-network is a grid of slabs, one a position (this process's data groups
-by the 'spatial' positions), and a layer runs on every slab before the
-next layer starts. At every level of the network each 'spatial' position
+network is a grid of slabs, one a position (the data groups this process
+holds a position of, by the 'spatial' positions; None at another
+process's position), and a layer runs on every slab before the next
+layer starts. At every level of the network each 'spatial' position
 holds an even split of that level's width (``Layout.bounds``: columns
 ``[i * w // S, (i + 1) * w // S)``). A position reads the columns it
-needs from the slabs that hold them (``_cols``):
+needs from the slabs that hold them (``_read``):
 
 - a convolution (``Conv``: the stride-2 encoder convolutions, the GRU's
   gates and candidate, the heads) reads its window and pads zeros outside
@@ -24,8 +25,14 @@ needs from the slabs that hold them (``_cols``):
   once; ``BottleneckGate``'s mean over H and W sums over the 'spatial'
   positions of each data group.
 
-In one process the reads and sums are device copies and tensor ops that
-autograd follows, and the result is deterministic. Positions run on the
+A layer's reads are one autograd node (``_Window``): the pieces of this
+process's slabs are device copies, and where a data group's positions
+lie in several processes (a job of one process a card) the pieces of
+other processes' slabs come through one all-gather of the margins, the
+backward sending their gradients back. The groups' sums go through an
+all-reduce over the job, the outputs' gather through ``_Join``; in one
+process neither communicates, and the result is deterministic.
+Positions run on the
 caller's stream of their device (a cross-device ``.to`` orders itself
 against both devices' current streams); overlapping the positions'
 work is not done yet.
@@ -33,7 +40,7 @@ work is not done yet.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,11 +65,16 @@ class Layout:
     package's spec would name 'spatial' twice, which it rejects); the
     width axis is 'spatial' where the mesh has it. Axes of other names
     replicate: the step runs on their index 0, whose result the other
-    replicas would repeat. ``rows``: this process's data groups (a
-    contiguous block, as many in every process; each group's 'spatial'
-    positions in one process); ``devices``: their positions' devices,
-    rows by S; ``device``: the first of them, where the gathered outputs,
-    the loss and the parameters live."""
+    replicas would repeat.
+
+    A process may hold any of the positions, and a data group's 'spatial'
+    positions may lie in several processes (e.g. a job of one process a
+    card). ``pids``: the process of each position, D by S;
+    ``rows``: the data groups this process holds a position of, in
+    order; ``devices``: those groups' positions, rows by S, this
+    process's devices and None at other processes' positions;
+    ``device``: the first of this process's devices, where the gathered
+    outputs, the loss and the parameters live."""
 
     def __init__(self, mesh):
         axes = mesh.axis_names
@@ -81,20 +93,24 @@ class Layout:
             devs, pids = devs.T, pids.T
         self.d, self.s = devs.shape
         self.nproc = mesh.process_count
-        if any(len(set(row)) > 1 for row in pids.tolist()):
+        self.rank = mesh.process_index
+        self.pids = np.asarray(pids, int)
+        mine = self.pids == self.rank
+        self.rows = [int(g) for g in np.flatnonzero(mine.any(axis=1))]
+        if not self.rows:
             raise ValueError(
-                "each 'spatial' group must lie in one process: halos across "
-                f"processes are not ported (mesh {dict(mesh.shape)})")
-        owner = pids[:, 0]
-        counts = np.bincount(owner, minlength=self.nproc)
-        if np.any(np.diff(owner) < 0) or len(set(counts.tolist())) > 1:
-            raise ValueError(
-                "every process must hold an equal, contiguous block of the "
-                f"data groups; their processes are {owner.tolist()}")
-        self.rows = [int(r) for r in np.flatnonzero(
-            owner == mesh.process_index)]
-        self.devices = [list(devs[r]) for r in self.rows]
-        self.device = self.devices[0][0]
+                f"process {self.rank} holds no position of the sharded "
+                f"step (index 0 of the mesh's other axes; mesh "
+                f"{dict(mesh.shape)})")
+        self.devices = [[devs[g, i] if mine[g, i] else None
+                         for i in range(self.s)] for g in self.rows]
+        self.device = next(d for d in self.devices[0] if d is not None)
+
+    def local_keys(self) -> List[Tuple[int, int]]:
+        """(data group, 'spatial' index) of this process's positions, in
+        grid order (groups, then positions)."""
+        return [(g, i) for g, drow in zip(self.rows, self.devices)
+                for i, dev in enumerate(drow) if dev is not None]
 
     def bounds(self, w: int) -> List[int]:
         """The columns of a level of width w that each 'spatial' position
@@ -119,28 +135,41 @@ class Layout:
 
     def split(self, x: torch.Tensor, n_axis: int, w_axis: int,
               bounds: List[int]) -> Grid:
-        """This process's rows of x split into its data groups along
-        ``n_axis`` and by ``bounds`` along ``w_axis``, each slab on its
-        position's device."""
+        """This process's slabs of x: x holds the whole rows (every
+        column) of the data groups in ``rows``, in order; each group's
+        rows are split by ``bounds`` along ``w_axis`` and this process's
+        positions keep theirs, on their devices (None at other
+        processes' positions)."""
         k = len(self.rows)
         if x.shape[n_axis] % k:
             raise ValueError(
-                f"the batch's {x.shape[n_axis] * self.nproc} rows do not "
+                f"the batch's {x.shape[n_axis] * self.d // k} rows do not "
                 f"split evenly over the 'data' size {self.d}")
         per = x.shape[n_axis] // k
-        return [[x.narrow(n_axis, r * per, per).narrow(
-                    w_axis, bounds[i], bounds[i + 1] - bounds[i]).to(dev)
+        return [[None if dev is None
+                 else x.narrow(n_axis, r * per, per).narrow(
+                     w_axis, bounds[i], bounds[i + 1] - bounds[i]).to(dev)
                  for i, dev in enumerate(drow)]
                 for r, drow in enumerate(self.devices)]
 
-    def join(self, grid: Grid, n_axis: int, w_axis: int) -> torch.Tensor:
+    def join(self, grid: Grid, n_axis: int, w_axis: int,
+             bounds: List[int]) -> torch.Tensor:
         """The whole tensor of a grid on ``device``: the slabs of each
-        data group along ``w_axis``, the groups along ``n_axis``, then the
-        processes' rows (every process gets it all)."""
-        rows = [row[0].to(self.device) if len(row) == 1
-                else torch.cat([t.to(self.device) for t in row], w_axis)
-                for row in grid]
-        return collectives.gather(rows, n_axis, self.device)
+        data group along ``w_axis`` (split at ``bounds``), the groups
+        along ``n_axis``. Every process gets it all."""
+        local = [t for row in grid for t in row if t is not None]
+        return _Join.apply(self, n_axis, w_axis, tuple(bounds), *local)
+
+    def whole(self, x: torch.Tensor, n_axis: int,
+              w_axis: int) -> torch.Tensor:
+        """Every data group's rows of x (the whole batch, on ``device``)
+        from this process's (``split``'s contract): x itself in a job of
+        one process."""
+        if self.nproc == 1:
+            return x
+        b = self.bounds(x.shape[w_axis])
+        return self.join(self.split(x, n_axis, w_axis, b), n_axis, w_axis,
+                         b)
 
     def zero_state(self, cfg, n: int, h: int, w: int,
                    dtype=torch.float32) -> List[List[RecurrentState]]:
@@ -153,77 +182,221 @@ class Layout:
             return torch.zeros((n, h // (div * s), b[i + 1] - b[i], c),
                                dtype=dtype, device=dev)
 
-        return [[RecurrentState(z(8, d[0] // 2, i, dev),
+        return [[None if dev is None else
+                 RecurrentState(z(8, d[0] // 2, i, dev),
                                 z(4, d[1] // 2, i, dev),
                                 z(2, d[2] // 2, i, dev))
                  for i, dev in enumerate(drow)] for drow in self.devices]
 
 
+class _Join(torch.autograd.Function):
+    """``Layout.join``: this process's slabs packed into one buffer,
+    every process's gathered (``all_gather_flat``; in one process its
+    own), the whole tensor assembled from them. The loss is replicated,
+    so every process holds the whole gradient of the result: the backward
+    returns this process's slabs' parts of it."""
+
+    @staticmethod
+    def forward(ctx, lay, n_axis, w_axis, bounds, *local):
+        t0 = local[0]
+        col = t0.numel() // t0.shape[w_axis]
+        widths = [bounds[i + 1] - bounds[i] for i in range(lay.s)]
+        sizes = [0] * lay.nproc
+        for g in range(lay.d):
+            for i in range(lay.s):
+                sizes[lay.pids[g, i]] += col * widths[i]
+        bufs = collectives.all_gather_flat(torch.cat(
+            [t.to(lay.device).reshape(-1) for t in local]), sizes)
+        at = [0] * lay.nproc
+        rows = []
+        for g in range(lay.d):
+            row = []
+            for i in range(lay.s):
+                p, n = lay.pids[g, i], col * widths[i]
+                shape = list(t0.shape)
+                shape[w_axis] = widths[i]
+                row.append(bufs[p][at[p]:at[p] + n].view(shape))
+                at[p] += n
+            rows.append(torch.cat(row, w_axis))
+        ctx.lay, ctx.n_axis, ctx.w_axis, ctx.bounds = (lay, n_axis, w_axis,
+                                                       bounds)
+        ctx.per = t0.shape[n_axis]
+        ctx.devices = [t.device for t in local]
+        return torch.cat(rows, n_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        b, per = ctx.bounds, ctx.per
+        grads = [grad.narrow(ctx.n_axis, g * per, per).narrow(
+                     ctx.w_axis, b[i], b[i + 1] - b[i]).to(dev)
+                 for (g, i), dev in zip(ctx.lay.local_keys(), ctx.devices)]
+        return (None, None, None, None, *grads)
+
+
 def _each(fn, *grids) -> Grid:
-    return [[fn(*slabs) for slabs in zip(*rows)] for rows in zip(*grids)]
+    return [[None if slabs[0] is None else fn(*slabs)
+             for slabs in zip(*rows)] for rows in zip(*grids)]
 
 
-def _cols(row, bounds, lo: int, hi: int, dev) -> torch.Tensor:
-    """Columns [lo, hi) (within the level) of a width-sharded row of
-    slabs, on ``dev``: the pieces of the slabs that hold them, in
-    order."""
-    pieces = []
-    for j, t in enumerate(row):
+def _overlaps(bounds, lo: int, hi: int):
+    """(j, a, b): the columns [a, b) of [lo, hi) that position j holds."""
+    for j in range(len(bounds) - 1):
         a, b = max(lo, bounds[j]), min(hi, bounds[j + 1])
         if a < b:
-            pieces.append(t[..., a - bounds[j]:b - bounds[j]].to(dev))
-    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=3)
+            yield j, a, b
 
 
-def _conv(conv, grid: Grid, b_in, b_out, devs) -> Grid:
+class _Window(torch.autograd.Function):
+    """The columns ``needs[i]`` of a level, for each of this process's
+    positions i: the pieces of this process's slabs copied, those of
+    other processes' slabs sent through one ``all_gather_flat`` of every
+    process's outgoing pieces (margins of a few columns). The backward
+    sends the gradients of the received pieces back the same way, and
+    each owner adds them to its slabs' gradients. The node returns every
+    local window, so its backward runs on every process, and every
+    process enters both in the same layer order (the lock step; one
+    device thread a process runs its backward in the reverse of that
+    order)."""
+
+    @staticmethod
+    def forward(ctx, lay, bounds, needs, *local):
+        keys = lay.local_keys()
+        slabs = dict(zip(keys, local))
+        t0 = local[0]
+        head, col = tuple(t0.shape[:-1]), t0.numel() // t0.shape[-1]
+        pids, me = lay.pids, lay.rank
+        plan = [(g, i, j, a, b) for g in range(lay.d) for i in range(lay.s)
+                for j, a, b in _overlaps(bounds, *needs[i])
+                if pids[g, i] != pids[g, j]]
+        sizes = [0] * lay.nproc
+        for g, i, j, a, b in plan:
+            sizes[pids[g, j]] += col * (b - a)
+        out_pieces = [slabs[g, j][..., a - bounds[j]:b - bounds[j]].to(
+            lay.device).reshape(-1) for g, i, j, a, b in plan
+            if pids[g, j] == me]
+        bufs = collectives.all_gather_flat(
+            torch.cat(out_pieces) if out_pieces
+            else t0.new_zeros(0, device=lay.device), sizes)
+        remote, at = {}, [0] * lay.nproc
+        for g, i, j, a, b in plan:
+            p, n = pids[g, j], col * (b - a)
+            if pids[g, i] == me:
+                remote[g, i, j] = bufs[p][at[p]:at[p] + n].view(*head, b - a)
+            at[p] += n
+        wins = []
+        for (g, i), t in zip(keys, local):
+            wins.append(torch.cat([
+                (slabs[g, j][..., a - bounds[j]:b - bounds[j]]
+                 if pids[g, j] == me else remote[g, i, j]).to(t.device)
+                for j, a, b in _overlaps(bounds, *needs[i])], dim=-1))
+        ctx.lay, ctx.bounds, ctx.needs, ctx.plan = lay, bounds, needs, plan
+        ctx.head, ctx.col = head, col
+        ctx.meta = [(t.device, t.dtype) for t in local]
+        return tuple(wins)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        lay, bounds, needs, head = ctx.lay, ctx.bounds, ctx.needs, ctx.head
+        pids, me = lay.pids, lay.rank
+        keys = lay.local_keys()
+        meta = dict(zip(keys, ctx.meta))
+        out = {}
+
+        def add(g, j, a, b, piece):
+            if (g, j) not in out:
+                dev, dtype = meta[g, j]
+                out[g, j] = torch.zeros(
+                    (*head, bounds[j + 1] - bounds[j]), dtype=dtype,
+                    device=dev)
+            out[g, j][..., a - bounds[j]:b - bounds[j]] += piece.to(
+                out[g, j].device)
+
+        back = {}
+        for (g, i), gw in zip(keys, grads):
+            at = 0
+            for j, a, b in _overlaps(bounds, *needs[i]):
+                piece = gw[..., at:at + b - a]
+                at += b - a
+                if pids[g, j] == me:
+                    add(g, j, a, b, piece)
+                else:
+                    back[g, i, j] = piece
+        sizes = [0] * lay.nproc
+        for g, i, j, a, b in ctx.plan:
+            sizes[pids[g, i]] += ctx.col * (b - a)
+        sent = [back[g, i, j].to(lay.device).reshape(-1)
+                for g, i, j, a, b in ctx.plan if pids[g, i] == me]
+        dev0, dtype0 = ctx.meta[0]
+        bufs = collectives.all_gather_flat(
+            torch.cat(sent) if sent
+            else torch.zeros(0, dtype=dtype0, device=lay.device), sizes)
+        at = [0] * lay.nproc
+        for g, i, j, a, b in ctx.plan:
+            p, n = pids[g, i], ctx.col * (b - a)
+            if pids[g, j] == me:
+                add(g, j, a, b, bufs[p][at[p]:at[p] + n].view(*head, b - a))
+            at[p] += n
+        return (None, None, None, *(out.get(k) for k in keys))
+
+
+def _read(lay: Layout, grid: Grid, bounds, needs) -> Grid:
+    """Each of this process's positions' columns [lo, hi) = needs[i] of a
+    width-sharded level, on its device (``_Window``)."""
+    local = [t for row in grid for t in row if t is not None]
+    wins = iter(_Window.apply(lay, tuple(bounds), tuple(needs), *local))
+    return [[None if dev is None else next(wins) for dev in drow]
+            for drow in lay.devices]
+
+
+def _conv(conv, grid: Grid, b_in, b_out, lay: Layout) -> Grid:
     """``Conv`` (k x k, its stride, padding k // 2): each position reads
     its window, zeros outside the frame."""
     k, st, p = conv.weight.shape[-1], conv.stride, conv.padding
     w_in = b_in[-1]
-    out = []
-    for row, drow in zip(grid, devs):
-        r = []
-        for i, dev in enumerate(drow):
-            lo, hi = b_out[i] * st - p, (b_out[i + 1] - 1) * st - p + k
-            x = _cols(row, b_in, max(lo, 0), min(hi, w_in), dev)
-            if lo < 0 or hi > w_in:
-                x = F.pad(x, (max(0, -lo), max(0, hi - w_in)))
-            bias = (None if conv.bias is None
-                    else conv.bias.to(dev, x.dtype))
-            r.append(F.conv2d(x, conv.weight.to(dev, x.dtype), bias, st,
-                              (p, 0)))
-        out.append(r)
-    return out
+    spans = [(b_out[i] * st - p, (b_out[i + 1] - 1) * st - p + k)
+             for i in range(lay.s)]
+    wins = _read(lay, grid, b_in, [(max(lo, 0), min(hi, w_in))
+                                   for lo, hi in spans])
+
+    def one(x, i):
+        lo, hi = spans[i]
+        if lo < 0 or hi > w_in:
+            x = F.pad(x, (max(0, -lo), max(0, hi - w_in)))
+        bias = None if conv.bias is None else conv.bias.to(x.device,
+                                                           x.dtype)
+        return F.conv2d(x, conv.weight.to(x.device, x.dtype), bias, st,
+                        (p, 0))
+
+    return [[None if x is None else one(x, i) for i, x in enumerate(row)]
+            for row in wins]
 
 
-def _upsample(grid: Grid, b_in, b_out, devs) -> Grid:
+def _upsample(grid: Grid, b_in, b_out, lay: Layout) -> Grid:
     """``upsample2x``: each position reads one column of margin beyond
     what it samples (none past the frame's edges, where the unsharded
     resize clamps) and keeps its own columns."""
     w_in = b_in[-1]
-    out = []
-    for row, drow in zip(grid, devs):
-        r = []
-        for i, dev in enumerate(drow):
-            a, b = b_out[i], b_out[i + 1]
-            lo, hi = max(0, a // 2 - 1), min(w_in, (b - 1) // 2 + 2)
-            r.append(upsample2x(_cols(row, b_in, lo, hi, dev))[
-                ..., a - 2 * lo:b - 2 * lo])
-        out.append(r)
-    return out
+    needs = [(max(0, b_out[i] // 2 - 1), min(w_in, (b_out[i + 1] - 1) // 2
+                                              + 2)) for i in range(lay.s)]
+    wins = _read(lay, grid, b_in, needs)
+    return [[None if x is None else upsample2x(x)[
+                ..., b_out[i] - 2 * needs[i][0]:b_out[i + 1] - 2 * needs[i][0]]
+             for i, x in enumerate(row)] for row in wins]
 
 
 def _bn(bn, grid: Grid, lay: Layout) -> Grid:
     """BatchNorm; in training with the statistics of every position's
-    slab (float64 moments and count summed over the job)."""
+    slab (float64 moments and count summed over the job: each slab lives
+    in one process and counts once)."""
     if not bn.bn_train:
         return _each(lambda x: bn.normalize(x, bn.running_mean,
                                             bn.running_var), grid)
-    c = grid[0][0].shape[1]
+    local = [x for row in grid for x in row if x is not None]
+    c = local[0].shape[1]
     parts = [torch.cat([batch_moments(x).reshape(-1),
                         x.new_full((1,), x.numel() // c,
                                    dtype=torch.float64)])
-             for row in grid for x in row]
+             for x in local]
     total = collectives.psum(parts, lay.device)
     mean, var = bn.batch_stats(total[:-1].view(2, c), total[-1])
     return _each(lambda x: bn.normalize(x, mean, var), grid)
@@ -231,7 +404,7 @@ def _bn(bn, grid: Grid, lay: Layout) -> Grid:
 
 def _cba(m, grid: Grid, b_in, b_out, lay: Layout) -> Grid:
     """``ConvBNAct``."""
-    x = _conv(m.conv, grid, b_in, b_out, lay.devices)
+    x = _conv(m.conv, grid, b_in, b_out, lay)
     if m.bn is not None:
         x = _bn(m.bn, x, lay)
     return _each(F.relu, x) if m.act else x
@@ -239,41 +412,49 @@ def _cba(m, grid: Grid, b_in, b_out, lay: Layout) -> Grid:
 
 def _gate(g, grid: Grid, b, lay: Layout) -> Grid:
     """``BottleneckGate``: the projection, gated by the sigmoid of a 1x1
-    conv of each sample's mean over H and the whole width."""
+    conv of each sample's mean over H and the whole width: the sum over
+    each data group's 'spatial' positions, every group's partial sums in
+    one sum over the job (zeros at the groups a process does not
+    hold)."""
     a = _cba(g.proj, grid, b, b, lay)
+    sums = [sum(x.sum(dim=(2, 3), keepdim=True).to(lay.device)
+                for x in row if x is not None) for row in grid]
+    parts = [torch.zeros_like(sums[0])] * lay.d
+    for r, t in zip(lay.rows, sums):
+        parts[r] = t
+    total = collectives.psum([torch.stack(parts)], lay.device)
+    h = next(x for x in grid[0] if x is not None).shape[2]
     out = []
-    for row, arow, drow in zip(grid, a, lay.devices):
-        dev = drow[0]
-        total = sum(x.sum(dim=(2, 3), keepdim=True).to(dev) for x in row)
-        mean = total / (row[0].shape[2] * b[-1])
-        bias = None if g.gate.bias is None else g.gate.bias.to(dev,
+    for r, arow in zip(lay.rows, a):
+        mean = total[r] / (h * b[-1])
+        bias = None if g.gate.bias is None else g.gate.bias.to(lay.device,
                                                                mean.dtype)
-        gate = torch.sigmoid(F.conv2d(mean, g.gate.weight.to(dev,
-                                                             mean.dtype),
-                                      bias))
-        out.append([x * gate.to(x.device) for x in arow])
+        gate = torch.sigmoid(F.conv2d(
+            mean, g.gate.weight.to(lay.device, mean.dtype), bias))
+        out.append([None if x is None else x * gate.to(x.device)
+                    for x in arow])
     return out
 
 
-def _gru(cell, x: Grid, h: Grid, b, devs) -> Grid:
+def _gru(cell, x: Grid, h: Grid, b, lay: Layout) -> Grid:
     """``ConvGRUCell``."""
     f = cell.features
     h = _each(lambda h, x: h.to(x.dtype), h, x)
     rz = _each(torch.sigmoid, _conv(
         cell.gates, _each(lambda x, h: torch.cat([x, h], dim=1), x, h), b,
-        b, devs))
+        b, lay))
     r = _each(lambda t: t[:, :f], rz)
     z = _each(lambda t: t[:, f:], rz)
     c = _each(torch.tanh, _conv(
         cell.cand, _each(lambda x, r, h: torch.cat([x, r * h], dim=1),
-                         x, r, h), b, b, devs))
+                         x, r, h), b, b, lay))
     return _each(lambda z, h, c: (1.0 - z) * h + z * c, z, h, c)
 
 
 def _stage(st, x: Grid, skip: Grid, h: Optional[Grid], b_lo, b_hi,
            lay: Layout):
     """``DecoderStage``."""
-    up = _upsample(x, b_lo, b_hi, lay.devices)
+    up = _upsample(x, b_lo, b_hi, lay)
     x = _cba(st.conv, _each(lambda u, s: torch.cat([u, s], dim=1), up,
                             skip), b_hi, b_hi, lay)
     if not st.recurrent:
@@ -283,23 +464,22 @@ def _stage(st, x: Grid, skip: Grid, h: Optional[Grid], b_lo, b_hi,
     g = _each(lambda t: t[:, half:], x)
     if h is None:
         h = _each(torch.zeros_like, g)
-    h_new = _gru(st.gru, g, h, b_hi, lay.devices)
+    h_new = _gru(st.gru, g, h, b_hi, lay)
     return _each(lambda a, h: torch.cat([a, h], dim=1), a, h_new), h_new
 
 
-def sharded_forward(net, lay: Layout, frames: Grid, states=None,
-                    seg_pass: bool = False):
+def sharded_forward(net, lay: Layout, frames: Grid, width: int,
+                    states=None, seg_pass: bool = False):
     """``MattingNetwork.forward`` over a grid of slabs.
 
     frames: this process's (n, H, w_i, C) NHWC slabs (``Layout.split``
-    at ``frame_bounds``); states: a grid of ``RecurrentState`` slabs or
-    None. Returns grids of alpha and fgr (or the seg logits and None)
-    slabs and of the new state's slabs, as the unsharded forward returns
-    the whole tensors."""
+    at ``frame_bounds``) of frames ``width`` wide; states: a grid of
+    ``RecurrentState`` slabs or None. Returns grids of alpha and fgr (or
+    the seg logits and None) slabs and of the new state's slabs, as the
+    unsharded forward returns the whole tensors."""
     cfg = net.cfg
     s = cfg.space_to_depth
-    widths = [sum(t.shape[2] for t in frames[0]) // (s << lv)
-              for lv in range(5)]
+    widths = [width // (s << lv) for lv in range(5)]
     b = [lay.bounds(w) for w in widths]
     x = _each(lambda f: f.permute(0, 3, 1, 2), frames)
     rgb = _each(lambda t: t[:, :3], x)
@@ -323,7 +503,7 @@ def sharded_forward(net, lay: Layout, frames: Grid, states=None,
     y, n1 = _stage(net.d1, y, f1, h1, b[2], b[1], lay)
 
     cond = x_in if s > 1 else rgb
-    up = _upsample(y, b[1], b[0], lay.devices)
+    up = _upsample(y, b[1], b[0], lay)
     y = _cba(net.d0, _each(lambda u, c: torch.cat([u, c.to(u.dtype)], dim=1),
                            up, cond), b[0], b[0], lay)
 
@@ -335,12 +515,12 @@ def sharded_forward(net, lay: Layout, frames: Grid, states=None,
         if net.seg_head is None:
             raise ValueError("the segmentation pass needs a co-trained "
                              "network (a seg_head in its variables)")
-        seg = _conv(net.seg_head, y, b[0], b[0], lay.devices)
+        seg = _conv(net.seg_head, y, b[0], b[0], lay)
         if s > 1:
             seg = _each(lambda t: depth_to_space(t, s), seg)
         return (_each(lambda t: t.float().permute(0, 2, 3, 1), seg), None,
                 new_state)
-    out = _conv(net.head, y, b[0], b[0], lay.devices)
+    out = _conv(net.head, y, b[0], b[0], lay)
     if s > 1:
         out = _each(lambda t: depth_to_space(t, s), out)
     pairs = _each(lambda o, x, c: net.alpha_fgr(o.float(), x, c), out, x,
@@ -359,8 +539,10 @@ class ShardedNetwork(nn.Module):
         self.net = net
         self.lay = lay
 
-    def forward(self, frames: Grid, states=None, seg_pass: bool = False):
-        return sharded_forward(self.net, self.lay, frames, states, seg_pass)
+    def forward(self, frames: Grid, width: int, states=None,
+                seg_pass: bool = False):
+        return sharded_forward(self.net, self.lay, frames, width, states,
+                               seg_pass)
 
 
 def apply_sharded(net, mesh, frame: torch.Tensor,
@@ -369,19 +551,23 @@ def apply_sharded(net, mesh, frame: torch.Tensor,
     """``net(frame, state)`` (a ``MattingNetwork``) sharded over ``mesh``:
     the frames' batch over 'data', their width over 'spatial' (the
     counterpart of ``jax.jit(net.apply, in_shardings=...)``). Takes and
-    returns whole NHWC tensors (this process's rows in, every process's
-    out), on the mesh's first position."""
+    returns whole NHWC tensors, on this process's first position: in,
+    the whole rows of the data groups this process holds a position of
+    (``Layout.split``; in one process, the batch); out, every group's."""
     lay = Layout(mesh)
     s = net.cfg.space_to_depth
     w = frame.shape[2]
-    frames = lay.split(frame, 0, 2, lay.frame_bounds(w, s))
+    fb = lay.frame_bounds(w, s)
+    frames = lay.split(frame, 0, 2, fb)
+    level = {div: lay.bounds(w // (div * s)) for div in (8, 4, 2)}
     states = None
     if state is not None:
-        parts = [lay.split(t, 0, 2, lay.bounds(w // (div * s)))
+        parts = [lay.split(t, 0, 2, level[div])
                  for t, div in zip(state, (8, 4, 2))]
         states = _each(lambda *t: RecurrentState(*t), *parts)
-    alpha, fgr, new = sharded_forward(net, lay, frames, states, seg_pass)
+    alpha, fgr, new = sharded_forward(net, lay, frames, w, states, seg_pass)
     new_state = (None if new is None else RecurrentState(
-        *(lay.join(_each(lambda st: st[k], new), 0, 2) for k in range(3))))
-    return (lay.join(alpha, 0, 2),
-            None if fgr is None else lay.join(fgr, 0, 2), new_state)
+        *(lay.join(_each(lambda st: st[k], new), 0, 2, level[div])
+          for k, div in enumerate((8, 4, 2)))))
+    return (lay.join(alpha, 0, 2, fb),
+            None if fgr is None else lay.join(fgr, 0, 2, fb), new_state)

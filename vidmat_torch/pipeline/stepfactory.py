@@ -13,7 +13,9 @@ The body maps one frame batch through the serving chain:
                     composite + RGBA pack (CUDA kernel)
      fused float    the same pool, float output or raw foreground: GF
                     coefficients and fused_refine_float (CUDA kernel)
-     unfused        full resolution (no refinement), bilinear upsample
+     unfused        full resolution (no refinement; with
+                    ``refine_at_full`` the guided filter at the frame's
+                    grid, the GF kernel's coefficients), bilinear upsample
                     (refine "none"), guided refinement at a ratio that
                     is not an integer pool (``guided_upsample``: the GF
                     kernel, bilinear upsample, apply), or tiled guided
@@ -173,6 +175,7 @@ def build_serving_body(
     use_pallas: Optional[bool] = None,
     kernels: bool = True,
     refiner: Optional[torch.nn.Module] = None,
+    refine_at_full: bool = False,
     export: bool = False,
 ) -> Tuple[Callable, ServingPlan]:
     """Build the serving body for a static (h, w, ratio) bucket.
@@ -225,6 +228,10 @@ def build_serving_body(
               the foreground the bilinear one (stepfactory.py:575-578);
               None takes the bilinear tail, as in the JAX package. Its
               convolutions run in full float32 in every body.
+    refine_at_full: where the network runs at full resolution, guided
+              refinement still runs (refine.mode "guided"): edge-aware
+              smoothing with the frame as the guide, ``guided_upsample``
+              at the frame's own grid (stepfactory.py:582-585).
     export:   the body is to be traced by ``torch.export`` (``deploy.py``):
               the static-skip branch is a ``torch.cond`` on the device
               and the skip count a tensor (the live body takes the branch
@@ -540,6 +547,10 @@ def build_serving_body(
         elif not full:
             alpha = resize_bilinear(alpha, h, w)
             fgr = resize_bilinear(fgr, h, w)
+        elif refine_at_full and refine.mode == "guided":
+            alpha, fgr = guided_upsample(rgb_full(frame), alpha, fgr,
+                                         refine.guided_radius,
+                                         refine.guided_eps, kernels=kernels)
         return finish_float(alpha, fgr, bgv), new_state
 
     def static_out(frame_u8, x, ma, mb, bgv):

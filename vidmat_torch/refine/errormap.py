@@ -37,15 +37,17 @@ from vidmat_torch.ops.resize import resize_bilinear
 
 
 class ErrorHead(nn.Module):
-    """Per-pixel refinement need from (rgb_lr, alpha_lr): ConvBNAct(4 -> 16),
-    a 3x3 conv to 1, ReLU. NCHW."""
+    """Per-pixel refinement need from (rgb_lr, alpha_lr): their
+    concatenation, ConvBNAct(4 -> 16), a 3x3 conv to 1, ReLU. NCHW."""
 
     def __init__(self):
         super().__init__()
         self.c1 = ConvBNAct(4, 16)
         self.c2 = Conv(16, 1, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, rgb_lr: torch.Tensor,
+                alpha_lr: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([rgb_lr, alpha_lr], dim=1)
         return F.relu(self.c2(self.c1(x)))
 
 
@@ -60,8 +62,8 @@ class PatchRefineNet(nn.Module):
         self.c3 = ConvBNAct(features, features)
         self.head = Conv(features, 1, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.c3(self.c2(self.c1(x))))
+    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+        return self.head(self.c3(self.c2(self.c1(patches))))
 
 
 def _feather(p: int, band: int) -> np.ndarray:
@@ -130,8 +132,9 @@ class ErrorMapRefiner(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         n, hf, wf, _ = rgb_full.shape
         p, k = self.patch_size, self.num_patches
-        x = torch.cat([rgb_lr, alpha_lr], dim=-1).permute(0, 3, 1, 2)
-        err = self.error_head(x).permute(0, 2, 3, 1)       # (N, h, w, 1)
+        err = self.error_head(rgb_lr.permute(0, 3, 1, 2),
+                              alpha_lr.permute(0, 3, 1, 2)).permute(
+                                  0, 2, 3, 1)               # (N, h, w, 1)
         alpha_up = resize_bilinear(alpha_lr, hf, wf)
 
         gh, gw = hf // p, wf // p

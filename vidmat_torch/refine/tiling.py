@@ -158,6 +158,17 @@ def untile_frame(tiles: torch.Tensor, layout: TileLayout,
     return torch.cat(rows, dim=1) * inv_norm
 
 
+def tiled_apply(fn, frame: torch.Tensor, tile: int,
+                overlap: int) -> torch.Tensor:
+    """A stateless per-tile function over a frame with overlap blending
+    (vidmat/refine/tiling.py ``tiled_apply``): fn maps (B, tile, tile,
+    Cin) to (B, tile, tile, Cout) and is applied to all the tiles of the
+    (N, H, W, Cin) frame as one batch."""
+    n, h, w, _ = frame.shape
+    layout = TileLayout(h, w, tile, overlap)
+    return untile_frame(fn(tile_frame(frame, layout)), layout, n)
+
+
 def tiled_guided_upsample(frame: torch.Tensor, alpha_lr: torch.Tensor,
                           fgr_lr: torch.Tensor, tile: int, overlap: int,
                           radius: int = 4, eps: float = 1e-4,

@@ -31,7 +31,9 @@ and reach the others through ``.to()``, so autograd sums their
 gradients; across processes the gradients are then summed and every
 process takes the same optimizer step. So the sharded step computes the
 unsharded step's function, as GSPMD keeps it. In a job of several
-processes each process passes its own rows of N.
+processes each process passes the whole rows of the data groups its
+positions belong to (``make_train_step``); a data group's 'spatial'
+positions may lie in several processes.
 """
 
 from __future__ import annotations
@@ -62,6 +64,10 @@ class TrainState:
     variables: Dict[str, Any]  # {'params', 'batch_stats'}
     opt_state: Any
     step: int = 0
+
+    def replace(self, **updates) -> "TrainState":
+        """A copy with ``updates`` (flax.struct's ``replace``)."""
+        return dataclasses.replace(self, **updates)
 
 
 def to_tensor(x, device) -> torch.Tensor:
@@ -127,27 +133,30 @@ def _forward_clip(cfg, net, params, batch_stats, clips, seg_pass, remat,
 def _forward_clip_mesh(cfg, net, params, batch_stats, clips, seg_pass,
                        remat, lay: Layout):
     """``_forward_clip`` over the positions of ``lay``: clips (T, n, H, W,
-    C) are this process's rows; the outputs come back whole (every
-    process's rows) on ``lay.device``."""
+    C) are the whole rows of the data groups this process holds a
+    position of; the outputs come back whole (every group's rows) on
+    ``lay.device``."""
     t, n, h, w, _ = clips.shape
     sharded = ShardedNetwork(net, lay)
     tensors = {f"net.{k}": v for k, v in module_tensors(
         {"params": params, "batch_stats": batch_stats}).items()}
     names = {id(m): name for name, m in net.named_modules()
              if isinstance(m, BatchNorm)}
-    xs = lay.split(clips, 1, 3, lay.frame_bounds(w, cfg.space_to_depth))
+    fb = lay.frame_bounds(w, cfg.space_to_depth)
+    xs = lay.split(clips, 1, 3, fb)
     state = lay.zero_state(cfg, n // len(lay.rows), h, w)
 
     def frame_step(frames, hidden):
         with batch_statistics() as sink:
-            a, f, new = functional_call(sharded, tensors, (frames, hidden),
+            a, f, new = functional_call(sharded, tensors,
+                                        (frames, w, hidden),
                                         {"seg_pass": seg_pass})
         stats = [(names[id(m)], mean, var) for m, mean, var in sink]
         return a, f, new, stats
 
     outs, fgrs, stats = [], [], []
     for i in range(t):
-        frames = [[x[i] for x in row] for row in xs]
+        frames = [[None if x is None else x[i] for x in row] for row in xs]
         if remat:
             a, f, state, st = checkpoint(frame_step, frames, state,
                                          use_reentrant=False)
@@ -158,9 +167,10 @@ def _forward_clip_mesh(cfg, net, params, batch_stats, clips, seg_pass,
         stats.append(st)
 
     def whole(per_frame):
-        grid = [[torch.stack([fr[r][i] for fr in per_frame])
+        grid = [[None if per_frame[0][r][i] is None
+                 else torch.stack([fr[r][i] for fr in per_frame])
                  for i in range(lay.s)] for r in range(len(lay.rows))]
-        return lay.join(grid, 1, 3)
+        return lay.join(grid, 1, 3, fb)
 
     return whole(outs), None if seg_pass else whole(fgrs), stats
 
@@ -260,8 +270,13 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
 
     ``device``: the card by default; with ``mesh=`` (``make_mesh``) the
     step is sharded over its positions (the module docstring), the
-    device is its first position's, and in a job of several processes
-    the arrays are this process's rows of N (the whole batch in one).
+    device is this process's first position's. In a job of several
+    processes each passes the whole rows (every column) of the data
+    groups its positions belong to, in group order, and the step keeps
+    its own positions' columns: on a ('data',) mesh its own rows of N; on
+    a mesh whose 'spatial' groups span processes (one process a card) the
+    rows of each group it holds a position of (with one data group, the
+    whole batch). In one process, the whole batch.
     """
     dev, lay = _step_device(device, mesh)
     optimizer = optimizer or make_optimizer()
@@ -279,9 +294,9 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
             stats0 = state.variables["batch_stats"]
             alphas, fgrs, stats = _forward_clip(
                 cfg, nets(params), params, stats0, clips, False, remat, lay)
-            if lay is not None:  # every process's rows, for the loss
+            if lay is not None:  # every group's rows, for the loss
                 clips, gt_alpha, gt_fgr = (
-                    None if x is None else lay.join([[x]], 1, 3)
+                    None if x is None else lay.whole(x, 1, 3)
                     for x in (clips, gt_alpha, gt_fgr))
             loss, terms = matting_loss(alphas, fgrs, gt_alpha, gt_fgr,
                                        clips,
@@ -327,7 +342,7 @@ def make_seg_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
             segs, _, stats = _forward_clip(cfg, nets(params), params, stats0,
                                            clips, True, remat, lay)
             if lay is not None:
-                gt_mask = lay.join([[gt_mask]], 1, 3)
+                gt_mask = lay.whole(gt_mask, 1, 3)
             loss, terms = segmentation_loss(segs, gt_mask)
             grads = _sum_grads(leaf_grads(loss, params), lay)
             return _finish(state, optimizer, params, grads,
