@@ -23,6 +23,7 @@ from typing import Sequence
 import numpy as np
 
 from vidmat_torch.ops._build import BUILD_DIR, CSRC_DIR
+from vidmat_torch.utils.profiling import spanned
 
 SOURCE = os.path.join(CSRC_DIR, "framestage.cpp")
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp"]
@@ -39,6 +40,7 @@ def library_path() -> str:
 
 
 @functools.lru_cache(maxsize=None)
+@spanned("kernel_load")
 def _lib() -> ctypes.CDLL:
     """The bound library, built on first use; raises with the compiler's
     output when the build fails."""
@@ -71,6 +73,7 @@ def have_native() -> bool:
     return True
 
 
+@spanned("pad")
 def pad_into(frame: np.ndarray, out: np.ndarray, threads: int = 0) -> None:
     """Edge-pad an (H, W, C) uint8 frame, C = 3 or 4 (RGB and a trimap
     byte; any strides with a 1-byte channel step), at the bottom and right
@@ -114,6 +117,7 @@ def pad_stack(frames: Sequence[np.ndarray], out_h: int, out_w: int,
     return out
 
 
+@spanned("unpack")
 def unpack_rgba(packed: np.ndarray, out: np.ndarray = None) -> np.ndarray:
     """(...) uint32 packed RGBA -> an owned (..., 4) uint8 copy, or into
     ``out`` (a C-contiguous (..., 4) uint8 array, returned)."""

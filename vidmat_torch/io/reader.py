@@ -15,6 +15,8 @@ from typing import Iterable, Iterator, Optional, Union
 
 import numpy as np
 
+from vidmat_torch.utils.profiling import annotate
+
 
 def require_cv2(what: str):
     """cv2, imported at the one place that needs it, or a clear error."""
@@ -167,7 +169,8 @@ class FrameSource:
 
     def __iter__(self) -> Iterator[np.ndarray]:
         while True:
-            item = self.q.get()
+            with annotate("source_wait"):
+                item = self.q.get()
             if item is self._END:
                 break
             yield item

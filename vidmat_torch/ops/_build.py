@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from typing import Dict, Iterable, Optional
 
+from vidmat_torch.utils.profiling import annotate
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -113,7 +115,8 @@ def load(name: str) -> ctypes.CDLL:
     """The bound library of one kernel, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build([name])[name])
+        with annotate("kernel_load"):
+            lib = ctypes.CDLL(build([name])[name])
         _LIBS[name] = lib
     return lib
 

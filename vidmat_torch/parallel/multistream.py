@@ -56,6 +56,7 @@ from vidmat_torch.pipeline.graph import ChunkGraph, per_round_chunk
 from vidmat_torch.pipeline.stepfactory import build_serving_body
 from vidmat_torch.pipeline.video import Downloads, Uploads
 from vidmat_torch.utils.metrics import RunMetrics
+from vidmat_torch.utils.profiling import annotate, spanned
 
 
 def reset_streams(state, reset: torch.Tensor):
@@ -105,6 +106,7 @@ class MultiStreamMatting:
     #: graphs are held to)
     capture = True
 
+    @spanned("build")
     def __init__(self, num_streams: int, height: int, width: int,
                  cfg: ModelConfig = ModelConfig(), variables=None,
                  mesh=None,
@@ -234,12 +236,13 @@ class MultiStreamMatting:
         """Send the staged k rounds and run them on every position, then
         fetch every position's outputs; each position's first dispatch
         of a shape is then captured."""
-        outs = []
-        for sh in self._shards:
-            sh.send(k)
-            outs.append(sh.run(k))
-        handles = [sh.download(k, out)
-                   for sh, out in zip(self._shards, outs)]
+        with annotate("enqueue"):
+            outs = []
+            for sh in self._shards:
+                sh.send(k)
+                outs.append(sh.run(k))
+            handles = [sh.download(k, out)
+                       for sh, out in zip(self._shards, outs)]
         if len(self._shards) > 1 and self._packed:
             # Each position unpacks into its streams of one output.
             lead = (self.s,) if k == 1 else (k, self.s)
@@ -465,11 +468,12 @@ class _Shard:
         if io is None:
             o = self.owner
             lead = (self.n,) if k == 1 else (k, self.n)
-            io = self.io[k] = (
-                Uploads(lead + (o.h, o.w, o.in_c), torch.uint8,
-                        self.pos.device),
-                Uploads(lead, torch.uint8, self.pos.device),
-                Downloads(lead[0], self.pos.device))
+            with annotate("build"):
+                io = self.io[k] = (
+                    Uploads(lead + (o.h, o.w, o.in_c), torch.uint8,
+                            self.pos.device),
+                    Uploads(lead, torch.uint8, self.pos.device),
+                    Downloads(lead[0], self.pos.device))
         return io
 
     def stage(self, k: int, rounds, resets) -> None:
@@ -500,8 +504,9 @@ class _Shard:
             if g is not None:
                 out, self.state = g(self.state)
             else:
-                out, self.state = self.bodies[k](up_f.dev, up_r.dev,
-                                                 self.state)
+                with annotate("eager"):
+                    out, self.state = self.bodies[k](up_f.dev, up_r.dev,
+                                                     self.state)
         return out
 
     def run_device(self, k: int, frames: torch.Tensor, reset: torch.Tensor):
@@ -521,12 +526,11 @@ class _Shard:
                 or self.pos.device.type != "cuda"):
             return None
         up_f, up_r, _ = self.staging(k)
-        t0 = time.perf_counter()
-        with self.pos.active():
+        with annotate("capture", timed=True) as span, self.pos.active():
             g = ChunkGraph(self.bodies[k], (up_f.dev, up_r.dev), self.state)
         self.graphs[k] = g
         self.state = g.state
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.capture_ms = span.ms
         return self.capture_ms
 
     def download(self, k: int, out):

@@ -54,7 +54,6 @@ copy the grids between them (PyTorch's peer copy).
 from __future__ import annotations
 
 import contextlib
-import time
 import weakref
 from typing import Iterable, Iterator, Optional, Tuple
 
@@ -67,6 +66,7 @@ from vidmat_torch.models.weights import build_network, default_variables
 from vidmat_torch.parallel.mesh import Mesh, Position
 from vidmat_torch.pipeline.graph import ChunkGraph
 from vidmat_torch.pipeline.stepfactory import build_serving_body
+from vidmat_torch.utils.profiling import annotate
 
 
 class PipelinedStreams:
@@ -468,11 +468,9 @@ class _Row:
         positions."""
         if self.g0 is not None or self.pos0.device.type != "cuda":
             return
-        t0 = time.perf_counter()
-        with self.pos0.active():
+        with annotate("capture", timed=True) as span0, self.pos0.active():
             self.g0 = ChunkGraph(self._body0, self.f0, self.state)
             self.state = self.g0.state
-        t1 = time.perf_counter()
-        with self.pos1.active():
+        with annotate("capture", timed=True) as span1, self.pos1.active():
             self.g1 = ChunkGraph(self._body1, (self.f1, *self.grids), None)
-        self.capture_ms = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        self.capture_ms = (span0.ms, span1.ms)

@@ -35,7 +35,6 @@ against on the card).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,6 +51,7 @@ from vidmat_torch.ops.resize import downsample_ratio_shape
 from vidmat_torch.pipeline.graph import ChunkGraph
 from vidmat_torch.pipeline.stepfactory import build_serving_body
 from vidmat_torch.pipeline.trimap import canon_trimap_u8
+from vidmat_torch.utils.profiling import annotate
 
 
 def pad_to_multiple(x: np.ndarray, m: int = 16) -> Tuple[np.ndarray, int, int]:
@@ -295,16 +295,17 @@ class VideoStepper:
         if self._graph is not None:
             out, self.state = self._graph(self.state)
         else:
-            out, self.state = self._step(x, self.state)
+            with annotate("eager"):
+                out, self.state = self._step(x, self.state)
         return out
 
     def _capture_after_warm_up(self) -> None:
         if (self._graph is None and self.capture
                 and self.device.type == "cuda" and not self._plan.static_skip):
-            t0 = time.perf_counter()
-            self._graph = ChunkGraph(self._step, self._dev, self.state)
+            with annotate("capture", timed=True) as span:
+                self._graph = ChunkGraph(self._step, self._dev, self.state)
             self.state = self._graph.state
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self.capture_ms = span.ms
 
     def _advance(self, x: torch.Tensor):
         """The step on the staged input ``x``, captured after its first

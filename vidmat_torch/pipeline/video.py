@@ -73,6 +73,7 @@ from vidmat_torch.pipeline.stepfactory import (ServingPlan,
 from vidmat_torch.pipeline.trimap import (PreTrimmedTrimaps, canon_trimap_u8,
                                           single_trimap)
 from vidmat_torch.utils.metrics import RunMetrics
+from vidmat_torch.utils.profiling import annotate, spanned
 
 Target = Union[str, Callable[[np.ndarray], None]]
 
@@ -108,6 +109,7 @@ class Uploads:
         self.dev = torch.empty(shape, dtype=dtype, device=device)
         self.i = 0
 
+    @spanned("slot_wait")
     def slot(self) -> torch.Tensor:
         if self.cuda:
             self.events[self.i].synchronize()
@@ -167,6 +169,7 @@ class Downloads:
             self.events[i].record()
         return i, n, is_tuple
 
+    @spanned("d2h_wait")
     def read(self, handle):
         i, n, is_tuple = handle
         if self.cuda:
@@ -266,10 +269,12 @@ class VideoPipeline:
             # Without kernels the JAX package runs the net as plain
             # convolutions (its planar forward needs its kernels).
             net_cfg = dataclasses.replace(net_cfg, conv_impl="xla")
-        self.net = build_network(
-            net_cfg, variables,
-            dtype=torch.bfloat16 if self.cdtype == torch.bfloat16 else None,
-            device=self.device)
+        with annotate("build"):
+            self.net = build_network(
+                net_cfg, variables,
+                dtype=(torch.bfloat16 if self.cdtype == torch.bfloat16
+                       else None),
+                device=self.device)
         self.downsample_ratio = downsample_ratio
         self.bg_color = bg_color
         self.bg_image = bg_image
@@ -285,6 +290,7 @@ class VideoPipeline:
             self._refiner_k = self.pipe_cfg.refine.errormap_patches
             self._refiner_p = self.pipe_cfg.refine.errormap_patch_size
 
+    @spanned("build")
     def _build_step(self, h: int, w: int, ratio: float,
                     need_fgr: bool = False, alpha_only: bool = False
                     ) -> Bucket:
@@ -422,21 +428,22 @@ class VideoPipeline:
                     for name, arr in (("alpha", alpha_u8[i, ..., 0]),
                                       ("fgr", fgr_u8[i]), ("comp", rgba[i])):
                         if name in writers:
-                            writers[name].write(np.array(arr[:fh, :fw]))
+                            with annotate("sink"):
+                                writers[name].write(np.array(arr[:fh, :fw]))
             else:
                 for i in range(out.shape[0]):
                     if b.plan.alpha_only:
-                        writers["alpha"].write(np.array(out[i, :fh, :fw]))
+                        with annotate("sink"):
+                            writers["alpha"].write(np.array(out[i, :fh, :fw]))
                         continue
                     if not writers:
                         continue
                     rgba = unpack_rgba(out[i, :fh, :fw])
-                    if "alpha" in writers:
-                        writers["alpha"].write(rgba[..., 3])
-                    if "fgr" in writers:
-                        writers["fgr"].write(rgba[..., :3])
-                    if "comp" in writers:
-                        writers["comp"].write(rgba)
+                    for name, arr in (("alpha", rgba[..., 3]),
+                                      ("fgr", rgba[..., :3]), ("comp", rgba)):
+                        if name in writers:
+                            with annotate("sink"):
+                                writers[name].write(arr)
             b.outs.release(handle)
 
         def send_bgs(n):
@@ -449,6 +456,7 @@ class VideoPipeline:
                 slot[j].copy_(torch.from_numpy(bg_src.next()[0]))
             return b.bgs.send(n)
 
+        @spanned("eager")
         def frame_body(frames, bgs):
             """Run the per-frame body eagerly over the (N, h, w, C) device
             frames in order; returns their device-to-host handle."""
@@ -473,18 +481,19 @@ class VideoPipeline:
                 replays += 1
             else:
                 ins = (frames,) if bgs is None else (frames, bgs)
-                out, state = b.chunk(*ins, state)
+                with annotate("eager"):
+                    out, state = b.chunk(*ins, state)
             i = b.outs.open(out)
             b.outs.put(i, 0, out)
             handle = b.outs.close(i, frames.shape[0], isinstance(out, tuple))
             if (b.graph is None and self.device.type == "cuda"
                     and self.capture and not b.plan.static_skip):
-                t0 = time.perf_counter()
                 ins = (b.frames.dev if bgs is None
                        else (b.frames.dev, b.bgs.dev))
-                b.graph = ChunkGraph(b.chunk, ins, state)
+                with annotate("capture", timed=True) as span:
+                    b.graph = ChunkGraph(b.chunk, ins, state)
                 state = b.graph.state
-                capture_ms = (time.perf_counter() - t0) * 1e3
+                capture_ms = span.ms
             return handle
 
         def observe(k):
@@ -547,9 +556,10 @@ class VideoPipeline:
             staged += 1
             if staged < k:
                 continue
-            frames = b.frames.send(k)
+            with annotate("enqueue"):
+                frames = b.frames.send(k)
+                handle = chunk_body(frames, send_bgs(k))
             staged = 0
-            handle = chunk_body(frames, send_bgs(k))
             if pending is not None:
                 flush(pending)  # the host writes group t-1 while t computes
             pending = handle
@@ -561,11 +571,14 @@ class VideoPipeline:
         # Drain a partial last chunk per frame; each drained frame records
         # its time so the fps denominator includes the tail.
         if staged:
-            frames = b.frames.send(staged)
-            bgs = send_bgs(staged)
             for j in range(staged):
-                handle = frame_body(frames[j:j + 1],
-                                    None if bgs is None else bgs[j:j + 1])
+                with annotate("enqueue"):
+                    if j == 0:
+                        frames = b.frames.send(staged)
+                        bgs = send_bgs(staged)
+                    handle = frame_body(frames[j:j + 1],
+                                        None if bgs is None
+                                        else bgs[j:j + 1])
                 if pending is not None:
                     flush(pending)
                 pending = handle
