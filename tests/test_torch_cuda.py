@@ -1109,6 +1109,75 @@ def test_chunk_graph_replays_equal_eager_chunk_body(dev):
         "color": 0, "none": 1, "image": 0, "per_frame": 0, "coarse": 0})
 
 
+def test_wavefront_chunk_body_equals_per_frame_chain(dev, monkeypatch):
+    """The video_1080p chunk body at 1088x1920, its decoder a wavefront of
+    stage-steps on side streams, eager and replayed by ChunkGraph over 3
+    chunks: alpha bytes and every state tensor equal to the per-frame
+    body's chain over the same frames (``per_frame_chunk``) and to the same
+    chunk body with the per-frame decode loop; ``overlapped_steps`` 4K a
+    chunk eager and per replay; a replay's launch counts those of an eager
+    chunk, with the loop or the wavefront."""
+    from vidmat_torch.config import preset_video_1080p
+    from vidmat_torch.models.weights import build_network, default_variables
+    from vidmat_torch.pipeline import stepfactory
+    from vidmat_torch.pipeline.graph import ChunkGraph, per_frame_chunk
+
+    mcfg, pcfg = preset_video_1080p()
+    net = build_network(mcfg, default_variables(mcfg), dtype=torch.bfloat16,
+                        device=dev)
+    body, plan = stepfactory.build_serving_body(
+        net, mcfg, pcfg.refine, 1088, 1920, 0.25, alpha_only=True)
+    g = torch.Generator().manual_seed(24)
+    chunks = [torch.randint(0, 256, (4, 1088, 1920, 3), generator=g,
+                            dtype=torch.uint8).to(dev) for _ in range(3)]
+
+    def run(fn):
+        st, outs, counts, steps = plan.make_state(1), [], [], []
+        for c in chunks:
+            before = _launch_counts()
+            s0 = plan.chunk_body.overlapped_steps
+            out, st = fn(c, st)
+            counts.append(_delta(_launch_counts(), before))
+            steps.append(plan.chunk_body.overlapped_steps - s0)
+            outs.append(out.clone())
+        torch.cuda.synchronize()
+        return outs, [t.clone() for t in st], counts, steps
+
+    chain = run(per_frame_chunk(body))
+    wave = run(plan.chunk_body)
+    static_in = torch.empty_like(chunks[0])
+    graph = ChunkGraph(plan.chunk_body, static_in, plan.make_state(1))
+    assert graph.steps_per_replay == 16
+
+    def replay(c, st):
+        static_in.copy_(c)
+        return graph(st)
+
+    replayed = run(replay)
+    monkeypatch.setattr(stepfactory, "decode_frames", _per_frame_decode)
+    loop = run(plan.chunk_body)
+
+    assert wave[3] == replayed[3] == [16] * 3 and loop[3] == [0] * 3
+    assert wave[2] == replayed[2] == loop[2]
+    assert wave[2][0]["planar_conv_gru"][0] == 12
+    for name, got in (("eager", wave), ("replayed", replayed),
+                      ("per_frame_chunk", chain)):
+        for i, (a, b) in enumerate(zip(got[0], loop[0])):
+            assert torch.equal(a, b), (name, i)
+        for i, (a, b) in enumerate(zip(got[1], loop[1])):
+            assert torch.equal(a, b), (name, "state", i)
+
+
+def _per_frame_decode(net, enc, state, plain=False):
+    """A chunk body's decoder as the per-frame loop of net.decode."""
+    alphas, fgrs = [], []
+    for i in range(enc.b4.shape[0]):
+        alpha, fgr, state = net.decode(enc.frame(i), state, plain=plain)
+        alphas.append(alpha)
+        fgrs.append(fgr)
+    return alphas, fgrs, state, 0
+
+
 def test_convert_video_graph_path_equals_eager_bodies(dev):
     """convert_video on the card with the chunk graph (5 chunks and a
     drained frame at 256x512, pool 4): alpha bytes and launch counts equal

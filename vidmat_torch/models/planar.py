@@ -32,9 +32,12 @@ TPU's lane chunk and are not ported; the CUDA kernels tile the image in
 two dimensions and size their shared memory per launch.
 
 ``encode`` is the stateless half and takes a batch of frames; ``decode``
-is the recurrent half, one batch of states at a time. ``plain=True``
-calls the kernels' plain PyTorch versions on any device (the reference
-the kernel path is held against on the card).
+is the recurrent half, one batch of states at a time: the stage-steps
+``decode_stage`` (d3, d2, d1) and ``decode_head`` in order, which a
+chunk's wavefront (``pipeline/wavefront.py``) issues on their own
+streams. ``plain=True`` calls the kernels' plain PyTorch versions on
+any device (the reference the kernel path is held against on the
+card).
 """
 
 from __future__ import annotations
@@ -190,7 +193,19 @@ class PlanarNetwork(nn.Module):
         b4 = (proj.float() * gate[:, :, None, None]).to(self.dtype)
         return PlanarEncoding(x_in, rgb, tri, f1, f2, f3, b4)
 
-    def _dec_stage(self, k, name, xs, skip, h_prev):
+    #: decode's ConvGRU stage-steps in order, each with its skip
+    STAGES = (("d3", "f3"), ("d2", "f2"), ("d1", "f1"))
+
+    def decode_stage(self, j: int, enc: PlanarEncoding, xs, h_prev,
+                     plain: bool = False):
+        """Stage-step j of ``STAGES``: the 2x upsample of the previous
+        stage-step's outputs xs ([b4] before d3), then the conv and ConvGRU
+        over them and the skip. Returns (xs, h_new): the outputs the next
+        stage-step takes and the new hidden map (None on a non-recurrent
+        model)."""
+        k = _PLAIN if plain else _KERNELS
+        name, skip = self.STAGES[j]
+        skip = getattr(enc, skip)
         ups = [upsample2x(t) for t in xs] + [skip]
         p = self._p(name)
         if not self.cfg.recurrent:
@@ -211,21 +226,14 @@ class PlanarNetwork(nn.Module):
             h_new = k["gru"](mid[:, half:].contiguous(), h_prev, *gw)
         return [a, h_new], h_new
 
-    def decode(self, enc: PlanarEncoding, state: Optional[PlanarState],
-               plain: bool = False, seg: bool = False):
-        """Recurrent half: decoder stages and the full-res head on one
-        batch of encodings. Returns (alpha, fgr, new_state), or with
-        ``seg`` (seg_logits (N, H, W, 1) float32, None, new_state)."""
+    def decode_head(self, enc: PlanarEncoding, xs, plain: bool = False,
+                    seg: bool = False):
+        """The last stage-step: the 2x upsample of d1's outputs, d0 and the
+        head at full resolution, depth-to-space, the clip and the
+        foreground residual. Returns (alpha (N, H, W, 1), fgr (N, H, W,
+        3)) float32, or with ``seg`` (seg_logits (N, H, W, 1), None)."""
         k = _PLAIN if plain else _KERNELS
-        cfg = self.cfg
-        s = cfg.space_to_depth
-        h3 = h2 = h1 = None
-        if state is not None:
-            h3, h2, h1 = state
-        xs, n3 = self._dec_stage(k, "d3", [enc.b4], enc.f3, h3)
-        xs, n2 = self._dec_stage(k, "d2", xs, enc.f2, h2)
-        xs, n1 = self._dec_stage(k, "d1", xs, enc.f1, h1)
-
+        s = self.cfg.space_to_depth
         # rgb is a channel slice of the permuted frame: the kernels take
         # contiguous planes.
         cond = enc.x_in if s > 1 else enc.rgb.to(self.dtype).contiguous()
@@ -244,16 +252,34 @@ class PlanarNetwork(nn.Module):
         og = out.float()
         if s > 1:
             og = depth_to_space(og, s)
-        new_state = PlanarState(n3, n2, n1) if cfg.recurrent else state
         if seg:
-            return og[:, 0:1].permute(0, 2, 3, 1), None, new_state
+            return og[:, 0:1].permute(0, 2, 3, 1), None
         alpha = og[:, 0:1].clamp(0.0, 1.0)
         fgr = (og[:, 1:4] + enc.rgb).clamp(0.0, 1.0)
         if enc.tri is not None:
             # Known foreground and background are pinned.
             alpha = torch.where(enc.tri >= 0.75, 1.0,
                                 torch.where(enc.tri <= 0.25, 0.0, alpha))
-        return alpha.permute(0, 2, 3, 1), fgr.permute(0, 2, 3, 1), new_state
+        return alpha.permute(0, 2, 3, 1), fgr.permute(0, 2, 3, 1)
+
+    def new_state(self, hs, state: Optional[PlanarState]):
+        """The carry after a frame whose stage-steps gave the hidden maps
+        hs (d3, d2, d1): ``state`` itself on a non-recurrent model."""
+        return PlanarState(*hs) if self.cfg.recurrent else state
+
+    def decode(self, enc: PlanarEncoding, state: Optional[PlanarState],
+               plain: bool = False, seg: bool = False):
+        """Recurrent half: the stage-steps d3, d2, d1 and the full-res
+        head in order, on one batch of encodings. Returns (alpha, fgr,
+        new_state), or with ``seg`` (seg_logits (N, H, W, 1) float32,
+        None, new_state)."""
+        hs = (None,) * len(self.STAGES) if state is None else tuple(state)
+        xs, new = [enc.b4], []
+        for j, h in enumerate(hs):
+            xs, h = self.decode_stage(j, enc, xs, h, plain)
+            new.append(h)
+        alpha, fgr = self.decode_head(enc, xs, plain, seg)
+        return alpha, fgr, self.new_state(new, state)
 
     def forward(self, frame: torch.Tensor,
                 state: Optional[PlanarState] = None, plain: bool = False,

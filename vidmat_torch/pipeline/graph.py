@@ -16,7 +16,10 @@ captured region) and the outputs, which each replay rewrites.
 The kernel wrappers count launches in Python, where they enqueue. A
 capture only records the launches, so ``ChunkGraph`` takes the counts the
 capture added off again and adds them back on every replay, which is
-where those kernels run.
+where those kernels run. A body's ``overlapped_steps`` (the planar chunk
+body's stage-steps on side streams, ``pipeline/wavefront.py``) is
+counted the same way; the side streams' forks and joins are the graph's
+edges, and its branches replay concurrently.
 
 A graph replays on the caller's current stream, and captures on the
 current device: a mesh position (``parallel/mesh.py``) builds and replays
@@ -137,7 +140,8 @@ class ChunkGraph:
     recurrent state to go on from (a tuple of tensors, or None); its
     tensors become the graph's static state. A failed capture raises.
     ``per_replay`` lists (wrapper, launches, mode launches) of one
-    replay."""
+    replay; ``steps_per_replay`` the body's ``overlapped_steps`` of one
+    replay (0 for a body that has none)."""
 
     def __init__(self, body: Callable, static_in, state):
         self.static_in = static_in
@@ -145,6 +149,8 @@ class ChunkGraph:
         self.state = state
         fns = kernel_wrappers()
         before = _counts(fns)
+        self.body = body
+        steps = getattr(body, "overlapped_steps", None)
         self.graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize()
         # No garbage collection inside the capture: a graph freed there (one
@@ -165,6 +171,10 @@ class ChunkGraph:
             if collecting:
                 gc.enable()
         self.out = out
+        self.steps_per_replay = 0
+        if steps is not None:
+            self.steps_per_replay = body.overlapped_steps - steps
+            body.overlapped_steps = steps
         self.per_replay = []
         for fn, (n0, m0), (n1, m1) in zip(fns, before, _counts(fns)):
             fn.launches = n0
@@ -192,6 +202,8 @@ class ChunkGraph:
         the static output and state, valid until the next replay."""
         self.load_state(state)
         self.graph.replay()
+        if self.steps_per_replay:
+            self.body.overlapped_steps += self.steps_per_replay
         for fn, n, modes in self.per_replay:
             fn.launches += n
             for k, v in modes.items():

@@ -28,7 +28,9 @@ The body maps one frame batch through the serving chain:
 On the planar net the fused packed plan also carries ``chunk_body``,
 which runs the stateless stages (ingest, encoder and bottleneck, GF
 coefficients, the fused tail) once over a K-frame chunk and only the
-recurrent decoder per frame (vidmat/pipeline/stepfactory.py:656-693).
+recurrent decoder per frame (vidmat/pipeline/stepfactory.py:656-693);
+on the card the frames' decoder stage-steps run as a wavefront on side
+streams (``pipeline/wavefront.py``).
 The fused packed plan carries its two stages too (``fused_stage0``:
 ingest, the net and the coefficient grids; ``fused_stage1``: the fused
 tail; :500-541): the per-frame body is the one after the other, and the
@@ -104,6 +106,7 @@ from vidmat_torch.ops.refine import (Background, fused_refine_composite,
                                      fused_refine_float,
                                      fused_refine_float_plain)
 from vidmat_torch.ops.resize import downsample_ratio_shape, resize_bilinear
+from vidmat_torch.pipeline.wavefront import decode_frames
 from vidmat_torch.refine.tiling import (TileLayout, tile_frame,
                                         tiled_guided_upsample, untile_frame)
 
@@ -623,19 +626,20 @@ def build_serving_body(
     chunk_body = None
     if use_fused and planar and not use_static_skip and not bg_dynamic:
         # Stage 0 over the chunk with its stateless parts batched (ingest,
-        # encoder, the coefficients; the decoder per frame), then stage 1
-        # once (stepfactory.py:578-591).
+        # encoder, the coefficients; the decoder per frame, as a wavefront
+        # of stage-steps on the card), then stage 1 once
+        # (stepfactory.py:578-591).
         @torch.inference_mode()
         def chunk_body(frames_u8: torch.Tensor, state):
             x = ingest_x(frames_u8)
             enc = net.encode(prep_net_input(x), plain=not kernels)
-            alphas, fgrs = [], []
-            for i in range(frames_u8.shape[0]):
-                alpha, fgr, state = net.decode(enc.frame(i), state,
-                                               plain=not kernels)
-                alphas.append(alpha[:, :net_h, :net_w].float())
-                fgrs.append(fgr[:, :net_h, :net_w].float())
-            ma, mb = coeffs(x, torch.cat(alphas), torch.cat(fgrs))
+            alphas, fgrs, state, overlapped = decode_frames(
+                net, enc, state, plain=not kernels)
+            # The name binds the plan's callable (the float32 wrapper where
+            # there is one), which carries the count.
+            chunk_body.overlapped_steps += overlapped
+            ma, mb = coeffs(x, torch.cat(alphas)[:, :net_h, :net_w],
+                            torch.cat(fgrs)[:, :net_h, :net_w])
             return fused_out(frames_u8, ma, mb,
                              bg_from_x(x) if use_bg_blur else bg), state
 
@@ -654,6 +658,10 @@ def build_serving_body(
         if use_fused:
             fused_stage0 = in_full_fp32(fused_stage0)
             fused_stage1 = in_full_fp32(fused_stage1)
+    if chunk_body is not None:
+        # Stage-steps issued on a side stream (pipeline/wavefront.py): 4 a
+        # frame on the card, 0 on the CPU; ChunkGraph adds a replay's.
+        chunk_body.overlapped_steps = 0
     if bg_dynamic:
         def body(frame, state, bg_frame):
             # bg_frame: (N, h, w, 3) float32 in [0, 1]; the tails take one
