@@ -1,9 +1,11 @@
-"""mfu.<tag>: the net's operations a frame (``yardstick.net_flops_per_frame``)
-times the frames completed, over the card's busy time times the bfloat16
-peak."""
+"""mfu.<tag>: the net's operations a frame (``flops_per_frame`` of
+``layers/<name>.py``, the module the configuration names as its
+``"net"``) times the frames completed, over the card's busy time times
+the bfloat16 peak."""
 
-from portbench.yardstick import (BF16_FLOPS_PER_S, net_flops_per_frame,
-                                 net_shape)
+import importlib
+
+from portbench.yardstick import BF16_FLOPS_PER_S
 
 
 def read(run):
@@ -13,6 +15,7 @@ def read(run):
     t = tr.busy_s()
     if t <= 0 or run.frames == 0:
         return None
-    flops = net_flops_per_frame(net_shape(run.cell.config,
-                                          run.cell.traffic))
+    config = run.cell.config
+    net = importlib.import_module(f"portbench.layers.{config['net']}")
+    flops = net.flops_per_frame(config, run.cell.traffic)
     return 100.0 * flops * run.frames / (t * BF16_FLOPS_PER_S)

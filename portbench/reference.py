@@ -185,6 +185,40 @@ class Net:
                 (out[:, 1:4] + rgb).clamp(0.0, 1.0))
 
 
+# ---- what ``weights.py`` asks of the architecture to calibrate its head ----
+
+#: the head's leaves (``kernel`` and ``bias`` under this path)
+HEAD = "params/head"
+
+
+def alpha_channels(n: int) -> np.ndarray:
+    """Which of the head's n output channels are alpha: channel order
+    [dy, dx, c] before depth-to-space, c = 0 the alpha."""
+    return np.arange(n) % 4 == 0
+
+
+def head_output(variables: dict, config: dict, traffic: dict,
+                frames: np.ndarray, device) -> torch.Tensor:
+    """The head's raw output (N, C, h, w), before depth-to-space and
+    cropped to the net's grid, at the last of ``frames`` ((T, S, h, w, 3)
+    uint8, run in order from a zero state)."""
+    geo = geometry(config, traffic)
+    net = Net(variables, config["model"], device)
+    s = net.s
+    state = None
+    with torch.inference_mode(), full_float32():
+        for t in range(frames.shape[0]):
+            raw = torch.from_numpy(np.ascontiguousarray(frames[t]))
+            _, _, xp = prepare(raw.to(device), geo)
+            x_in, rgb, f1, f2, f3, b4 = net.encode(xp)
+            if state is None:
+                state = net.zero_state(raw.shape[0], geo.grid_h, geo.grid_w,
+                                       device)
+            y1, state = net.step(f1, f2, f3, b4, state)
+        return net.head_raw(y1, x_in, rgb)[:, :, :geo.net_h // s,
+                                           :geo.net_w // s]
+
+
 def prepare(raw: torch.Tensor, geo):
     """(N, h, w, 3) uint8 frames on the device -> the frames padded to the
     bucket (N, 3, H, W) in [0, 1], the coarse frames and the net's padded

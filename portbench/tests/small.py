@@ -1,25 +1,43 @@
 """Cells cut to a size a CPU test can run: the same files, the frames
-and the streams fewer and smaller, the chunks shorter."""
+and the streams fewer and smaller, the chunks shorter.
+
+A cell's test sizes are a file of its own, ``sizes/<cell>.json``, found
+by the cell's name as its limits are: ``{"small": [frame size, pool
+frames, streams, chunk], "control": [...]}``. The CPU tests run over the
+cells of BENCHMARK.json that have one."""
 
 from __future__ import annotations
 
 import copy
+import os
+from typing import Dict, List
 
 from portbench import harness
 
-#: frame size, pool frames, streams, chunk of each cell at the small size
-SMALL = {
-    "video_1080p.convert_alpha": ([120, 256], 6, 1, 2),
-    "video_1080p.multistream_8": ([128, 256], 6, 2, 1),
-}
 
+def cell_sizes(name: str) -> dict:
+    """The cell's ``sizes/<cell>.json``."""
+    return harness.load_json(harness.bench_file("sizes", f"{name}.json"))
+
+
+def sized_cells() -> List[str]:
+    """The workloads of BENCHMARK.json that have a sizes file, sorted."""
+    spec = harness.load_json(os.path.join(harness.ROOT, "BENCHMARK.json"))
+    return sorted(w["name"] for w in spec["workloads"]
+                  if os.path.exists(harness.bench_file(
+                      "sizes", f"{w['name']}.json")))
+
+
+def by_kind(kind: str) -> Dict[str, list]:
+    return {name: cell_sizes(name)[kind] for name in sized_cells()}
+
+
+#: frame size, pool frames, streams, chunk of each cell at the small size
+SMALL = by_kind("small")
 
 #: the control's size: larger, since the control alone runs (the
 #: reference twice), and a max over more values is nearer the card's
-CONTROL = {
-    "video_1080p.convert_alpha": ([376, 640], 6, 1, 4),
-    "video_1080p.multistream_8": ([512, 896], 6, 4, 1),
-}
+CONTROL = by_kind("control")
 
 
 def small_cell(name: str, dtype: str = None, sizes=SMALL) -> harness.Cell:

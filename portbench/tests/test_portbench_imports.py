@@ -10,6 +10,7 @@ import sys
 import pytest
 
 from portbench import harness
+from portbench.tests.small import SMALL
 
 FILES = sorted(os.path.join(d, f) for d, _, fs in os.walk(harness.BENCH_DIR)
                for f in fs if f.endswith(".py"))
@@ -37,15 +38,16 @@ def test_no_forbidden_import(path):
         assert "vidmat_torch" not in tops
 
 
-def test_a_run_loads_no_jax():
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_a_run_loads_no_jax(name):
     """A small cell on the CPU in a fresh interpreter, then sys.modules."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "from portbench.tests.small import run_small\n"
         "from portbench.harness import loaded_forbidden\n"
-        "r = run_small('video_1080p.convert_alpha', seconds=0.5)\n"
+        "r = run_small(%r, seconds=0.5)\n"
         "assert r['correct'], r\n"
-        "print('FORBIDDEN', loaded_forbidden())\n" % harness.ROOT)
+        "print('FORBIDDEN', loaded_forbidden())\n" % (harness.ROOT, name))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600, cwd=harness.ROOT)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -62,6 +62,12 @@ def test_cell_finds_its_files(name):
     drv = importlib.import_module(
         f"portbench.drivers.{cell.traffic['driver']}")
     assert callable(drv.drive)
+    net = importlib.import_module(f"portbench.layers.{cell.config['net']}")
+    assert net.work(cell.config, cell.traffic)
+    assert net.flops_per_frame(cell.config, cell.traffic) > 0
+    ref = importlib.import_module(f"portbench.{cell.config['reference']}")
+    assert callable(ref.run) and callable(ref.head_output)
+    assert callable(ref.alpha_channels) and ref.HEAD
     for m in cell.metrics(False) + cell.metrics(True):
         family = m["name"].split(".", 1)[0]
         mod = importlib.import_module(f"portbench.metrics.{family}")
@@ -73,23 +79,69 @@ def test_cell_finds_its_files(name):
     assert cell.limits["limits"]
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in SPEC["configs"]])
-def test_config_file_is_the_published_preset(name):
-    from vidmat_torch import config as vc
+#: a public file of weights: what the ``source`` of a configuration without
+#: a shipped checkpoint names, the file its ``variables`` are copied from
+WEIGHTS_FILE = re.compile(
+    r"https://\S+\.(pth|pt|ckpt|safetensors|npz|onnx)(\s|$|[;,)])")
 
-    entry = [c for c in SPEC["configs"] if c["name"] == name][0]
-    cfg = harness.load_json(os.path.join(harness.ROOT, entry["file"]))
-    m, p = vc.PRESETS[name]()
+
+def check_published(entry: dict, cfg: dict, presets) -> None:
+    """A configuration file against what it names: its model and pipeline
+    are its preset's (``presets[cfg["name"]]()``), uncut, and its
+    variables' shapes are the shipped checkpoint's (``"checkpoint"``:
+    ``vidmat_torch/checkpoints/<name>.npz``). A file that names no
+    checkpoint states the shapes itself, copied from the public weights
+    file its ``source`` names; nothing of the port stands in for them."""
+    m, p = presets[cfg["name"]]()[:2]
     as_json = json.loads(json.dumps({"model": dataclasses.asdict(m),
                                      "pipeline": dataclasses.asdict(p)}))
     assert cfg["model"] == as_json["model"]
     assert cfg["pipeline"] == as_json["pipeline"]
     assert entry["reduced"] == []
-    ckpt = {1: "synthetic_demo", 2: "fast_demo"}[m.space_to_depth]
-    z = np.load(os.path.join(harness.ROOT, "vidmat_torch", "checkpoints",
-                             f"{ckpt}.npz"))
-    shipped = {k: list(z[k].shape) for k in z.files}
-    assert cfg["variables"] == shipped
+    if cfg["checkpoint"] is None:
+        assert WEIGHTS_FILE.search(cfg["source"]), cfg["source"]
+        assert cfg["variables"]
+        for path, shape in cfg["variables"].items():
+            assert shape and all(type(d) is int and d > 0 for d in shape), \
+                path
+    else:
+        z = np.load(os.path.join(harness.ROOT, "vidmat_torch", "checkpoints",
+                                 f"{cfg['checkpoint']}.npz"))
+        shipped = {k: list(z[k].shape) for k in z.files}
+        assert cfg["variables"] == shipped
+
+
+def config_file(name: str):
+    entry = [c for c in SPEC["configs"] if c["name"] == name][0]
+    return entry, harness.load_json(os.path.join(harness.ROOT,
+                                                 entry["file"]))
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in SPEC["configs"]])
+def test_config_file_is_the_published_preset(name):
+    from vidmat_torch import config as vc
+
+    entry, cfg = config_file(name)
+    check_published(entry, cfg, vc.PRESETS)
+
+
+def test_config_without_checkpoint_states_its_shapes():
+    """The ``"checkpoint": null`` branch takes the file's own shapes only
+    where its ``source`` names the public weights file they come from:
+    video_1080p's, which names none, fails without its checkpoint, and
+    passes with a weights file named; a shape of 0 fails."""
+    from vidmat_torch import config as vc
+
+    entry, cfg = config_file("video_1080p")
+    assert cfg["checkpoint"] == "fast_demo"
+    cfg = dict(cfg, checkpoint=None)
+    with pytest.raises(AssertionError):
+        check_published(entry, cfg, vc.PRESETS)
+    cfg["source"] += "; https://example.org/video_1080p/weights.npz"
+    check_published(entry, cfg, vc.PRESETS)
+    wrong = dict(cfg["variables"], **{"params/head/bias": [0]})
+    with pytest.raises(AssertionError):
+        check_published(entry, dict(cfg, variables=wrong), vc.PRESETS)
 
 
 def test_multistream_traffic_is_the_published_stream_config():

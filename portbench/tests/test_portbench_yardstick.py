@@ -9,6 +9,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from portbench import harness, reference, weights, yardstick as y
+from portbench.layers import net as net_layer
 
 
 def test_conv_site_by_hand():
@@ -88,5 +89,4 @@ def test_net_flops_match_a_counter_on_the_reference(s2d):
         y1, _ = net.step(f1, f2, f3, b4, st)
         net.head(y1, x_in, rgb)
     counted = fc.get_total_flops()
-    shape = y.net_shape(cfg, {})
-    assert y.net_flops_per_frame(shape) == counted
+    assert net_layer.flops_per_frame(cfg, {}) == counted

@@ -6,10 +6,18 @@ kind, so that activations stay of order one through the depth and the
 alpha head lands inside (0, 1) on most pixels: convolutions He-normal
 (the head's alpha channels biased to 0.5), BatchNorm scale near 1 and
 bias, mean near 0, variance near 1.
+
+What belongs to an architecture comes from the reference module the
+configuration names (``"reference"``: ``portbench/<name>.py``): ``HEAD``,
+the path of the head's ``kernel`` and ``bias``; ``alpha_channels(n)``,
+which of its n output channels are alpha; ``head_output(variables,
+config, traffic, frames, device)``, its raw output (N, C, h, w) at the
+last of the calibration frames.
 """
 
 from __future__ import annotations
 
+import importlib
 import math
 from typing import Dict
 
@@ -36,11 +44,17 @@ def _nest(flat: Dict[str, np.ndarray]) -> dict:
     return out
 
 
+def architecture(config: dict):
+    """The reference module the configuration names."""
+    return importlib.import_module(f"portbench.{config['reference']}")
+
+
 def make_variables(shapes: Dict[str, list], seed: int, device,
                    config: dict, traffic: dict, frames: np.ndarray) -> dict:
     """The nested variables for ``shapes`` ({"params/.../kernel": [kh, kw,
     cin, cout], ...}) from ``seed``, float32 numpy leaves, the head
     calibrated on ``frames`` (see ``calibrate``)."""
+    ref = architecture(config)
     g = generator(seed, 1 << 20, device)
     sizes = [math.prod(s) for s in shapes.values()]
     draw = torch.randn((sum(sizes),), generator=g, device=device,
@@ -50,13 +64,12 @@ def make_variables(shapes: Dict[str, list], seed: int, device,
         z = draw[at:at + size].reshape(shape)
         at += size
         leaf = path.rsplit("/", 1)[1]
-        head = path.startswith("params/head/")
+        head = path.startswith(ref.HEAD + "/")
         if leaf == "kernel":
             fan_in = shape[0] * shape[1] * shape[2]
             v = z * math.sqrt(2.0 / fan_in)
         elif leaf == "bias" and head:
-            # channel order [dy, dx, c]: c = 0 is the alpha
-            v = 0.1 * z + np.where(np.arange(shape[0]) % 4 == 0, 0.5, 0.0)
+            v = 0.1 * z + np.where(ref.alpha_channels(shape[0]), 0.5, 0.0)
         elif leaf == "bias":
             v = 0.1 * z
         elif leaf == "scale":
@@ -82,28 +95,14 @@ def calibrate(variables: dict, config: dict, traffic: dict,
     FGR_STD. Random BatchNorm statistics otherwise shift the head's output
     by seed, and on some seeds the alpha clips at 0 or 1 on most pixels,
     where no comparison can see the net."""
-    from portbench.reference import Net, full_float32, prepare
-    from portbench.yardstick import geometry
-
-    geo = geometry(config, traffic)
-    net = Net(variables, config["model"], device)
-    s = net.s
-    state = None
-    with torch.inference_mode(), full_float32():
-        for t in range(frames.shape[0]):
-            raw = torch.from_numpy(np.ascontiguousarray(frames[t]))
-            _, _, xp = prepare(raw.to(device), geo)
-            x_in, rgb, f1, f2, f3, b4 = net.encode(xp)
-            if state is None:
-                state = net.zero_state(raw.shape[0], geo.grid_h, geo.grid_w,
-                                       device)
-            y1, state = net.step(f1, f2, f3, b4, state)
-        out = net.head_raw(y1, x_in, rgb)[:, :, :geo.net_h // s,
-                                          :geo.net_w // s]
-        mean = out.mean(dim=(0, 2, 3)).double().cpu().numpy()
-        std = out.std(dim=(0, 2, 3)).double().cpu().numpy()
-    head = variables["params"]["head"]
-    alpha = np.arange(mean.shape[0]) % 4 == 0
+    ref = architecture(config)
+    out = ref.head_output(variables, config, traffic, frames, device)
+    mean = out.mean(dim=(0, 2, 3)).double().cpu().numpy()
+    std = out.std(dim=(0, 2, 3)).double().cpu().numpy()
+    head = variables
+    for key in ref.HEAD.split("/"):
+        head = head[key]
+    alpha = ref.alpha_channels(mean.shape[0])
     gain = np.where(alpha, ALPHA_STD, FGR_STD) / np.maximum(std, 1e-6)
     target = np.where(alpha, ALPHA_MEAN, 0.0)
     head["bias"] = (target - gain * (mean - head["bias"])).astype(np.float32)

@@ -11,7 +11,7 @@ multiply-adds the convolutions need.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Sequence
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -35,19 +35,6 @@ class Work:
         """The least time the card could take: the larger of the bytes
         over the memory's rate and the operations over the peak."""
         return max(self.bytes / HBM_BYTES_PER_S, self.ops / self.peak)
-
-
-@dataclasses.dataclass(frozen=True)
-class NetShape:
-    """The network of a configuration at one input grid: channels, the
-    space-to-depth factor and the (padded) grid it runs on."""
-
-    enc: Sequence[int]
-    dec: Sequence[int]
-    s2d: int
-    in_ch: int
-    height: int     # the net's input grid, padded to 16 * s2d
-    width: int
 
 
 def conv_site(name: str, n: int, cins: Sequence[int], h: int, w: int,
@@ -91,50 +78,6 @@ def conv_gru_site(name: str, n: int, cins: Sequence[int], h: int, w: int,
     macs = px * 9 * (cout * cin + 2 * c * 2 * c + c * 2 * c)
     return Work(name, b_in + wbytes + 8 * cout + 3 * hbytes + 4 * 3 * c,
                 2.0 * macs, BF16_FLOPS_PER_S)
-
-
-def encoder_work(net: NetShape, n: int) -> List[Work]:
-    """The stateless half over n frames as the planar kernels take it: the
-    stem, the three stride-2 pairs and the bottleneck's 1x1 projection."""
-    c, s = net.enc, net.s2d
-    h, w = net.height // s, net.width // s
-    x_ch = net.in_ch * s * s
-    out = [conv_site("stem", n, [x_ch], h, w, c[0], 3, 2)]
-    h, w = h // 2, w // 2
-    for i, name in enumerate(("s2", "s3", "s4")):
-        out.append(conv2_site(name, n, [c[i]], h, w, c[i + 1], c[i + 1], 2))
-        h, w = h // 2, w // 2
-    out.append(conv_site("proj", n, [c[3]], h, w, c[3], 1, 1))
-    return out
-
-
-def decoder_work(net: NetShape, n: int) -> List[Work]:
-    """The recurrent half for one time step of n streams: the three
-    upsample-concat-conv-ConvGRU stages and the full-resolution d0 + head
-    pair (the conditioning is the packed input, or the RGB at s2d 1)."""
-    c, d, s = net.enc, net.dec, net.s2d
-    h0, w0 = net.height // s, net.width // s
-    grids = [(h0 >> k, w0 >> k) for k in range(5)]
-    out = []
-    prev = [c[3]]                      # b4
-    for stage, (skip, dch, lvl) in zip(("d3", "d2", "d1"),
-                                       zip(c[2::-1], d[:3], (3, 2, 1))):
-        hh, ww = grids[lvl]
-        out.append(conv_gru_site(stage, n, prev + [skip], hh, ww, dch))
-        prev = [dch // 2, dch // 2]    # the kept half and the new state
-    cond = net.in_ch * s * s if s > 1 else 3
-    out.append(conv2_site("d0+head", n, prev + [cond], h0, w0, d[3],
-                          4 * s * s, 1))
-    return out
-
-
-def net_flops_per_frame(net: NetShape) -> float:
-    """The net's operations a frame: two per multiply-add of every
-    convolution (the GRUs' gates and the bottleneck's gate, a 1x1 on the
-    pooled vector, included; BatchNorm folded away)."""
-    gate = 2.0 * net.enc[3] * net.enc[3]
-    return gate + sum(wk.ops for wk in encoder_work(net, 1)
-                      + decoder_work(net, 1))
 
 
 def ingest_work(n: int, h: int, w: int, pool: int) -> Work:
@@ -210,15 +153,11 @@ def geometry(config: dict, traffic: dict) -> Geometry:
     full = (net_h, net_w) == (h, w)
     pool = (h // net_h if (not full and h % net_h == 0 and w % net_w == 0
                            and h // net_h == w // net_w) else 0)
-    mult = 16 * int(config["model"]["space_to_depth"])
+    # a net that packs no pixels (no space-to-depth) pads to 16
+    mult = 16 * int(config["model"].get("space_to_depth", 1))
     steps = int(traffic.get("chunk_size",
                             config["pipeline"]["chunk_size"]))
     return Geometry(h, w, net_h, net_w, net_h + (-net_h % mult),
                     net_w + (-net_w % mult), pool, full, steps,
                     int(traffic.get("streams", 1)))
 
-
-def net_shape(config: dict, traffic: dict) -> NetShape:
-    m, geo = config["model"], geometry(config, traffic)
-    return NetShape(tuple(m["enc_channels"]), tuple(m["dec_channels"]),
-                    int(m["space_to_depth"]), 3, geo.grid_h, geo.grid_w)
